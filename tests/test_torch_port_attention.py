@@ -14,6 +14,7 @@ import torch
 
 from volta_tpu.ops import attention as jattn
 from volta_tpu.ops import pallas_attention as pa
+from volta_tpu_torch.ops import LAUNCHES
 from volta_tpu_torch.ops import attention as tattn
 from volta_tpu_torch.ops import attention_cuda
 
@@ -90,13 +91,13 @@ def test_wrapper_takes_twin_on_cpu_only():
     q, k, v, mask = _inputs(b, lq, lk, h, d, seed=1)
     flat = lambda x: torch.from_numpy(x).reshape(x.shape[0], x.shape[1], -1)
     bias = tattn.additive_mask(torch.from_numpy(mask)).reshape(b, lk)
-    before = attention_cuda.LAUNCHES
+    before = dict(LAUNCHES)
     out = attention_cuda.attention_fwd(flat(q), flat(k), flat(v), bias,
                                        0.125, h)
     ref = attention_cuda.attention_fwd_ref(flat(q), flat(k), flat(v), bias,
                                            0.125, h)
     assert torch.equal(out, ref)
-    assert attention_cuda.LAUNCHES == before  # the twin is no launch
+    assert LAUNCHES == before  # the twin is no launch
     # a tensor on neither the CPU nor a card is refused, not computed
     meta = lambda x: flat(x).to("meta")
     with pytest.raises(ValueError, match="CUDA device"):

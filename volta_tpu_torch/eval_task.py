@@ -9,8 +9,9 @@ Counterpart of the root ``eval_task.py`` for the VL-classifier path:
 It logs ``eval loss … score …`` and writes ``<split>_result.json`` as the
 JAX CLI does. ``--device`` defaults to ``cuda`` and never falls back to the
 CPU; ``--from_pretrained`` takes a ``torch.save``d state dict of the port
-(``convert.state_dict_from_flax`` makes one from Flax params). Without it
-the weights are random, drawn from ``--seed``.
+(``convert.state_dict_from_flax`` makes one from Flax params), or a
+``train_task`` checkpoint (its ``train_state.pt`` or the directory holding
+it). Without it the weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -99,8 +100,12 @@ def setup(args):
 
     model = VoltaForVLTasks(cfg, task_cfg, (task,))
     if args.from_pretrained:
-        sd = torch.load(args.from_pretrained, map_location="cpu",
-                        weights_only=True)
+        path = args.from_pretrained
+        if os.path.isdir(path):  # a train_task ckpt/ or best/ directory
+            path = os.path.join(path, "train_state.pt")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd.get("model"), dict):  # a train_task train state
+            sd = sd["model"]
         model.load_state_dict(sd, strict=True)
         logger.info("loaded %d tensors", len(sd))
     else:

@@ -11,7 +11,7 @@ from torch import nn
 
 from volta_tpu.config import VoltaConfig
 
-from .layers import Dense, Embed, LayerNorm
+from .layers import Dense, Embed, LayerNorm, hash_dropout, site_seed
 
 
 def compute_dtype(cfg: VoltaConfig) -> torch.dtype:
@@ -26,11 +26,15 @@ class UniterEmbeddings(nn.Module):
     Dtype flow, as in the JAX module: the text sum and its LN are float32,
     then cast; ``feat_dense``/``loc_dense`` and their LNs run in the compute
     dtype; adding the float32 type row promotes to float32 before
-    ``v_layer_norm`` and the final cast."""
+    ``v_layer_norm`` and the final cast. In training mode the text and the
+    vision embeddings each get dropout at ``hidden_dropout_prob`` before
+    the cast (embeddings.py:306,317), hash dropout here where the JAX
+    module draws Flax ``nn.Dropout`` masks."""
 
     def __init__(self, cfg: VoltaConfig):
         super().__init__()
         self.dtype = compute_dtype(cfg)
+        self.rate = cfg.hidden_dropout_prob
         std = cfg.initializer_range
         self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size, std,
                                      zero_pad_row=True)
@@ -47,7 +51,7 @@ class UniterEmbeddings(nn.Module):
         self.loc_ln = LayerNorm(cfg.hidden_size)
         self.v_layer_norm = LayerNorm(cfg.hidden_size)
 
-    def forward(self, input_ids, feats, locs, token_type_ids):
+    def forward(self, input_ids, feats, locs, token_type_ids, seeds=None):
         b, k = feats.shape[:2]
         seq = input_ids.shape[1]
         position_ids = torch.arange(seq, device=input_ids.device)
@@ -55,12 +59,18 @@ class UniterEmbeddings(nn.Module):
              + self.position_embeddings(position_ids)[None]
              + self.token_type_embeddings(token_type_ids))
         t = self.layer_norm(t)
+        seed = site_seed(self, self.rate, seeds)
+        if seed is not None:
+            t = hash_dropout(t, seed, self.rate)
 
         img = self.feat_ln(self.feat_dense(feats))
         loc = self.loc_ln(self.loc_dense(locs))
         typ = self.token_type_embeddings(
             torch.ones((b, k), dtype=torch.long, device=feats.device))
         v = self.v_layer_norm(img + loc + typ)
+        seed = site_seed(self, self.rate, seeds)
+        if seed is not None:
+            v = hash_dropout(v, seed, self.rate)
         return t.to(self.dtype), v.to(self.dtype)
 
 

@@ -5,9 +5,12 @@ its parameters across modalities and has one LayerNorm (UNITER, VisualBERT,
 VL-BERT), the encoder is plain BERT over the concatenated [text ‖ vision]
 sequence: ``GatedEncoder``'s fused loop (encoder.py:588-613) over
 ``GatedAttentionSublayer.fused`` (:140-187, deterministic branch) and
-``GatedFeedForwardSublayer.fused`` (:373-379). That is the path ported here;
-a dual-stream plan or ``use_scan`` raises at construction. Submodules are
-named after the Flax tree (``attn_0``, ``ff_1``, ...).
+``GatedFeedForwardSublayer.fused`` (:373-379). That is the path ported here,
+in both modes: in training mode each sublayer runs attention dropout inside
+the attention kernel and hash dropout in its residual LayerNorm, one seed
+per site from the forward's ``DropoutSeeds``. A dual-stream plan or
+``use_scan`` raises at construction. Submodules are named after the Flax
+tree (``attn_0``, ``ff_1``, ...).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from volta_tpu.config import SublayerSpec, VoltaConfig
 
 from ..ops.attention import fused_attention
 from .embeddings import compute_dtype
-from .layers import ACT2FN, Dense, LayerNorm
+from .layers import ACT2FN, Dense, LayerNorm, site_seed
 
 
 def _fully_fused(spec: SublayerSpec) -> bool:
@@ -34,13 +37,16 @@ def _fully_fused(spec: SublayerSpec) -> bool:
 
 class GatedAttentionSublayer(nn.Module):
     """Self-attention over the joined sequence: Q/K/V dense -> attention on
-    the natural [B, L, H·D] layout -> out_dense -> LN(o + x)."""
+    the natural [B, L, H·D] layout (dropout on the probabilities in
+    training) -> out_dense -> LN(dropout(o) + x)."""
 
     def __init__(self, cfg: VoltaConfig, spec: SublayerSpec):
         super().__init__()
         std, dt = cfg.initializer_range, compute_dtype(cfg)
         self.num_heads = spec.num_heads
         self.head_dim = spec.attn_hidden_size // spec.num_heads
+        self.attn_rate = cfg.attention_probs_dropout_prob
+        self.hidden_rate = cfg.hidden_dropout_prob
         self.query = Dense(cfg.hidden_size, spec.attn_hidden_size, std, dt)
         self.key = Dense(cfg.hidden_size, spec.attn_hidden_size, std, dt)
         self.value = Dense(cfg.hidden_size, spec.attn_hidden_size, std, dt)
@@ -48,31 +54,40 @@ class GatedAttentionSublayer(nn.Module):
                                dt)
         self.out_ln = LayerNorm(cfg.hidden_size)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, seeds=None):
         b, l, _ = x.shape
         h, d = self.num_heads, self.head_dim
         q = self.query(x).view(b, l, h, d)
         k = self.key(x).view(b, l, h, d)
         v = self.value(x).view(b, l, h, d)
-        ctx = fused_attention(q, k, v, bias, 1.0 / math.sqrt(d))
-        return self.out_ln(self.out_dense(ctx.reshape(b, l, h * d)) + x)
+        attn_seed = site_seed(self, self.attn_rate, seeds)
+        ctx = fused_attention(q, k, v, bias, 1.0 / math.sqrt(d),
+                              self.attn_rate if attn_seed is not None
+                              else 0.0, attn_seed)
+        return self.out_ln(self.out_dense(ctx.reshape(b, l, h * d)),
+                           residual=x, drop_rate=self.hidden_rate,
+                           seed=site_seed(self, self.hidden_rate, seeds))
 
 
 class GatedFeedForwardSublayer(nn.Module):
-    """FFN over the joined sequence: LN(out_dense(act(inter_dense(x))) + x)."""
+    """FFN over the joined sequence:
+    LN(dropout(out_dense(act(inter_dense(x)))) + x)."""
 
     def __init__(self, cfg: VoltaConfig, spec: SublayerSpec):
         super().__init__()
         std, dt = cfg.initializer_range, compute_dtype(cfg)
         self.act = ACT2FN[cfg.hidden_act]
+        self.hidden_rate = cfg.hidden_dropout_prob
         self.inter_dense = Dense(cfg.hidden_size, spec.intermediate_size, std,
                                  dt)
         self.out_dense = Dense(spec.intermediate_size, cfg.hidden_size, std,
                                dt)
         self.out_ln = LayerNorm(cfg.hidden_size)
 
-    def forward(self, x):
-        return self.out_ln(self.out_dense(self.act(self.inter_dense(x))) + x)
+    def forward(self, x, seeds=None):
+        return self.out_ln(self.out_dense(self.act(self.inter_dense(x))),
+                           residual=x, drop_rate=self.hidden_rate,
+                           seed=site_seed(self, self.hidden_rate, seeds))
 
 
 class GatedEncoder(nn.Module):
@@ -99,14 +114,14 @@ class GatedEncoder(nn.Module):
             self.add_module(name, layer)
             self.names.append(name)
 
-    def forward(self, t, v, t_bias, v_bias):
+    def forward(self, t, v, t_bias, v_bias, seeds=None):
         x = torch.cat([t, v], dim=1)
         bias = torch.cat([t_bias, v_bias], dim=-1)
         for name in self.names:
             layer = getattr(self, name)
             if isinstance(layer, GatedAttentionSublayer):
-                x = layer(x, bias)
+                x = layer(x, bias, seeds)
             else:
-                x = layer(x)
+                x = layer(x, seeds)
         lt = t.shape[1]
         return x[:, :lt], x[:, lt:]

@@ -9,6 +9,10 @@ Counterpart of ``volta_tpu/models/layers.py``. Numerics follow it exactly:
   * A ``Dense`` in bf16 casts the input, the fp32 weight and the bias to the
     compute dtype before the product, as Flax ``nn.Dense(dtype=bf16,
     param_dtype=f32)`` does.
+  * Dropout is the JAX package's ``hash_dropout``: keep bit =
+    fmix32(position * 0x9E3779B9 + seed) < threshold, bit-equal for the
+    same uint32 seed. Each dropout site of a forward takes its own seed from
+    ``DropoutSeeds``, which derives them from one step seed.
 
 Parameters are float32. Initialisation takes an optional ``torch.Generator``
 (``init_weights``) so a model's random weights are a function of one seed.
@@ -62,7 +66,12 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 class LayerNorm(nn.Module):
     """TF-style layernorm with learnable ``weight`` (Flax ``scale``) and
-    ``bias``."""
+    ``bias``.
+
+    Residual mode, ``ln(o, residual=x, drop_rate=p, seed=s)``, computes
+    ``LN(hash_dropout(o, s, p) + x)``, the tail of every encoder sublayer
+    (volta_tpu/models/layers.py:111-172, the hash branch); without a seed
+    the dropout is off (eval)."""
 
     def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
@@ -76,7 +85,13 @@ class LayerNorm(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor = None,
+                drop_rate: float = 0.0, seed: Optional[int] = None
+                ) -> torch.Tensor:
+        if residual is not None:
+            if seed is not None:
+                x = hash_dropout(x, seed, drop_rate)
+            x = x + residual
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
@@ -133,3 +148,78 @@ def init_weights(module: nn.Module,
         if isinstance(m, (Dense, Embed, LayerNorm)):
             m.reset_parameters(generator)
     return module
+
+
+# ------------------------------------------------------------------ dropout
+_M32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for a in [0, 2^32) (an int64 tensor or an int) and a
+    constant c < 2^32, without overflowing int64: a * c splits into
+    a * (c mod 2^16) + ((a * (c >> 16)) mod 2^16) * 2^16."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def fmix32(h):
+    """murmur3 finalizer on uint32 values held in int64 tensors or ints
+    (volta_tpu/models/layers.py:_fmix32)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """The keep threshold of ``rate`` as the JAX package computes it:
+    uint32((1 - rate) * (2^32 - 1)) in double precision, truncated."""
+    return int((1.0 - rate) * 4294967295.0)
+
+
+def hash_keep(index: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Keep bits of the elements at linear ``index`` (int64):
+    fmix32(index * 0x9E3779B9 + seed) < threshold, all modulo 2^32."""
+    h = fmix32((_mul32(index & _M32, GOLDEN) + (int(seed) & _M32)) & _M32)
+    return h < dropout_threshold(rate)
+
+
+def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Counter-based dropout, bit-equal to volta_tpu.models.layers
+    .hash_dropout for the uint32 ``seed`` that its key draws: the keep bit
+    of element n (x's linear index) is fmix32(n * 0x9E3779B9 + seed) <
+    threshold; kept values are divided by 1 - rate in x's dtype (JAX's
+    weak-typed scalar is rounded to x's dtype first, so is this one)."""
+    n = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    keep = hash_keep(n.view(x.shape), seed, rate)
+    denom = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / denom, x.new_zeros(()))
+
+
+class DropoutSeeds:
+    """The uint32 seeds of one forward's dropout sites, derived from one
+    step seed: site n takes fmix32(step_seed + n * 0x9E3779B9). fmix32 is a
+    bijection of uint32 and n * 0x9E3779B9 differs for every n < 2^32, so no
+    two sites of a forward share a seed, whatever their shapes."""
+
+    def __init__(self, step_seed: int):
+        self.step_seed = int(step_seed) & _M32
+        self.count = 0
+
+    def next(self) -> int:
+        seed = fmix32((self.step_seed + self.count * GOLDEN) & _M32)
+        self.count += 1
+        return seed
+
+
+def site_seed(module: nn.Module, rate: float,
+              seeds: Optional[DropoutSeeds]) -> Optional[int]:
+    """The seed of one dropout site of ``module``: None where no dropout
+    runs (eval mode, or rate 0), else the next of ``seeds``."""
+    if not module.training or rate <= 0.0:
+        return None
+    if seeds is None:
+        raise ValueError(f"{type(module).__name__} in training mode needs "
+                         "a dropout seed (VoltaForVLTasks' dropout_seed)")
+    return seeds.next()

@@ -2,4 +2,16 @@
 
 Kernels are built from ``ops/csrc`` at first use (``ops/_build.py``);
 importing this package builds nothing.
+
+``LAUNCHES`` counts the launches of each kernel since its count was last
+set to 0. A wrapper adds one where it launches its kernel and nowhere else,
+so a run can show that its path went through the kernels.
 """
+
+LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
+            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

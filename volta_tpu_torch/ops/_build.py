@@ -1,12 +1,13 @@
 """Build the port's CUDA sources at first use; load them with ctypes.
 
-Every ``ops/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface (no PyTorch headers, so a build
+Every ``ops/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and the objects are linked into
+one shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). The library goes to ``build/volta_tpu_torch/`` at the root
-of the checkout, named by a hash of the sources and flags, so a changed
-source builds anew and an unchanged one is loaded as it is. Importing this
-module builds nothing; ``load()`` does, and raises if ``nvcc`` is missing
-or fails.
+of the checkout, named by a hash of the sources (headers included) and
+flags, so a changed source builds anew and an unchanged one is loaded as it
+is. Importing this module builds nothing; ``load()`` does, and raises if
+``nvcc`` is missing or fails.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "volta_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 
 
 def _sources():
@@ -50,15 +52,33 @@ def _nvcc() -> str:
 
 def _compile(path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    runs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    if all(rc == 0 for _, _, rc in runs):
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        runs.append((cmd, proc.stdout, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     log = path.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode} "
-                           f"(log: {log}):\n{proc.stderr[-4000:]}")
+    log.write_text("".join(" ".join(cmd) + "\n" + out
+                           for cmd, out, _ in runs))
+    failed = [(cmd, out, rc) for cmd, out, rc in runs if rc != 0]
+    if failed:
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed with code {rc} on {cmd[-1]} "
+                           f"(log: {log}):\n{out[-4000:]}")
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
 
 

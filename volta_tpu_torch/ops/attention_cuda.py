@@ -1,13 +1,15 @@
-"""The hand-written CUDA attention forward (``csrc/attention_fwd.cu``), its
-wrapper and its plain twin.
+"""The hand-written CUDA no-dropout attention, forward
+(``csrc/attention_fwd.cu``) and backward (``csrc/attention_bwd.cu``), their
+wrappers, their plain twins and the autograd Function over them.
 
-Port of the TPU kernel ``_attn_kernel_nat_bh`` behind
-``pallas_fused_attention_nat`` (volta_tpu/ops/pallas_attention.py:670-735):
-no-dropout joint attention on the natural [B, L, H·D] layout, the one
-kernel on the serving path. ``attention_fwd`` launches the kernel for a
-CUDA tensor and raises on anything it does not take; for a CPU tensor it
-runs ``attention_fwd_ref``, the same function in plain PyTorch. There is no
-fallback from the card to the plain version.
+Ports of the TPU kernels behind ``pallas_fused_attention_nat``
+(volta_tpu/ops/pallas_attention.py:670-775): ``_attn_kernel_nat_bh``, the
+no-dropout joint attention on the natural [B, L, H·D] layout, and
+``_attn_bwd_kernel_nat_bh``, its backward. ``attention_fwd`` and
+``attention_bwd`` launch the kernels for CUDA tensors and raise on anything
+they do not take; for CPU tensors they run ``attention_fwd_ref`` and
+``attention_bwd_ref``, the same functions in plain PyTorch. There is no
+fallback from the card to the plain versions.
 """
 
 from __future__ import annotations
@@ -16,18 +18,22 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from . import _build
-from .attention import attention_out, attention_probs
-
-# launches of the kernel since the counter was last set to 0
-LAUNCHES = 0
+from . import LAUNCHES, _build
+from .attention import acc_dtype, attention_out, attention_probs
 
 HEAD_DIMS = (16, 32, 64, 128)
-ROWS_PER_BLOCK = 16  # kRowsPerBlock in csrc/attention_fwd.cu
-KEY_CHUNK = 32  # kKeyChunk in csrc/attention_fwd.cu
+ROWS_PER_BLOCK = 16  # kRowsPerBlock in csrc/attention_common.cuh
+KEY_CHUNK = 32  # kKeyChunk
+BWD_ROWS = 32  # kBwdRows
 MAX_SMEM_BYTES = 232448  # a Hopper block's dynamic shared memory limit
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _heads4(x, heads):
+    b, l, hd = x.shape
+    return x.view(b, l, heads, hd // heads)
 
 
 def attention_fwd_ref(q, k, v, bias, scale, heads):
@@ -35,95 +41,197 @@ def attention_fwd_ref(q, k, v, bias, scale, heads):
     [B,Lq,H·D] in q.dtype."""
     b, lq, hd = q.shape
     lk = k.shape[1]
-    d = hd // heads
-    probs = attention_probs(q.view(b, lq, heads, d),
-                            k.view(b, lk, heads, d),
+    probs = attention_probs(_heads4(q, heads), _heads4(k, heads),
                             bias.view(b, 1, 1, lk), scale)
-    out = attention_out(probs, v.view(b, lk, heads, d))
+    out = attention_out(probs, _heads4(v, heads))
     return out.to(q.dtype).reshape(b, lq, hd)
 
 
+def attention_bwd_math(q, k, v, bias, g, scale, heads, keep=None,
+                       keep_scale=1.0):
+    """The backward recipe of ``_attn_bwd_math`` / ``_dropout_bwd_math``
+    (pallas_attention.py:884-904, 147-166) on [B, L, H·D] operands: P
+    recomputed in float32; with a keep mask [B,H,Lq,Lk], dP and P's share of
+    dv carry its factor ``keep * keep_scale``. Returns float32 (float64 for
+    float64 operands) dq, dk, dv [B, L, H, D] and dS [B, H, Lq, Lk]."""
+    b, lq, _ = q.shape
+    lk = k.shape[1]
+    acc = acc_dtype(q)
+    qf, kf, vf, gf = (_heads4(x, heads).to(acc) for x in (q, k, v, g))
+    probs = attention_probs(qf, kf, bias.view(b, 1, 1, lk), scale)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    pd = probs
+    if keep is not None:
+        factor = keep.to(acc) * keep_scale
+        pd = probs * factor
+        dp = dp * factor
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, gf)
+    ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq, dk, dv, ds
+
+
+def attention_bwd_ref(q, k, v, bias, g, scale, heads, want_db=True):
+    """Plain twin of the backward: q/g [B,Lq,H·D], k/v [B,Lk,H·D], bias
+    [B,Lk] float32 -> dq, dk, dv in the operand dtype, and db [B,Lk] float32
+    (dS summed over heads and queries; None unless ``want_db``)."""
+    dq, dk, dv, ds = attention_bwd_math(q, k, v, bias, g, scale, heads)
+    flat = lambda x, like: x.to(like.dtype).reshape(like.shape)  # noqa: E731
+    db = ds.sum(dim=(1, 2)).to(torch.float32) if want_db else None
+    return flat(dq, q), flat(dk, k), flat(dv, v), db
+
+
 def smem_bytes(lk: int, head_dim: int) -> int:
-    """Dynamic shared memory of one block, all float32: its query rows, a
-    chunk of K rows (stride D + 1) and its rows of Lk scores (padded to 4)."""
+    """Dynamic shared memory of one forward block, all float32: its query
+    rows, a chunk of K rows (stride D + 1) and its rows of Lk scores (padded
+    to 4)."""
     return 4 * (ROWS_PER_BLOCK * (head_dim + (lk + 3) // 4 * 4)
                 + KEY_CHUNK * (head_dim + 1))
 
 
-def _check(q, k, v, bias, heads):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device
+def bwd_smem_bytes(lq: int, lk: int, head_dim: int) -> int:
+    """Dynamic shared memory of one backward block, all float32: two
+    [Lq, Lk] tiles (lengths padded to 4), 32 staged q and g rows and 32
+    staged k and v rows (stride D + 1)."""
+    return 4 * (2 * ((lq + 3) // 4 * 4) * ((lk + 3) // 4 * 4)
+                + 2 * BWD_ROWS * head_dim + 2 * KEY_CHUNK * (head_dim + 1))
+
+
+def check(name, q, k, v, bias, heads, smem, g=None):
+    """Raise ValueError for anything the kernels do not take: operands off
+    one CUDA device, dtypes other than bf16/fp32 (bias fp32), shapes that do
+    not agree, head dims outside HEAD_DIMS, grids or shared memory
+    (``smem(lq, lk, head_dim)`` bytes) over the card's limits, non-contiguous
+    or unaligned operands."""
+    ops = [("q", q), ("k", k), ("v", v)] + ([("g", g)] if g is not None
+                                            else [])
+    if not (q.is_cuda and all(t.device == q.device for _, t in ops)
             and bias.device == q.device):
-        raise ValueError("attention_fwd: q, k, v and bias must lie on one "
-                         f"CUDA device, got {q.device}, {k.device}, "
-                         f"{v.device}, {bias.device}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("attention_fwd: q, k, v must share a dtype of "
-                         f"bfloat16 or float32, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+        raise ValueError(f"{name}: q, k, v, bias (and g) must lie on one "
+                         f"CUDA device, got "
+                         f"{[str(t.device) for _, t in ops + [('b', bias)]]}")
+    if q.dtype not in DTYPE_CODE or any(t.dtype != q.dtype for _, t in ops):
+        raise ValueError(f"{name}: q, k, v (and g) must share a dtype of "
+                         f"bfloat16 or float32, got "
+                         f"{[t.dtype for _, t in ops]}")
     if bias.dtype != torch.float32:
-        raise ValueError(f"attention_fwd: bias must be float32, "
-                         f"got {bias.dtype}")
+        raise ValueError(f"{name}: bias must be float32, got {bias.dtype}")
     if q.dim() != 3 or k.dim() != 3 or bias.dim() != 2:
-        raise ValueError("attention_fwd: expected q [B,Lq,H·D], k/v "
-                         "[B,Lk,H·D], bias [B,Lk]")
+        raise ValueError(f"{name}: expected q [B,Lq,H·D], k/v [B,Lk,H·D], "
+                         "bias [B,Lk]")
     b, lq, hd = q.shape
     lk = k.shape[1]
     if (k.shape != (b, lk, hd) or v.shape != k.shape
-            or bias.shape != (b, lk)):
-        raise ValueError(f"attention_fwd: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
-                         f"bias {tuple(bias.shape)} do not agree")
+            or bias.shape != (b, lk) or (g is not None and g.shape != q.shape)):
+        raise ValueError(f"{name}: shapes "
+                         f"{[(n, tuple(t.shape)) for n, t in ops]}, bias "
+                         f"{tuple(bias.shape)} do not agree")
     if heads < 1 or hd % heads or hd // heads not in HEAD_DIMS:
-        raise ValueError(f"attention_fwd: head dim {hd} / {heads} heads "
-                         f"must be one of {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {hd} / {heads} heads must be one "
+                         f"of {HEAD_DIMS}")
     if min(b, lq, lk) < 1 or b * heads >= 2**31 \
             or -(-lq // ROWS_PER_BLOCK) > 65535:
-        raise ValueError(f"attention_fwd: B={b}, Lq={lq}, Lk={lk}, "
-                         f"H={heads} is outside the kernel's grid")
-    if smem_bytes(lk, hd // heads) > MAX_SMEM_BYTES:
-        raise ValueError(f"attention_fwd: Lk={lk} needs "
-                         f"{smem_bytes(lk, hd // heads)} bytes of shared "
-                         f"memory per block, over {MAX_SMEM_BYTES}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+        raise ValueError(f"{name}: B={b}, Lq={lq}, Lk={lk}, H={heads} is "
+                         "outside the kernel's grid")
+    need = smem(lq, lk, hd // heads)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: Lq={lq}, Lk={lk} at D={hd // heads} "
+                         f"needs {need} bytes of shared memory per block, "
+                         f"over the limit of {MAX_SMEM_BYTES}")
+    for n, t in ops + [("bias", bias)]:
         if not t.is_contiguous():
-            raise ValueError(f"attention_fwd: {name} must be contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+            raise ValueError(f"{name}: {n} must be contiguous")
+    for n, t in ops:
         if t.data_ptr() % 16:
-            raise ValueError(f"attention_fwd: {name} must be 16-byte "
-                             "aligned")
+            raise ValueError(f"{name}: {n} must be 16-byte aligned")
+
+
+def launch_error(name, rc, err_str):
+    return RuntimeError(f"{name} kernel launch failed: "
+                        f"{err_str(rc).decode()} (cudaError {rc})")
 
 
 @functools.cache
-def _kernel():
+def _kernels():
     lib = _build.load()
-    fn = lib.volta_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.volta_cuda_error_string.argtypes = [ctypes.c_int]
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd = lib.volta_attention_fwd
+    fwd.argtypes = [P] * 5 + [I] * 5 + [F, I, I, P]
+    fwd.restype = I
+    bwd = lib.volta_attention_bwd
+    bwd.argtypes = [P] * 9 + [I] * 5 + [F, I, I, P]
+    bwd.restype = I
+    lib.volta_cuda_error_string.argtypes = [I]
     lib.volta_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.volta_cuda_error_string
+    return fwd, bwd, lib.volta_cuda_error_string
 
 
 def attention_fwd(q, k, v, bias, scale, heads):
     """softmax(q·kᵀ·scale + bias)·v per head on the natural layout:
     q [B,Lq,H·D], k/v [B,Lk,H·D] (bf16 or fp32), bias [B,Lk] float32 ->
     [B,Lq,H·D] in q.dtype. CPU tensors take the plain twin."""
-    global LAUNCHES
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, bias, scale, heads)
-    _check(q, k, v, bias, heads)
-    fn, err_str = _kernel()
+    check("attention_fwd", q, k, v, bias, heads,
+          lambda lq, lk, d: smem_bytes(lk, d))
+    fn, _, err_str = _kernels()
     b, lq, hd = q.shape
-    lk = k.shape[1]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, lq, lk, heads, hd // heads, float(scale),
-            _DTYPE_CODE[q.dtype], q.device.index, stream)
+            out.data_ptr(), b, lq, k.shape[1], heads, hd // heads,
+            float(scale), DTYPE_CODE[q.dtype], q.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"attention_fwd kernel launch failed: "
-                           f"{err_str(rc).decode()} (cudaError {rc})")
-    LAUNCHES += 1
+        raise launch_error("attention_fwd", rc, err_str)
+    LAUNCHES["attention_fwd"] += 1
     return out
+
+
+def attention_bwd(q, k, v, bias, g, scale, heads, want_db=False):
+    """The backward of ``attention_fwd`` for its output cotangent g
+    [B,Lq,H·D]: dq, dk, dv in the operand dtype and, with ``want_db``, db
+    [B,Lk] float32 (else None). CPU tensors take the plain twin."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, bias, g, scale, heads, want_db)
+    check("attention_bwd", q, k, v, bias, heads, bwd_smem_bytes, g=g)
+    _, fn, err_str = _kernels()
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    db_part = torch.empty((b, heads, lk), dtype=torch.float32,
+                          device=q.device) if want_db else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            db_part.data_ptr() if want_db else None, b, lq, lk, heads,
+            hd // heads, float(scale), DTYPE_CODE[q.dtype], q.device.index,
+            stream)
+    if rc != 0:
+        raise launch_error("attention_bwd", rc, err_str)
+    LAUNCHES["attention_bwd"] += 1
+    # the per-head partial sums of the bias gradient, summed over heads
+    return dq, dk, dv, (db_part.sum(dim=1) if want_db else None)
+
+
+class FusedAttention(torch.autograd.Function):
+    """No-dropout attention on [B, L, H·D] operands, bias [B, Lk] float32:
+    forward ``attention_fwd``, backward ``attention_bwd`` (the kernels on the
+    card, the twins on the CPU). The bias gradient is computed only when the
+    bias requires one; every bias of the repo comes from ``additive_mask``
+    and needs none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, heads):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale, ctx.heads = scale, heads
+        return attention_fwd(q, k, v, bias, scale, heads)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, db = attention_bwd(q, k, v, bias, g.contiguous(),
+                                       ctx.scale, ctx.heads,
+                                       want_db=ctx.needs_input_grad[3])
+        return dq, dk, dv, db, None, None

@@ -1,0 +1,159 @@
+// Joint attention with dropout on the probabilities, forward and backward,
+// for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of the training path
+// pallas_dropout_attention(natural=True) (volta_tpu/ops/pallas_attention.py
+// :213-227, custom VJP _pallas_dropout_attention_nat :603-629):
+//   forward  _attn_dropout_fwd_kernel_nat_bh (:510), launched by
+//            _nat_fwd_core (:549, pallas_call :557);
+//   backward _attn_dropout_bwd_kernel_nat_bh (:530), launched by
+//            _nat_bwd_core (:575, pallas_call :580), math _dropout_bwd_math
+//            (:147-166).
+// Forward, per (b, h, i): P = softmax(q kᵀ * scale + bias) in float32,
+// P * keep in float32 (keep = 1 / (1 - rate) or 0), rounded to v's dtype,
+// out = (P * keep) v accumulated in float32. Backward: P recomputed,
+// dv = (P * keep)ᵀ g, dP = (g vᵀ) * keep, dS = P * (dP - rowsum(dP * P)),
+// dq = dS k * scale, dk = dSᵀ q * scale.
+//
+// The mask. The TPU kernel draws it from the Mosaic PRNG and saves it as a
+// [B, H, Lq, Lk] bf16 tensor for the backward, because that PRNG cannot be
+// replayed. Here keep(b, h, i, j) = fmix32(n * 0x9E3779B9 + seed) <
+// threshold, n the element's linear index in [B, H, Lq, Lk] modulo 2^32, the
+// counter hash of the JAX package's hash_dropout (models/layers.py:216-255)
+// with a uint32 seed per call and threshold = int((1 - rate) * (2^32 - 1))
+// computed by the caller in double precision. The backward replays the hash,
+// so no mask is saved: at B = 256, L = 60, H = 12 that is 133 MB (uint8) or
+// 265 MB (bf16) of device memory and traffic per layer that never exists.
+// The forward writes the 0/1 mask it applied to mask_out only when asked
+// (tests and chip_smoke.py compare it with the plain twin's).
+//
+// The blocks are the no-dropout kernels' (attention_common.cuh) with the
+// keep factor folded in where the math above places it, so they have the
+// same bounds: both are bound by the issue of their CUDA-core loops, the
+// forward at 10x its byte floor and the backward at 15x at B = 256, L = 60
+// on the H100; the hash costs a few integer ops per probability.
+
+#include "attention_common.cuh"
+
+namespace {
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const float* __restrict__ bias,
+                             T* __restrict__ out, uint8_t* __restrict__ mask,
+                             int Lq, int Lk, int H, float scale, int lk_pad,
+                             Dropout drop) {
+  attention_fwd_block<T, D, true>(q, k, v, bias, out, Lq, Lk, H, scale,
+                                  lk_pad, drop, mask);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+attention_dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const float* __restrict__ bias,
+                             const T* __restrict__ g, T* __restrict__ dq,
+                             T* __restrict__ dk, T* __restrict__ dv, int Lq,
+                             int Lk, int H, float scale, Dropout drop) {
+  attention_bwd_block<T, D, true>(q, k, v, bias, g, dq, dk, dv, nullptr, Lq,
+                                  Lk, H, scale, drop);
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const void* bias, void* out, void* mask, int B, int Lq,
+                       int Lk, int H, float scale, Dropout drop,
+                       cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<D>(Lk);
+  auto kern = attention_dropout_fwd_kernel<T, D>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(B) * H,
+                  (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
+  kern<<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(out), static_cast<uint8_t*>(mask), Lq, Lk, H, scale,
+      (Lk + 3) & ~3, drop);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* bias, const void* g, void* dq, void* dk,
+                       void* dv, int B, int Lq, int Lk, int H, float scale,
+                       Dropout drop, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(Lq, Lk, D);
+  auto kern = attention_dropout_bwd_kernel<T, D>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(B) * H, kBwdWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dv), Lq, Lk, H, scale, drop);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd_d(const void* q, const void* k, const void* v,
+                         const void* bias, void* out, void* mask, int B,
+                         int Lq, int Lk, int H, int D, float scale,
+                         Dropout drop, cudaStream_t stream) {
+  VOLTA_SWITCH_HEAD_DIM(
+      D, return launch_fwd<T, kD>(q, k, v, bias, out, mask, B, Lq, Lk, H,
+                                  scale, drop, stream))
+}
+
+template <typename T>
+cudaError_t launch_bwd_d(const void* q, const void* k, const void* v,
+                         const void* bias, const void* g, void* dq, void* dk,
+                         void* dv, int B, int Lq, int Lk, int H, int D,
+                         float scale, Dropout drop, cudaStream_t stream) {
+  VOLTA_SWITCH_HEAD_DIM(
+      D, return launch_bwd<T, kD>(q, k, v, bias, g, dq, dk, dv, B, Lq, Lk, H,
+                                  scale, drop, stream))
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; mask (uint8 [B, H, Lq, Lk]) may be
+// null; keep_scale = float32(1 / (1 - rate)). Returns the launch's
+// cudaError_t.
+extern "C" int volta_attention_dropout_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* out,
+    void* mask, int B, int Lq, int Lk, int H, int D, float scale,
+    uint32_t seed, uint32_t threshold, float keep_scale, int dtype,
+    int device, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{seed, threshold, keep_scale};
+  if (dtype == 0)
+    return launch_fwd_d<float>(q, k, v, bias, out, mask, B, Lq, Lk, H, D,
+                               scale, drop, s);
+  if (dtype == 1)
+    return launch_fwd_d<__nv_bfloat16>(q, k, v, bias, out, mask, B, Lq, Lk,
+                                       H, D, scale, drop, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int volta_attention_dropout_bwd(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* g, void* dq, void* dk, void* dv, int B, int Lq, int Lk,
+    int H, int D, float scale, uint32_t seed, uint32_t threshold,
+    float keep_scale, int dtype, int device, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{seed, threshold, keep_scale};
+  if (dtype == 0)
+    return launch_bwd_d<float>(q, k, v, bias, g, dq, dk, dv, B, Lq, Lk, H, D,
+                               scale, drop, s);
+  if (dtype == 1)
+    return launch_bwd_d<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, B, Lq,
+                                       Lk, H, D, scale, drop, s);
+  return cudaErrorInvalidValue;
+}

@@ -81,6 +81,42 @@ def _make_readers(cfg, tc, in_memory=False):
     return out
 
 
+def load_dataset(args, cfg, task_cfg: Dict[str, Any], task_id: str,
+                 split: str = "trainval"):
+    """Train/val datasets + loaders for one task, one host
+    (volta_tpu/task_utils.py:96-141; reference: volta/task_utils.py:290-371).
+    The train loader shuffles from ``args.seed`` and drops the last partial
+    batch; so does the val loader, as in the JAX CLI."""
+    from volta_tpu.data.datasets import DatasetMapTrain
+    from volta_tpu.data.loader import DataLoader
+
+    tokenizer = make_tokenizer(args.bert_model, args.do_lower_case,
+                               getattr(args, "vocab_file", None))
+    task = task_key(task_id)
+    tc = task_cfg[task]
+    readers = _make_readers(cfg, tc, getattr(args, "in_memory", False))
+    batch_size = tc["batch_size"] // args.grad_acc_steps
+    packed = getattr(args, "in_memory", False)
+    feat_dtype = "bfloat16" if getattr(cfg, "compute_dtype", "") == \
+        "bfloat16" else "float32"
+    out = {"task": task, "batch_size": batch_size}
+    for name, shuffle, workers in (
+            ("train", True, args.num_workers), ("val", False, 2)):
+        if name not in split:
+            continue
+        ds = _build_dataset(DatasetMapTrain, cfg, tc, tokenizer,
+                            f"{name}_split", f"{name}_annotations_jsonpath",
+                            readers, args.bert_model)
+        if packed and hasattr(ds, "enable_packed"):
+            ds.enable_packed(feat_dtype=feat_dtype)
+        out[f"{name}_dataset"] = ds
+        out[f"{name}_loader"] = DataLoader(
+            ds, batch_size, shuffle=shuffle, seed=args.seed, drop_last=True,
+            num_workers=workers,
+            num_procs=getattr(args, "num_worker_procs", 0) if shuffle else 0)
+    return out
+
+
 def load_dataset_eval(args, cfg, task_cfg: Dict[str, Any], task_id: str):
     """Eval-split dataset + loader (reference: volta/task_utils.py:374-426)."""
     from volta_tpu.data.datasets import DatasetMapEval
