@@ -211,3 +211,151 @@ def test_functions_take_the_kernels(cuda_device):
         _assert_close(outs[1], outs[0], "float32", f"out at rate {rate}")
         for a, r in zip(grads[1], grads[0]):
             _assert_close(a, r, "float32", f"grad at rate {rate}")
+
+
+# ----------------------------------------------- LayerNorm kernels (10-13)
+# (n, d): the b256 train shape (256 x 60 rows of 768), 7 rows, 1000 rows,
+# the classifier width, an odd width (element-wise access) and the widest
+LN_SHAPES = [(15360, 768), (7, 768), (1000, 768), (256, 1536), (33, 100),
+             (5, 4096)]
+
+
+def _ln_inputs(n, d, dtype, device, seed):
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda: torch.from_numpy(  # noqa: E731
+        (rng.randn(n, d) * 2 + 0.5).astype(np.float32)).to(device, dt)
+    vec = lambda: torch.from_numpy(  # noqa: E731
+        (1 + 0.1 * rng.randn(d)).astype(np.float32)).to(device)
+    return mk(), mk(), mk(), vec(), vec()
+
+
+def _assert_sums_close(got, ref, what):
+    """dscale / dbias: float32 sums over the rows in another order than the
+    twin's, within 1e-5 of the largest |ref|."""
+    assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    assert err <= tol, (what, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", LN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_layer_norm_kernels_match_twins(cuda_device, dtype, shape):
+    from volta_tpu_torch.ops import layernorm as ln
+
+    n, d = shape
+    x, g, _, w, b = _ln_inputs(n, d, dtype, cuda_device, seed=n + d)
+    before = (LAUNCHES["layer_norm_fwd"], LAUNCHES["layer_norm_bwd"])
+    y, mean, rstd = ln.layer_norm_fwd(x, w, b, 1e-12)
+    dx, dw, db = ln.layer_norm_bwd(g, x, w, mean, rstd)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["layer_norm_fwd"], LAUNCHES["layer_norm_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    ry, rmean, rrstd = ln.layer_norm_fwd_ref(x, w, b, 1e-12)
+    _assert_close(y, ry, dtype, "y")
+    _assert_close(mean, rmean, "float32", "mean")
+    _assert_close(rstd, rrstd, "float32", "rstd")
+    rdx, rdw, rdb = ln.layer_norm_bwd_ref(g, x, w, mean, rstd)
+    _assert_close(dx, rdx, dtype, "dx")
+    _assert_sums_close(dw, rdw, "dscale")
+    _assert_sums_close(db, rdb, "dbias")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", LN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_residual_kernels_match_twins(cuda_device, dtype, shape):
+    from volta_tpu_torch.models.layers import hash_dropout
+    from volta_tpu_torch.ops import fused_residual as fr
+
+    n, d = shape
+    o, x, g, w, b = _ln_inputs(n, d, dtype, cuda_device, seed=2 * n + d)
+    seed = 0xBEEF + n
+    names = ("dropout_residual_ln_fwd", "dropout_residual_ln_bwd")
+    before = tuple(LAUNCHES[k] for k in names)
+    y, od, mean, rstd = fr.dropout_residual_ln_fwd(o, x, w, b, seed, RATE,
+                                                   1e-12)
+    do, dx, dw, db = fr.dropout_residual_ln_bwd(g, od, x, w, mean, rstd, seed,
+                                                RATE)
+    torch.cuda.synchronize()
+    assert tuple(LAUNCHES[k] for k in names) == (before[0] + 1, before[1] + 1)
+    keep = adc.keep_mask(seed, (n, d), RATE, device=cuda_device)
+    # the kernel dropped exactly what hash_dropout drops, and od is exact
+    assert torch.equal(od != 0, hash_dropout(o, seed, RATE) != 0)
+    assert torch.equal(od != 0, keep)
+    ry, rod, rmean, rrstd = fr.dropout_residual_ln_fwd_ref(o, x, w, b, keep,
+                                                          RATE, 1e-12)
+    assert torch.equal(od, rod)
+    _assert_close(y, ry, dtype, "y")
+    _assert_close(mean, rmean, "float32", "mean")
+    _assert_close(rstd, rrstd, "float32", "rstd")
+    rdo, rdx, rdw, rdb = fr.dropout_residual_ln_bwd_ref(g, od, x, w, mean,
+                                                        rstd, keep, RATE)
+    _assert_close(do, rdo, dtype, "do")
+    _assert_close(dx, rdx, dtype, "dx")
+    _assert_sums_close(dw, rdw, "dscale")
+    _assert_sums_close(db, rdb, "dbias")
+    if n * d >= 10**6:
+        frac = float(keep.float().mean())
+        assert abs(frac - (1 - RATE)) <= 0.005, frac
+    # rate 0 keeps every element: od is o, the gradients of o and x agree
+    y0, od0, _, _ = fr.dropout_residual_ln_fwd(o, x, w, b, seed, 0.0, 1e-12)
+    assert torch.equal(od0, o)
+    _assert_close(y0, ln_ref_of_sum(o, x, w, b), dtype, "y at rate 0")
+
+
+def ln_ref_of_sum(o, x, w, b):
+    from volta_tpu_torch.ops import layernorm as ln
+
+    return ln.ln_rows(o.float() + x.float(), w, b, 1e-12)[0].to(o.dtype)
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernels_raise_past_their_range(cuda_device):
+    from volta_tpu_torch.ops import fused_residual as fr
+    from volta_tpu_torch.ops import layernorm as ln
+
+    x, g, _, w, b = _ln_inputs(3, 4097, "float32", cuda_device, 0)
+    with pytest.raises(ValueError, match="4096"):
+        ln.layer_norm_fwd(x, w, b, 1e-12)
+    with pytest.raises(ValueError, match="4096"):
+        fr.dropout_residual_ln_fwd(x, g, w, b, 1, RATE, 1e-12)
+    x, g, _, w, b = _ln_inputs(3, 64, "bfloat16", cuda_device, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        fr.dropout_residual_ln_fwd(x, g.float(), w, b, 1, RATE, 1e-12)
+    with pytest.raises(ValueError, match="float32"):
+        ln.layer_norm_fwd(x, w.bfloat16(), b, 1e-12)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.layer_norm_fwd(x.t().contiguous().t(), w, b, 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["ln", "fused"])
+def test_layer_norm_module_takes_the_kernels(cuda_device, fused):
+    """The LayerNorm module with the kernels launches one forward and one
+    backward kernel per call and agrees with its CPU twin path."""
+    from volta_tpu_torch.models.layers import LayerNorm
+
+    rng = np.random.RandomState(4)
+    o, x = (torch.from_numpy(rng.randn(4, 60, 768).astype(np.float32))
+            for _ in range(2))
+    names = ("dropout_residual_ln_fwd", "dropout_residual_ln_bwd") if fused \
+        else ("layer_norm_fwd", "layer_norm_bwd")
+    outs, grads = [], []
+    for dev in ("cpu", "cuda"):
+        ln = LayerNorm(768, use_kernel=True, fused_residual=fused).to(dev)
+        a, r = (t.to(dev).detach().requires_grad_() for t in (o, x))
+        before = tuple(LAUNCHES[k] for k in names)
+        y = ln(a, residual=r, drop_rate=RATE, seed=77)
+        y.square().sum().backward()
+        launched = tuple(LAUNCHES[k] - c for k, c in zip(names, before))
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1)), launched
+        outs.append(y.detach().cpu())
+        grads.append([t.grad.cpu() for t in (a, r, ln.weight, ln.bias)])
+    _assert_close(outs[1], outs[0], "float32", "out")
+    for name, a, r in zip(("do", "dx", "dscale", "dbias"), *grads):
+        _assert_close(a, r, "float32", name)

@@ -78,8 +78,7 @@ def setup(args):
             and not torch.cuda.is_available():
         raise SystemExit("eval_task: --device cuda but CUDA is not available "
                          "(pass --device cpu to run on the CPU)")
-    from volta_tpu.config import VoltaConfig
-
+    from .config import VoltaConfig
     from .models import VoltaForVLTasks
     from .models.layers import init_weights
     from .task_utils import load_dataset_eval, load_task_config, task_key

@@ -9,8 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from volta_tpu.config import VoltaConfig
-
+from ..config import VoltaConfig
 from .layers import Dense, Embed, LayerNorm, hash_dropout, site_seed
 
 
@@ -42,14 +41,16 @@ class UniterEmbeddings(nn.Module):
                                          cfg.hidden_size, std)
         self.token_type_embeddings = Embed(cfg.type_vocab_size,
                                            cfg.hidden_size, std)
-        self.layer_norm = LayerNorm(cfg.hidden_size)
+        # the JAX module's LNs, volta_tpu/models/embeddings.py:304-316
+        kern = cfg.use_pallas_layernorm
+        self.layer_norm = LayerNorm(cfg.hidden_size, use_kernel=kern)
         self.feat_dense = Dense(cfg.v_feature_size, cfg.v_hidden_size, std,
                                 self.dtype)
-        self.feat_ln = LayerNorm(cfg.hidden_size)
+        self.feat_ln = LayerNorm(cfg.hidden_size, use_kernel=kern)
         self.loc_dense = Dense(cfg.num_locs, cfg.v_hidden_size, std,
                                self.dtype)
-        self.loc_ln = LayerNorm(cfg.hidden_size)
-        self.v_layer_norm = LayerNorm(cfg.hidden_size)
+        self.loc_ln = LayerNorm(cfg.hidden_size, use_kernel=kern)
+        self.v_layer_norm = LayerNorm(cfg.hidden_size, use_kernel=kern)
 
     def forward(self, input_ids, feats, locs, token_type_ids, seeds=None):
         b, k = feats.shape[:2]

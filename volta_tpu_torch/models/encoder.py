@@ -8,9 +8,10 @@ sequence: ``GatedEncoder``'s fused loop (encoder.py:588-613) over
 ``GatedFeedForwardSublayer.fused`` (:373-379). That is the path ported here,
 in both modes: in training mode each sublayer runs attention dropout inside
 the attention kernel and hash dropout in its residual LayerNorm, one seed
-per site from the forward's ``DropoutSeeds``. A dual-stream plan or
-``use_scan`` raises at construction. Submodules are named after the Flax
-tree (``attn_0``, ``ff_1``, ...).
+per site from the forward's ``DropoutSeeds``; with the config's LayerNorm
+flags the tails run the CUDA LayerNorm or fused residual kernels
+(``_make_ln``). A dual-stream plan or ``use_scan`` raises at construction.
+Submodules are named after the Flax tree (``attn_0``, ``ff_1``, ...).
 """
 
 from __future__ import annotations
@@ -20,11 +21,29 @@ import math
 import torch
 from torch import nn
 
-from volta_tpu.config import SublayerSpec, VoltaConfig
-
+from ..config import SublayerSpec, VoltaConfig
 from ..ops.attention import fused_attention
 from .embeddings import compute_dtype
 from .layers import ACT2FN, Dense, LayerNorm, site_seed
+
+
+def _make_ln(cfg: VoltaConfig, dim: int) -> LayerNorm:
+    """A sublayer tail's LayerNorm with the JAX gates (encoder.py:31-39):
+    the LayerNorm kernels with ``use_pallas_layernorm``, the fused
+    dropout+residual+LN kernels with ``use_pallas`` and
+    ``use_fused_residual_ln``. The Pallas keep-mask kernel and the non-hash
+    dropout are not ported and raise."""
+    if cfg.use_pallas and cfg.use_pallas_dropout_mask and not cfg.remat_ff:
+        raise NotImplementedError(
+            "use_pallas_dropout_mask is not ported yet (ROADMAP.md Queue 2 "
+            "row 14, pallas_keep_mask)")
+    if not cfg.use_hash_dropout:
+        raise NotImplementedError(
+            "use_hash_dropout=false (int_threshold_dropout) is not ported "
+            "yet (ROADMAP.md Queue 1 item 2)")
+    return LayerNorm(dim, use_kernel=cfg.use_pallas_layernorm,
+                     fused_residual=cfg.use_pallas
+                     and cfg.use_fused_residual_ln)
 
 
 def _fully_fused(spec: SublayerSpec) -> bool:
@@ -52,7 +71,7 @@ class GatedAttentionSublayer(nn.Module):
         self.value = Dense(cfg.hidden_size, spec.attn_hidden_size, std, dt)
         self.out_dense = Dense(spec.attn_hidden_size, cfg.hidden_size, std,
                                dt)
-        self.out_ln = LayerNorm(cfg.hidden_size)
+        self.out_ln = _make_ln(cfg, cfg.hidden_size)
 
     def forward(self, x, bias, seeds=None):
         b, l, _ = x.shape
@@ -82,7 +101,7 @@ class GatedFeedForwardSublayer(nn.Module):
                                  dt)
         self.out_dense = Dense(spec.intermediate_size, cfg.hidden_size, std,
                                dt)
-        self.out_ln = LayerNorm(cfg.hidden_size)
+        self.out_ln = _make_ln(cfg, cfg.hidden_size)
 
     def forward(self, x, seeds=None):
         return self.out_ln(self.out_dense(self.act(self.inter_dense(x))),

@@ -10,8 +10,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from volta_tpu.config import VoltaConfig
-
+from ..config import VoltaConfig
 from .embeddings import compute_dtype
 from .layers import Dense, LayerNorm, gelu
 
@@ -62,7 +61,7 @@ class SimpleClassifier(nn.Module):
         super().__init__()
         std, dt = cfg.initializer_range, compute_dtype(cfg)
         self.dense1 = Dense(in_dim, hid_dim, std, dt)
-        self.ln = LayerNorm(hid_dim)
+        self.ln = LayerNorm(hid_dim, use_kernel=cfg.use_pallas_layernorm)
         self.dense2 = Dense(hid_dim, out_dim, std, dt)
 
     def forward(self, x):

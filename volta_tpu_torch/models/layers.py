@@ -27,7 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LN_EPS = 1e-12
+from ..ops.fused_residual import dropout_residual_ln
+from ..ops.hash import (_M32, GOLDEN, dropout_threshold,  # noqa: F401
+                        fmix32, hash_keep)
+from ..ops.layernorm import LN_EPS, fused_layer_norm
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -70,12 +73,20 @@ class LayerNorm(nn.Module):
 
     Residual mode, ``ln(o, residual=x, drop_rate=p, seed=s)``, computes
     ``LN(hash_dropout(o, s, p) + x)``, the tail of every encoder sublayer
-    (volta_tpu/models/layers.py:111-172, the hash branch); without a seed
-    the dropout is off (eval)."""
+    (volta_tpu/models/layers.py:111-172); without a seed the dropout is off
+    (eval). ``use_kernel`` and ``fused_residual`` are the port's names for
+    the JAX module's ``use_pallas`` and ``fused_residual``: with
+    ``fused_residual`` a dropping residual call runs the fused CUDA
+    dropout+residual+LN kernels (``ops.fused_residual``, the same mask as
+    ``hash_dropout``); otherwise, with ``use_kernel``, the LayerNorm runs
+    the CUDA LayerNorm kernels (``ops.layernorm``), else plain torch."""
 
-    def __init__(self, dim: int, eps: float = LN_EPS):
+    def __init__(self, dim: int, eps: float = LN_EPS,
+                 use_kernel: bool = False, fused_residual: bool = False):
         super().__init__()
         self.eps = eps
+        self.use_kernel = use_kernel
+        self.fused_residual = fused_residual
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
         self.reset_parameters()
@@ -89,9 +100,15 @@ class LayerNorm(nn.Module):
                 drop_rate: float = 0.0, seed: Optional[int] = None
                 ) -> torch.Tensor:
         if residual is not None:
-            if seed is not None:
+            if seed is not None and drop_rate > 0.0:
+                if self.fused_residual:
+                    return dropout_residual_ln(x, residual, self.weight,
+                                               self.bias, seed, drop_rate,
+                                               self.eps)
                 x = hash_dropout(x, seed, drop_rate)
             x = x + residual
+        if self.use_kernel:
+            return fused_layer_norm(x, self.weight, self.bias, self.eps)
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
@@ -151,40 +168,6 @@ def init_weights(module: nn.Module,
 
 
 # ------------------------------------------------------------------ dropout
-_M32 = 0xFFFFFFFF
-GOLDEN = 0x9E3779B9
-
-
-def _mul32(a, c: int):
-    """(a * c) mod 2^32 for a in [0, 2^32) (an int64 tensor or an int) and a
-    constant c < 2^32, without overflowing int64: a * c splits into
-    a * (c mod 2^16) + ((a * (c >> 16)) mod 2^16) * 2^16."""
-    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def fmix32(h):
-    """murmur3 finalizer on uint32 values held in int64 tensors or ints
-    (volta_tpu/models/layers.py:_fmix32)."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-def dropout_threshold(rate: float) -> int:
-    """The keep threshold of ``rate`` as the JAX package computes it:
-    uint32((1 - rate) * (2^32 - 1)) in double precision, truncated."""
-    return int((1.0 - rate) * 4294967295.0)
-
-
-def hash_keep(index: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Keep bits of the elements at linear ``index`` (int64):
-    fmix32(index * 0x9E3779B9 + seed) < threshold, all modulo 2^32."""
-    h = fmix32((_mul32(index & _M32, GOLDEN) + (int(seed) & _M32)) & _M32)
-    return h < dropout_threshold(rate)
-
-
 def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """Counter-based dropout, bit-equal to volta_tpu.models.layers
     .hash_dropout for the uint32 ``seed`` that its key draws: the keep bit

@@ -18,8 +18,7 @@ from typing import Any, Dict, Sequence
 import torch
 from torch import nn
 
-from volta_tpu.config import VoltaConfig
-
+from ..config import VoltaConfig
 from ..ops.attention import additive_mask
 from .embeddings import build_embeddings
 from .encoder import GatedEncoder

@@ -1,4 +1,5 @@
-"""Attention ops of the port and the hand-written CUDA kernels behind them.
+"""Attention and LayerNorm ops of the port and the hand-written CUDA kernels
+behind them.
 
 Kernels are built from ``ops/csrc`` at first use (``ops/_build.py``);
 importing this package builds nothing.
@@ -9,7 +10,9 @@ so a run can show that its path went through the kernels.
 """
 
 LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
-            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0}
+            "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
+            "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+            "dropout_residual_ln_fwd": 0, "dropout_residual_ln_bwd": 0}
 
 
 def reset_launches():

@@ -24,11 +24,11 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..models.layers import dropout_threshold, hash_keep
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_smem_bytes,
                              check, launch_error, smem_bytes)
+from .hash import dropout_threshold, hash_keep
 
 
 def keep_scale(rate: float) -> float:

@@ -19,14 +19,12 @@
 // probabilities. The TPU kernels draw the mask from the Mosaic PRNG and save
 // it for the backward because that PRNG cannot be replayed
 // (pallas_attention.py:91-97); the hash can, so the backward recomputes it
-// and no mask tensor exists.
+// and no mask tensor exists. The hash and the other helpers shared with the
+// LayerNorm kernels are in common.cuh.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -37,60 +35,6 @@ constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;  // forward query tile
 constexpr int kKeyChunk = 32;     // keys staged per round, one per lane
 constexpr int kBwdWarps = 8;      // backward: warps per block
 constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;  // query rows staged at once
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// One 16-byte load of T, widened to float.
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&x)[4]) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float (&x)[8]) {
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Rows [0, n) of one head's [rows, D] slice (row stride hd elements) into
 // shared memory as float32 with row stride ld; rows [n, nrows) are zeroed.
@@ -121,16 +65,6 @@ struct Dropout {
   float scale;         // float32(1 / (1 - rate)), the kept value's factor
 };
 
-// murmur3 finalizer, as volta_tpu/models/layers.py:_fmix32
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 // linear index of probability (b, h, i, j) in [B, H, Lq, Lk], modulo 2^32
 __device__ __forceinline__ uint32_t prob_index(int b, int h, int i, int j,
                                                int H, int Lq, int Lk) {
@@ -140,8 +74,7 @@ __device__ __forceinline__ uint32_t prob_index(int b, int h, int i, int j,
 // the dropout factor of one probability: drop.scale if kept, else 0
 __device__ __forceinline__ float keep_factor(const Dropout& drop,
                                              uint32_t n) {
-  return fmix32(n * 0x9E3779B9u + drop.seed) < drop.threshold ? drop.scale
-                                                              : 0.f;
+  return hash_keep(n, drop.seed, drop.threshold) ? drop.scale : 0.f;
 }
 
 // ---------------------------------------------------------------- forward
@@ -541,16 +474,6 @@ inline size_t bwd_smem_bytes(int Lq, int Lk, int D) {
   const size_t lk_pad = (Lk + 3) & ~3;
   return (2 * lq4 * lk_pad + 2 * static_cast<size_t>(kBwdRows) * D +
           2 * static_cast<size_t>(kKeyChunk) * (D + 1)) * sizeof(float);
-}
-
-// Raise a kernel's dynamic shared-memory limit where it needs more than
-// the 48 KB default.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 }  // namespace

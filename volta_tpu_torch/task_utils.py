@@ -2,8 +2,8 @@
 
 JAX-free counterpart of ``volta_tpu/task_utils.py`` (task_utils.py:27-165,
 173-236, 272-293), which imports JAX at the top and so cannot be imported
-here. The datasets, readers and loader are ``volta_tpu.data``'s own. Only
-the ``normal`` process and the VL-classifier loss are ported so far.
+here. The datasets, readers and loader are the port's copies in ``data/``.
+Only the ``normal`` process and the VL-classifier loss are ported so far.
 """
 
 from __future__ import annotations
@@ -29,10 +29,10 @@ def task_key(task_id: str) -> str:
 def make_tokenizer(bert_model: str, do_lower_case: bool = True,
                    vocab_file: str = None):
     if "roberta" in bert_model:
-        from volta_tpu.data.bpe import RobertaTokenizer
+        from .data.bpe import RobertaTokenizer
 
         return RobertaTokenizer.from_pretrained(vocab_file or bert_model)
-    from volta_tpu.data.tokenization import BertTokenizer
+    from .data.tokenization import BertTokenizer
 
     if vocab_file:
         return BertTokenizer(vocab_file, do_lower_case)
@@ -68,7 +68,7 @@ def _build_dataset(registry, cfg, tc, tokenizer, split_key, ann_key,
 
 
 def _make_readers(cfg, tc, in_memory=False):
-    from volta_tpu.data.features_reader import ImageFeaturesReader
+    from .data.features_reader import ImageFeaturesReader
 
     out = []
     for key in ("features_h5path1", "features_h5path2"):
@@ -87,8 +87,8 @@ def load_dataset(args, cfg, task_cfg: Dict[str, Any], task_id: str,
     (volta_tpu/task_utils.py:96-141; reference: volta/task_utils.py:290-371).
     The train loader shuffles from ``args.seed`` and drops the last partial
     batch; so does the val loader, as in the JAX CLI."""
-    from volta_tpu.data.datasets import DatasetMapTrain
-    from volta_tpu.data.loader import DataLoader
+    from .data.datasets import DatasetMapTrain
+    from .data.loader import DataLoader
 
     tokenizer = make_tokenizer(args.bert_model, args.do_lower_case,
                                getattr(args, "vocab_file", None))
@@ -119,8 +119,8 @@ def load_dataset(args, cfg, task_cfg: Dict[str, Any], task_id: str,
 
 def load_dataset_eval(args, cfg, task_cfg: Dict[str, Any], task_id: str):
     """Eval-split dataset + loader (reference: volta/task_utils.py:374-426)."""
-    from volta_tpu.data.datasets import DatasetMapEval
-    from volta_tpu.data.loader import DataLoader
+    from .data.datasets import DatasetMapEval
+    from .data.loader import DataLoader
 
     tokenizer = make_tokenizer(args.bert_model, args.do_lower_case,
                                getattr(args, "vocab_file", None))

@@ -147,8 +147,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_task: --device cuda but CUDA is not available "
                          "(pass --device cpu to run on the CPU)")
-    from volta_tpu.config import VoltaConfig
-
+    from .config import VoltaConfig
     from .eval_step import make_task_eval_step
     from .models import VoltaForVLTasks
     from .models.layers import init_weights
