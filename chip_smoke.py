@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and fine-tuning paths once on one
-NVIDIA GPU, without and with the LayerNorm kernels.
+NVIDIA GPU: the natural-layout attention without and with the LayerNorm
+kernels, and the head-major attention (``attn_natural_layout: false``).
 
     python3 chip_smoke.py [--profile]
 
@@ -24,7 +25,13 @@ and each of which prints its seconds:
    relative), the dropout mask bit-equal to the twin's, its keep fraction
    0.9 +- 0.005 at b256; times of each kernel and twin at (a), kernel 2
    beside SDPA's forward + backward;
-5. kernels 10-13 (LayerNorm forward and backward, fused dropout + residual
+5. kernels 5-8 (the head-major dropout forward and backward, forward and
+   backward) vs their twins at the shapes and tolerances of phase 4: row
+   5's [H,B,Lq,Lk] mask bit-equal to the twin's, keep fraction 0.9 +-
+   0.005 at b256, rows 5-6 vs rows 3-4 on the same operands and seed (the
+   same dropped set, outputs and gradients within the tolerance); times at
+   (a), SDPA beside rows 7 (forward) and 8 (forward + backward);
+6. kernels 10-13 (LayerNorm forward and backward, fused dropout + residual
    + LayerNorm forward and backward) vs their twins at the b256 train shape
    (15360 rows of 768) in bf16 and fp32, at 7 and 1000 rows and at the
    classifier width 1536: y/dx/do within two bf16 ulps of the largest value
@@ -35,7 +42,7 @@ and each of which prints its seconds:
    torch LayerNorm forward and backward as the library yardstick; the
    host time per call of an eval-mode sublayer tail with and without
    kernel 10;
-6. eval slice: a synthetic VQA dataroot at full feature width (2048 dims,
+7. eval slice: a synthetic VQA dataroot at full feature width (2048 dims,
    36 boxes, 3129 labels, 1200 train and 1024 val questions, written here
    through the port's own LMDB writer) through
    ``python -m volta_tpu_torch.eval_task``'s ``main()`` with
@@ -45,7 +52,7 @@ and each of which prints its seconds:
    same model on the plain twins (logits within 5e-2, the kernel being
    bit-equal to its twin); eval throughput at b256 and b1024, kernels vs
    twins;
-7. the eval slice again with ``use_pallas_layernorm`` and
+8. the eval slice again with ``use_pallas_layernorm`` and
    ``use_fused_residual_ln`` on (a copy of the config in a temporary
    directory): kernel 1 12 and kernel 10 29 times per batch, one answer per
    question; one batch through the kernels, the twins and the torch
@@ -56,25 +63,35 @@ and each of which prints its seconds:
    with at most 4 more answers flipped than that path flips; eval
    throughput at b256 and b1024 with the LayerNorm kernels on and off, in
    turns;
-8. train slice: ``python -m volta_tpu_torch.train_task``'s ``main()``, 2
-   epochs at b256 in bf16 with the config's dropout: kernels 3 and 4 must
-   run exactly 12 times per step and kernel 1 12 times per validation
-   batch, losses finite and falling, one VAL line per epoch; 1 epoch of the
-   same config with its dropout rates set to 0, which must run kernel 2 12
-   times per step; 1 epoch with the LayerNorm flags on, which must run
-   kernels 12 and 13 24 times and kernels 10 and 11 5 times per step (and
-   kernel 10 29 times per validation batch);
-9. one fp32 train step at full width (64 rows) with the kernels and with
-   the twins from the same weights and seed, with dropout and without,
-   without and with the LayerNorm flags: the losses within 1e-5 relative,
-   every parameter within 2% of the step's largest update, the exact
-   launches of each kernel;
-10. train-step throughput at b256 bf16, inputs on the card (forward,
+9. the eval slice with ``attn_natural_layout: false`` (a copy of the
+   config): kernel 7 12 times per batch and no natural kernel, one answer
+   per question, logits within 5e-2 of the twins'; one batch against the
+   same weights on the natural layout, fp32 within 1e-4 and bf16 under the
+   rule of phase 8; eval throughput at b256 and b1024, head-major vs
+   natural, in turns;
+10. train slice: ``python -m volta_tpu_torch.train_task``'s ``main()``, 2
+    epochs at b256 in bf16 with the config's dropout: kernels 3 and 4 must
+    run exactly 12 times per step and kernel 1 12 times per validation
+    batch, losses finite and falling, one VAL line per epoch; 1 epoch of
+    the same config with its dropout rates set to 0, which must run kernel
+    2 12 times per step; 1 epoch with the LayerNorm flags on, which must
+    run kernels 12 and 13 24 times and kernels 10 and 11 5 times per step
+    (and kernel 10 29 times per validation batch); 1 epoch of the
+    head-major config, kernels 5 and 6 12 times per step and kernel 7 12
+    times per validation batch; 1 epoch of it with dropout 0, kernels 7 and
+    8 12 times per step;
+11. one fp32 train step at full width (64 rows) with the kernels and with
+    the twins from the same weights and seed, with dropout and without,
+    without and with the LayerNorm flags, and head-major, which is also
+    held to the same step on the natural layout (the same seed draws the
+    same masks): the losses within 1e-5 relative, every parameter within
+    2% of the step's largest update, the exact launches of each kernel;
+12. train-step throughput at b256 bf16, inputs on the card (forward,
     backward, clip, AdamW), with the kernels and with the twins, then with
-    the LayerNorm kernels on and off, and the peak memory of each; with
-    ``--profile`` the device time of a step by kernel, without and with
-    the LayerNorm kernels;
-11. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+    the LayerNorm kernels on and off, then head-major vs natural, and the
+    peak memory of each; with ``--profile`` the device time of a step by
+    kernel, without and with the LayerNorm kernels, and head-major;
+13. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -126,6 +143,14 @@ KERNELS = {
                               "volta_tpu/ops/pallas_attention.py:510"),
     "attention_dropout_bwd": ("attention_dropout.cu",
                               "volta_tpu/ops/pallas_attention.py:530"),
+    "attention_dropout_head_major_fwd": (
+        "attention_head_major.cu", "volta_tpu/ops/pallas_attention.py:100"),
+    "attention_dropout_head_major_bwd": (
+        "attention_head_major.cu", "volta_tpu/ops/pallas_attention.py:169"),
+    "attention_head_major_fwd": ("attention_head_major.cu",
+                                 "volta_tpu/ops/pallas_attention.py:852"),
+    "attention_head_major_bwd": ("attention_head_major.cu",
+                                 "volta_tpu/ops/pallas_attention.py:907"),
     "layer_norm_fwd": ("layernorm.cu", "volta_tpu/ops/layernorm.py:27"),
     "layer_norm_bwd": ("layernorm.cu", "volta_tpu/ops/layernorm.py:40"),
     "dropout_residual_ln_fwd": ("fused_residual.cu",
@@ -196,12 +221,13 @@ def bound(nbytes, ops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(b, lq, lk, h, d, itemsize, backward):
+def attention_bound(b, lq, lk, h, d, itemsize, backward, mask=False):
     """Forward: q, k, v, bias read, out written; 4·B·H·Lq·Lk·D operations
     (QKᵀ and PV). Backward: q, k, v, g, bias read, dq, dk, dv written;
-    10·B·H·Lq·Lk·D (QKᵀ again, dV, dP, dQ, dK)."""
+    10·B·H·Lq·Lk·D (QKᵀ again, dV, dP, dQ, dK). With ``mask`` the
+    [H,B,Lq,Lk] uint8 keep mask written (forward) or read (backward)."""
     rows = b * (3 * lq + 4 * lk) if backward else b * (2 * lq + 2 * lk)
-    nbytes = rows * h * d * itemsize + b * lk * 4
+    nbytes = rows * h * d * itemsize + b * lk * 4 + mask * b * h * lq * lk
     return bound(nbytes, (10 if backward else 4) * b * h * lq * lk * d,
                  "bf16 tensor")
 
@@ -406,6 +432,146 @@ def check_train_kernels():
     return report
 
 
+def head_major(x, h):
+    """[B, L, H·D] -> contiguous [H, B, L, D]."""
+    b, l, hd = x.shape
+    return x.view(b, l, h, hd // h).permute(2, 0, 1, 3).contiguous()
+
+
+def natural(x):
+    """[H, B, L, D] -> [B, L, H·D]."""
+    h, b, l, d = x.shape
+    return x.permute(1, 2, 0, 3).reshape(b, l, h * d)
+
+
+def check_head_major_kernels():
+    """Phase 5: kernels 5-8 against their twins at the shapes of phase 4;
+    rows 5-6 against rows 3-4 for one seed on the same operands; their
+    times at (a), SDPA beside rows 7 and 8."""
+    import torch
+    import torch.nn.functional as F
+
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+
+    report = {}
+    for i, shape in enumerate([SERVING] + ODD):
+        b, lq, lk, h, d = shape
+        for dt in ("bfloat16", "float32"):
+            q3, k3, v3, bias = attention_inputs(b, lq, lk, h, d,
+                                                getattr(torch, dt), 200 + i)
+            g3 = torch.randn_like(q3)
+            q, k, v, g = (head_major(x, h) for x in (q3, k3, v3, g3))
+            scale, seed = d ** -0.5, 2000 + i
+            out = ahm.attention_head_major_fwd(q, k, v, bias, scale)
+            got = ahm.attention_head_major_bwd(q, k, v, bias, g, scale,
+                                               want_db=True)
+            dout, mask = ahm.attention_dropout_head_major_fwd(
+                q, k, v, bias, scale, RATE, seed)
+            dgot = ahm.attention_dropout_head_major_bwd(q, k, v, bias, g,
+                                                        mask, scale, RATE)
+            nout, nmask = adc.attention_dropout_fwd(
+                q3, k3, v3, bias, scale, h, RATE, seed, return_mask=True)
+            ngot = adc.attention_dropout_bwd(q3, k3, v3, bias, g3, scale, h,
+                                             RATE, seed)
+            torch.cuda.synchronize()
+            keep = ahm.keep_mask_head_major(seed, (h, b, lq, lk), RATE,
+                                            device="cuda")
+            if not torch.equal(mask, keep):
+                raise RuntimeError(f"row-5 mask differs from the twin's at "
+                                   f"{shape} {dt}")
+            if not torch.equal(mask.transpose(0, 1).bool(), nmask):
+                raise RuntimeError(f"rows 5 and 3 drop other probabilities "
+                                   f"at {shape} {dt}")
+            ref = ahm.attention_head_major_bwd_ref(q, k, v, bias, g, scale)
+            dref = ahm.attention_dropout_head_major_bwd_ref(
+                q, k, v, bias, g, keep, scale, RATE)
+            errs = {
+                "attention_head_major_fwd": close(
+                    out, ahm.attention_head_major_fwd_ref(q, k, v, bias,
+                                                          scale),
+                    dt, "kernel 7"),
+                "attention_head_major_bwd": max(
+                    close(a, r, dt, f"kernel 8 {n}") for n, a, r in
+                    zip(("dq", "dk", "dv", "db_part"), got, ref)),
+                "attention_dropout_head_major_fwd": close(
+                    dout, ahm.attention_dropout_head_major_fwd_ref(
+                        q, k, v, bias, scale, RATE, keep), dt, "kernel 5"),
+                "attention_dropout_head_major_bwd": max(
+                    close(a, r, dt, "kernel 6") for a, r in zip(dgot, dref))}
+            cross = max([close(natural(dout), nout, dt, "kernel 5 vs 3")]
+                        + [close(natural(a), r, dt, "kernel 6 vs 4")
+                           for a, r in zip(dgot, ngot)])
+            frac = float(mask.float().mean())
+            print(f"kernels 7/8/5/6 B={b} Lq={lq} Lk={lk} H={h} D={d} {dt}: "
+                  "max abs diff vs twins "
+                  + " / ".join(f"{e:.3e}" for e in errs.values())
+                  + f", mask bit-equal to the twin's and to kernel 3's, "
+                  f"kernels 5-6 vs 3-4 {cross:.3e}, keep fraction "
+                  f"{frac:.5f}", flush=True)
+            if shape == SERVING:
+                if abs(frac - (1 - RATE)) > 0.005:
+                    raise RuntimeError(f"row-5 keep fraction {frac} at b256")
+                if dt == "bfloat16":
+                    report = {n: {"max_abs_err": e} for n, e in errs.items()}
+                    args = (q, k, v, bias, g, mask, scale, h, seed)
+    q, k, v, bias, g, mask, scale, h, seed = args
+    _, b, lq, d = q.shape
+    lk = k.shape[2]
+    keep = lambda: ahm.keep_mask_head_major(seed, (h, b, lq, lk), RATE,
+                                            device="cuda")
+    pairs = {
+        "attention_head_major_fwd": (
+            lambda: ahm.attention_head_major_fwd(q, k, v, bias, scale),
+            lambda: ahm.attention_head_major_fwd_ref(q, k, v, bias, scale),
+            False),
+        "attention_head_major_bwd": (
+            lambda: ahm.attention_head_major_bwd(q, k, v, bias, g, scale),
+            lambda: ahm.attention_head_major_bwd_ref(q, k, v, bias, g, scale,
+                                                     want_db=False),
+            False),
+        "attention_dropout_head_major_fwd": (
+            lambda: ahm.attention_dropout_head_major_fwd(q, k, v, bias,
+                                                         scale, RATE, seed),
+            lambda: ahm.attention_dropout_head_major_fwd_ref(
+                q, k, v, bias, scale, RATE, keep()),
+            True),
+        "attention_dropout_head_major_bwd": (
+            lambda: ahm.attention_dropout_head_major_bwd(q, k, v, bias, g,
+                                                         mask, scale, RATE),
+            lambda: ahm.attention_dropout_head_major_bwd_ref(
+                q, k, v, bias, g, mask, scale, RATE),
+            True)}
+    for name, (kern, plain, masked) in pairs.items():
+        ms = cuda_ms(kern, iters=50)
+        plain_ms = cuda_ms(plain, iters=50)
+        ms2 = cuda_ms(kern, iters=50)
+        report[name].update(
+            ms=(ms + ms2) / 2, plain_ms=plain_ms, library_ms=None,
+            bound=attention_bound(b, lq, lk, h, d, 2, name.endswith("_bwd"),
+                                  mask=masked))
+        print(f"{name} (a) time {(ms + ms2) / 2:.4f} ms (runs {ms:.4f}, "
+              f"{ms2:.4f}), plain twin {plain_ms:.4f} ms, bound "
+              f"{report[name]['bound'][0]:.4f} ms", flush=True)
+    # the library yardstick of rows 7 and 8: SDPA forward, and forward +
+    # backward, on the same operands viewed [B, H, L, D]
+    sq, sk, sv = (x.transpose(0, 1) for x in (q, k, v))
+    smask = bias.view(b, 1, 1, lk).to(q.dtype)
+    report["attention_head_major_fwd"]["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask),
+        iters=50)
+    leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
+    report["attention_head_major_bwd"]["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+            *leaves, attn_mask=smask), leaves, g.transpose(0, 1)), iters=50)
+    print("rows 7 / 8 library yardstick: SDPA forward "
+          f"{report['attention_head_major_fwd']['library_ms']:.4f} ms, "
+          "forward + backward "
+          f"{report['attention_head_major_bwd']['library_ms']:.4f} ms",
+          flush=True)
+    return report
+
+
 def ln_inputs(n, d, dtype, seed):
     import torch
 
@@ -419,7 +585,7 @@ def ln_inputs(n, d, dtype, seed):
 
 
 def check_ln_kernels():
-    """Phase 5: kernels 10-13 against their twins; their times at the
+    """Phase 6: kernels 10-13 against their twins; their times at the
     train shape in bf16, rows 10-11 beside the torch LayerNorm."""
     import torch
     import torch.nn.functional as F
@@ -561,13 +727,14 @@ def host_us(fn, iters=200):
 
 @contextlib.contextmanager
 def twins():
-    """The eight kernels' plain twins in their wrappers' places: the
+    """The twelve kernels' plain twins in their wrappers' places: the
     autograd Functions look their wrappers up at call time, so the card
     runs the twins (the dropout twins with the kernels' hash mask). No
     kernel may launch meanwhile."""
     from volta_tpu_torch.ops import LAUNCHES
     from volta_tpu_torch.ops import attention_cuda as ac
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops import fused_residual as fr
     from volta_tpu_torch.ops import layernorm as ln
 
@@ -585,6 +752,13 @@ def twins():
                                              rate, keep(q, k, heads, rate,
                                                         seed))
 
+    def head_major_dropout_fwd(q, k, v, bias, scale, rate, seed):
+        keep = ahm.keep_mask_head_major(seed, (q.shape[0], q.shape[1],
+                                               q.shape[2], k.shape[2]), rate,
+                                        device=q.device)
+        return ahm.attention_dropout_head_major_fwd_ref(
+            q, k, v, bias, scale, rate, keep), keep
+
     def residual_fwd(o, x, w, b, seed, rate, eps):
         keep = fr.tail_keep_mask(seed, o.shape, rate, o.device)
         return fr.dropout_residual_ln_fwd_ref(o, x, w, b, keep, rate, eps)
@@ -598,6 +772,13 @@ def twins():
              (ac, "attention_bwd", ac.attention_bwd_ref),
              (adc, "attention_dropout_fwd", dropout_fwd),
              (adc, "attention_dropout_bwd", dropout_bwd),
+             (ahm, "attention_head_major_fwd",
+              ahm.attention_head_major_fwd_ref),
+             (ahm, "attention_head_major_bwd",
+              ahm.attention_head_major_bwd_ref),
+             (ahm, "attention_dropout_head_major_fwd", head_major_dropout_fwd),
+             (ahm, "attention_dropout_head_major_bwd",
+              ahm.attention_dropout_head_major_bwd_ref),
              (ln, "layer_norm_fwd", ln.layer_norm_fwd_ref),
              (ln, "layer_norm_bwd", ln.layer_norm_bwd_ref),
              (fr, "dropout_residual_ln_fwd", residual_fwd),
@@ -630,6 +811,25 @@ def ln_kernels_off(model):
     finally:
         for m, (kern, fused) in zip(lns, saved):
             m.use_kernel, m.fused_residual = kern, fused
+
+
+@contextlib.contextmanager
+def natural_layout(model):
+    """The model's attention sublayers on the natural-layout kernels (rows
+    1-4) for the duration: the same weights without the head-major copies
+    and kernels 5-8."""
+    from volta_tpu_torch.models.encoder import GatedAttentionSublayer
+
+    subs = [m for m in model.modules()
+            if isinstance(m, GatedAttentionSublayer)]
+    saved = [m.natural for m in subs]
+    for m in subs:
+        m.natural = True
+    try:
+        yield
+    finally:
+        for m, nat in zip(subs, saved):
+            m.natural = nat
 
 
 WORD_STEMS = [
@@ -787,13 +987,14 @@ def throughput(step, batch, iters):
 
 
 def run_slice(root, data_dir, yml, power, config, tag, per_batch, routes,
-              exact_twins):
-    """Phases 6-7: the eval CLI on synthetic VQA at full width with
+              exact_twins, layout_check=False):
+    """Phases 7-9: the eval CLI on synthetic VQA at full width with
     ``config``. ``per_batch`` holds the launches of one batch; ``routes``
     gives, for the model, two named context managers whose eval throughputs
     are compared in turns (ab_turns); ``exact_twins`` says whether the
-    path's kernels are bit-equal to their twins. Returns the launches and
-    the rates."""
+    path's kernels are bit-equal to their twins; ``layout_check`` holds the
+    head-major model's logits, bf16 and fp32, to the same weights on the
+    natural layout. Returns the launches and the rates."""
     import torch
 
     from volta_tpu_torch import eval_task
@@ -838,9 +1039,9 @@ def run_slice(root, data_dir, yml, power, config, tag, per_batch, routes,
     batches = list(data["loader"])
     one = to_device(batches[0], "cuda")
     models = [("bfloat16", model, step)]
-    if not exact_twins:
+    if not exact_twins or layout_check:
         # the same weights in float32: the two LayerNorm implementations
-        # compared without 12 layers of bf16 rounding in between
+        # (or layouts) compared without 12 layers of bf16 rounding between
         args32 = eval_task.parse_args(argv + ["--compute_dtype", "float32"])
         model32 = eval_task.setup(args32)[0]
         models.append(("float32", model32,
@@ -879,6 +1080,26 @@ def run_slice(root, data_dir, yml, power, config, tag, per_batch, routes,
             raise RuntimeError(f"non-finite {dtype} logits")
         if not (diff <= tol and agree >= min_agree):
             raise RuntimeError("kernel model disagrees with the plain twins")
+        if layout_check:
+            # the natural layout's kernels sum in the same order: held to
+            # LOGIT_TOL_FP32 in fp32 and to phase 8's rule in bf16
+            with natural_layout(net):
+                nat_logits = fn(one)["prediction"].float()
+            ldiff = float((kernel_logits - nat_logits).abs().max())
+            lagree = float((kernel_logits.argmax(1) == nat_logits.argmax(1))
+                           .float().mean())
+            if dtype == "float32":
+                tol, min_agree = LOGIT_TOL_FP32, 0.0
+            else:
+                tol = NOISE_FACTOR * noise
+                min_agree = agree_noise - AGREE_SLACK / kernel_logits.shape[0]
+            print(f"logits b256 ({tag}, {dtype}) head-major vs natural "
+                  f"layout: max abs diff {ldiff:.3e} (tol {tol:.3e}), "
+                  f"answers agree {lagree:.4f} (min {min_agree:.4f})",
+                  flush=True)
+            if not (ldiff <= tol and lagree >= min_agree):
+                raise RuntimeError("head-major model disagrees with the "
+                                   "natural layout")
 
     (name_a, route_a), (name_b, route_b) = routes(model)
     rates = {}
@@ -910,10 +1131,11 @@ def train_argv(root, data_dir, yml, config, epochs, tag):
             "--device", "cuda", "--seed", "0"]
 
 
-def run_train(root, data_dir, yml, flagged):
-    """Phase 8: the train CLI at full width, with the config's dropout, with
-    its dropout rates set to 0, and with the LayerNorm flags on
-    (``flagged``). Returns the launches of each run."""
+def run_train(root, data_dir, yml, flagged, hm):
+    """Phase 10: the train CLI at full width, with the config's dropout, with
+    its dropout rates set to 0, with the LayerNorm flags on (``flagged``),
+    and with the head-major attention (``hm``) with the config's dropout and
+    with none. Returns the launches of each run."""
     import torch
 
     from volta_tpu_torch import train_task
@@ -924,11 +1146,17 @@ def run_train(root, data_dir, yml, flagged):
     free = write_config(root, "ctrl_uniter_base_dropout_free.json",
                         attention_probs_dropout_prob=0.0,
                         hidden_dropout_prob=0.0)
+    hm_free = write_config(root, "ctrl_uniter_base_head_major_dropout_free"
+                           ".json", attn_natural_layout=False,
+                           attention_probs_dropout_prob=0.0,
+                           hidden_dropout_prob=0.0)
     cfg = VoltaConfig.from_json_file(CONFIG)
     out = {}
     for tag, config, epochs in (("dropout", CONFIG, 2),
                                 ("dropout_free", free, 1),
-                                ("flagged", flagged, 1)):
+                                ("flagged", flagged, 1),
+                                ("head_major", hm, 1),
+                                ("head_major_dropout_free", hm_free, 1)):
         argv = train_argv(root, data_dir, yml, config, epochs, tag)
         data = load_dataset(train_task.parse_args(argv), cfg,
                             load_task_config(yml), "1")
@@ -967,7 +1195,14 @@ def run_train(root, data_dir, yml, flagged):
                               layer_norm_fwd=5 * steps + 29 * val,
                               layer_norm_bwd=5 * steps,
                               dropout_residual_ln_fwd=24 * steps,
-                              dropout_residual_ln_bwd=24 * steps)}[tag]
+                              dropout_residual_ln_bwd=24 * steps),
+            "head_major": expect(
+                attention_dropout_head_major_fwd=12 * steps,
+                attention_dropout_head_major_bwd=12 * steps,
+                attention_head_major_fwd=12 * val),
+            "head_major_dropout_free": expect(
+                attention_head_major_fwd=12 * steps + 12 * val,
+                attention_head_major_bwd=12 * steps)}[tag]
         if launches != want:
             raise RuntimeError(f"{tag} launches {launches}, expected {want}")
         out[tag] = launches
@@ -1001,9 +1236,11 @@ def new_step(model, task_cfg, lr):
             make_task_train_step(model, opt, task_cfg, "TASK1"))
 
 
-def compare_steps(task_cfg, batch_np, flagged):
-    """Phase 9: one fp32 step with the kernels and with the twins, without
-    and with the LayerNorm flags (``flagged``)."""
+def compare_steps(task_cfg, batch_np, flagged, hm):
+    """Phase 11: one fp32 step with the kernels and with the twins, without
+    and with the LayerNorm flags (``flagged``), and with the head-major
+    attention (``hm``), whose step is also held to the same step on the
+    natural layout: the same seed draws the same masks."""
     import torch
 
     from volta_tpu_torch.eval_step import to_device
@@ -1021,17 +1258,25 @@ def compare_steps(task_cfg, batch_np, flagged):
             dropout_residual_ln_bwd=24)),
         ("LN flags, dropout-free", flagged, expect(
             attention_fwd=12, attention_bwd=12, layer_norm_fwd=29,
-            layer_norm_bwd=29)))
+            layer_norm_bwd=29)),
+        ("head-major, dropout", hm, expect(
+            attention_dropout_head_major_fwd=12,
+            attention_dropout_head_major_bwd=12)),
+        ("head-major, dropout-free", hm, expect(
+            attention_head_major_fwd=12, attention_head_major_bwd=12)))
     for mode, config, want in cases:
         model = build_model(task_cfg, "float32", config)
         init = {k: v.clone() for k, v in model.state_dict().items()}
+        routes = {"kernel": contextlib.nullcontext, "twin": twins}
+        if config == hm:
+            routes["natural"] = lambda: natural_layout(model)
         res = {}
-        for route in ("kernel", "twin"):
+        for route, ctx in routes.items():
             model.load_state_dict(init)
             model.train("dropout-free" not in mode)
             state, step = new_step(model, task_cfg, 1e-4)
             reset_launches()
-            with twins() if route == "twin" else contextlib.nullcontext():
+            with ctx():
                 loss = float(step(state, batch)["loss"])
             res[route] = (loss, {k: v.clone()
                                  for k, v in model.state_dict().items()},
@@ -1040,16 +1285,18 @@ def compare_steps(task_cfg, batch_np, flagged):
         if counts != want:
             raise RuntimeError(f"{mode} kernel step launched {counts}, "
                                f"expected {want}")
-        (lk, pk, _), (lt, pt, _) = res["kernel"], res["twin"]
-        diff = max(float((pk[n] - pt[n]).abs().max()) for n in pk)
+        lk, pk, _ = res["kernel"]
         upd = max(float((pk[n] - init[n]).abs().max()) for n in pk)
-        print(f"fp32 step ({mode}), 64 rows, kernels vs twins: loss "
-              f"{lk:.6f} vs {lt:.6f}, params max abs diff {diff:.3e} "
-              f"(largest update {upd:.3e}, tol {STEP_TOL:g} of it), "
-              f"kernel launches {counts}", flush=True)
-        if not (abs(lk - lt) <= 1e-5 * abs(lt) and diff <= STEP_TOL * upd
-                and np.isfinite(lk)):
-            raise RuntimeError(f"{mode} step disagrees with the twins")
+        for other in list(routes)[1:]:
+            lt, pt, _ = res[other]
+            diff = max(float((pk[n] - pt[n]).abs().max()) for n in pk)
+            print(f"fp32 step ({mode}), 64 rows, kernels vs {other}: loss "
+                  f"{lk:.6f} vs {lt:.6f}, params max abs diff {diff:.3e} "
+                  f"(largest update {upd:.3e}, tol {STEP_TOL:g} of it), "
+                  f"kernel launches {counts}", flush=True)
+            if not (abs(lk - lt) <= 1e-5 * abs(lt)
+                    and diff <= STEP_TOL * upd and np.isfinite(lk)):
+                raise RuntimeError(f"{mode} step disagrees with the {other}")
         del model, init, res
         torch.cuda.empty_cache()
 
@@ -1081,11 +1328,13 @@ def step_rates(step, state, batch, routes, power, what):
     return out
 
 
-def train_throughput(task_cfg, batch_np, power, profile, flagged):
-    """Phase 10: pairs/s of the b256 bf16 train step with the kernels and
+def train_throughput(task_cfg, batch_np, power, profile, flagged, hm):
+    """Phase 12: pairs/s of the b256 bf16 train step with the kernels and
     with the twins (LayerNorm kernels off), then with the LayerNorm kernels
-    on and off; peak memory; with ``profile`` the device time by kernel of
-    the step without and with the LayerNorm kernels."""
+    on and off, then the head-major config (``hm``) against the same
+    weights on the natural layout; peak memory; with ``profile`` the device
+    time by kernel of the step without and with the LayerNorm kernels, and
+    head-major."""
     from volta_tpu_torch.eval_step import to_device
     from volta_tpu_torch.optimization import warmup_linear_schedule
 
@@ -1108,6 +1357,17 @@ def train_throughput(task_cfg, batch_np, power, profile, flagged):
                          "LN kernels off")
         profile_step(step, state, batch, rates["LN kernels on"][1],
                      "LN kernels on")
+    del model, state, step
+    model = build_model(task_cfg, "bfloat16", hm).train()
+    state, step = new_step(model, task_cfg,
+                           warmup_linear_schedule(1e-4, 10, 1000))
+    rates.update(step_rates(step, state, batch,
+                            (("head-major", contextlib.nullcontext),
+                             ("natural", lambda: natural_layout(model))),
+                            power, "kernels, LN kernels off,"))
+    if profile:
+        profile_step(step, state, batch, rates["head-major"][1],
+                     "head-major")
     return rates
 
 
@@ -1181,7 +1441,9 @@ def main(argv):
         results["attention_fwd"] = check_kernel(attention_cuda)
     with phase("4 kernels 2-4"):
         results.update(check_train_kernels())
-    with phase("5 kernels 10-13"):
+    with phase("5 kernels 5-8"):
+        results.update(check_head_major_kernels())
+    with phase("6 kernels 10-13"):
         results.update(check_ln_kernels())
     with tempfile.TemporaryDirectory() as root:
         with phase("dataroot"):
@@ -1189,29 +1451,38 @@ def main(argv):
         flagged = write_config(root, "ctrl_uniter_base_ln_kernels.json",
                                use_pallas_layernorm=True,
                                use_fused_residual_ln=True)
-        with phase("6 eval slice"):
+        hm = write_config(root, "ctrl_uniter_base_head_major.json",
+                          attn_natural_layout=False)
+        with phase("7 eval slice"):
             run_slice(root, data_dir, yml, power, CONFIG, "base",
                       {"attention_fwd": 12},
                       lambda m: (("kernels", contextlib.nullcontext),
                                  ("twins", twins)), exact_twins=True)
-        with phase("7 eval slice, LN kernels"):
+        with phase("8 eval slice, LN kernels"):
             _, eval_rates = run_slice(
                 root, data_dir, yml, power, flagged, "ln_kernels",
                 {"attention_fwd": 12, "layer_norm_fwd": 29},
                 lambda m: (("LN kernels on", contextlib.nullcontext),
                            ("LN kernels off", lambda: ln_kernels_off(m))),
                 exact_twins=False)
-        with phase("8 train slice"):
-            launches, data = run_train(root, data_dir, yml, flagged)
+        with phase("9 eval slice, head-major"):
+            _, hm_rates = run_slice(
+                root, data_dir, yml, power, hm, "head_major",
+                {"attention_head_major_fwd": 12},
+                lambda m: (("head-major", contextlib.nullcontext),
+                           ("natural", lambda: natural_layout(m))),
+                exact_twins=True, layout_check=True)
+        with phase("10 train slice"):
+            launches, data = run_train(root, data_dir, yml, flagged, hm)
         from volta_tpu_torch.task_utils import load_task_config
 
         task_cfg = load_task_config(yml)
         batch = next(iter(data["train_loader"]))
-        with phase("9 fp32 steps"):
-            compare_steps(task_cfg, batch, flagged)
-        with phase("10 train throughput"):
+        with phase("11 fp32 steps"):
+            compare_steps(task_cfg, batch, flagged, hm)
+        with phase("12 train throughput"):
             rates = train_throughput(task_cfg, batch, power,
-                                     "--profile" in argv, flagged)
+                                     "--profile" in argv, flagged, hm)
     print(f"LN kernels on vs off [{power}]: eval b256 "
           f"{eval_rates[(256, 'LN kernels on')]:.1f} vs "
           f"{eval_rates[(256, 'LN kernels off')]:.1f}, b1024 "
@@ -1219,6 +1490,13 @@ def main(argv):
           f"{eval_rates[(1024, 'LN kernels off')]:.1f}, train b256 "
           f"{rates['LN kernels on'][0]:.1f} vs "
           f"{rates['LN kernels off'][0]:.1f} pairs/s", flush=True)
+    print(f"head-major vs natural layout [{power}]: eval b256 "
+          f"{hm_rates[(256, 'head-major')]:.1f} vs "
+          f"{hm_rates[(256, 'natural')]:.1f}, b1024 "
+          f"{hm_rates[(1024, 'head-major')]:.1f} vs "
+          f"{hm_rates[(1024, 'natural')]:.1f}, train b256 "
+          f"{rates['head-major'][0]:.1f} vs {rates['natural'][0]:.1f} "
+          "pairs/s", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
           flush=True)
 
@@ -1227,11 +1505,18 @@ def main(argv):
     if foreign:
         raise RuntimeError(f"the port imported {foreign[:5]}")
     # launches: rows 1-4 from the train runs without the LayerNorm flags,
-    # rows 10-13 from the run with them
+    # rows 5-8 from the head-major runs, rows 10-13 from the flagged run
     counts = {**{k: launches["dropout"][k] for k in
                  ("attention_fwd", "attention_dropout_fwd",
                   "attention_dropout_bwd")},
               "attention_bwd": launches["dropout_free"]["attention_bwd"],
+              **{k: launches["head_major"][k] for k in
+                 ("attention_head_major_fwd",
+                  "attention_dropout_head_major_fwd",
+                  "attention_dropout_head_major_bwd")},
+              "attention_head_major_bwd":
+                  launches["head_major_dropout_free"][
+                      "attention_head_major_bwd"],
               **{k: launches["flagged"][k] for k in
                  ("layer_norm_fwd", "layer_norm_bwd",
                   "dropout_residual_ln_fwd", "dropout_residual_ln_bwd")}}

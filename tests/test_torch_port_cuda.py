@@ -213,6 +213,133 @@ def test_functions_take_the_kernels(cuda_device):
             _assert_close(a, r, "float32", f"grad at rate {rate}")
 
 
+# ------------------------------------------- head-major kernels (rows 5-8)
+HM_NAMES = ("attention_head_major_fwd", "attention_head_major_bwd",
+            "attention_dropout_head_major_fwd",
+            "attention_dropout_head_major_bwd")
+
+
+def _head_major(x, heads):
+    """[B, L, H·D] -> contiguous [H, B, L, D]."""
+    b, l, hd = x.shape
+    return x.view(b, l, heads, hd // heads).permute(2, 0, 1, 3).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [SERVING] + ODD,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_head_major_kernels_match_twins(cuda_device, dtype, shape):
+    """Rows 7, 8 (with the per-head bias partials), 5 and 6 against their
+    twins; row 5's mask bit-equal to the twin's, row 6 fed it."""
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+
+    b, lq, lk, h, d = shape
+    q, k, v, bias, g = _inputs(shape, dtype, cuda_device, seed=5)
+    q, k, v, g = (_head_major(x, h) for x in (q, k, v, g))
+    seed, scale = 0xFACE + lq, d ** -0.5
+    before = tuple(LAUNCHES[n] for n in HM_NAMES)
+    out = ahm.attention_head_major_fwd(q, k, v, bias, scale)
+    grads = ahm.attention_head_major_bwd(q, k, v, bias, g, scale,
+                                         want_db=True)
+    dout, mask = ahm.attention_dropout_head_major_fwd(q, k, v, bias, scale,
+                                                      RATE, seed)
+    dgrads = ahm.attention_dropout_head_major_bwd(q, k, v, bias, g, mask,
+                                                  scale, RATE)
+    torch.cuda.synchronize()
+    assert tuple(LAUNCHES[n] - c for n, c in zip(HM_NAMES, before)) == \
+        (1, 1, 1, 1)
+    _assert_close(out, ahm.attention_head_major_fwd_ref(q, k, v, bias, scale),
+                  dtype, "row 7")
+    ref = ahm.attention_head_major_bwd_ref(q, k, v, bias, g, scale)
+    for name, a, r in zip(("dq", "dk", "dv"), grads[:3], ref[:3]):
+        _assert_close(a, r, dtype, f"row 8 {name}")
+    assert grads[3].shape == (h, b, lk)
+    _assert_close(grads[3], ref[3], dtype, "row 8 db_part")
+    assert ahm.attention_head_major_bwd(q, k, v, bias, g, scale)[3] is None
+    keep = ahm.keep_mask_head_major(seed, (h, b, lq, lk), RATE,
+                                    device=cuda_device)
+    assert mask.dtype == torch.uint8 and torch.equal(mask, keep)
+    _assert_close(dout, ahm.attention_dropout_head_major_fwd_ref(
+        q, k, v, bias, scale, RATE, keep), dtype, "row 5")
+    dref = ahm.attention_dropout_head_major_bwd_ref(q, k, v, bias, g, keep,
+                                                    scale, RATE)
+    for name, a, r in zip(("dq", "dk", "dv"), dgrads, dref):
+        _assert_close(a, r, dtype, f"row 6 {name}")
+    if shape == SERVING:
+        frac = float(mask.float().mean())
+        assert abs(frac - (1 - RATE)) <= 0.005, frac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [SERVING, ODD[0]],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
+    """For one seed rows 5-8 and rows 1-4 drop the same probabilities and
+    agree on the same operands: outputs and gradients within the twins'
+    tolerance, the same dropped set."""
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+
+    b, lq, lk, h, d = shape
+    q, k, v, bias, g = _inputs(shape, dtype, cuda_device, seed=6)
+    hq, hk, hv, hg = (_head_major(x, h) for x in (q, k, v, g))
+    seed, scale = 4242, d ** -0.5
+    nat = lambda x: x.permute(1, 2, 0, 3).reshape(  # noqa: E731
+        x.shape[1], x.shape[2], h * d)
+    _assert_close(nat(ahm.attention_head_major_fwd(hq, hk, hv, bias, scale)),
+                  attention_cuda.attention_fwd(q, k, v, bias, scale, h),
+                  dtype, "row 7 vs row 1")
+    hgrads = ahm.attention_head_major_bwd(hq, hk, hv, bias, hg, scale, True)
+    ngrads = attention_cuda.attention_bwd(q, k, v, bias, g, scale, h, True)
+    for a, r in zip(hgrads[:3], ngrads[:3]):
+        _assert_close(nat(a), r, dtype, "row 8 vs row 2")
+    _assert_close(hgrads[3].sum(0), ngrads[3], dtype, "row 8 vs row 2 db")
+    hout, hmask = ahm.attention_dropout_head_major_fwd(hq, hk, hv, bias,
+                                                       scale, RATE, seed)
+    nout, nmask = adc.attention_dropout_fwd(q, k, v, bias, scale, h, RATE,
+                                            seed, return_mask=True)
+    assert torch.equal(hmask.transpose(0, 1).bool(), nmask)
+    _assert_close(nat(hout), nout, dtype, "row 5 vs row 3")
+    hgrads = ahm.attention_dropout_head_major_bwd(hq, hk, hv, bias, hg, hmask,
+                                                  scale, RATE)
+    ngrads = adc.attention_dropout_bwd(q, k, v, bias, g, scale, h, RATE, seed)
+    for a, r in zip(hgrads, ngrads):
+        _assert_close(nat(a), r, dtype, "row 6 vs row 4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, RATE], ids=["no_dropout", "dropout"])
+def test_head_major_functions_take_the_kernels(cuda_device, rate):
+    """fused_attention(natural=False) launches one head-major forward and
+    one head-major backward kernel, no natural one, and agrees with its CPU
+    twin path."""
+    from volta_tpu_torch.ops.attention import fused_attention
+
+    b, l, h, d = 4, 60, 12, 64
+    rng = np.random.RandomState(7)
+    qkv = [torch.from_numpy(rng.randn(b, l, h, d).astype(np.float32))
+           for _ in range(3)]
+    bias = torch.zeros(b, 1, 1, l)
+    bias[1, ..., 50:] = -10000.0
+    pair = HM_NAMES[2:] if rate else HM_NAMES[:2]
+    outs, grads = [], []
+    for dev in ("cpu", "cuda"):
+        x = [t.to(dev).detach().requires_grad_() for t in qkv]
+        before = dict(LAUNCHES)
+        out = fused_attention(*x, bias.to(dev), d ** -0.5, rate, 99,
+                              natural=False)
+        out.square().sum().backward()
+        launched = {n: LAUNCHES[n] - c for n, c in before.items()
+                    if LAUNCHES[n] != c}
+        assert launched == ({} if dev == "cpu" else dict.fromkeys(pair, 1))
+        outs.append(out.detach().cpu())
+        grads.append([t.grad.cpu() for t in x])
+    _assert_close(outs[1], outs[0], "float32", f"out at rate {rate}")
+    for a, r in zip(grads[1], grads[0]):
+        _assert_close(a, r, "float32", f"grad at rate {rate}")
+
+
 # ----------------------------------------------- LayerNorm kernels (10-13)
 # (n, d): the b256 train shape (256 x 60 rows of 768), 7 rows, 1000 rows,
 # the classifier width, an odd width (element-wise access) and the widest

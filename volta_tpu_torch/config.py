@@ -141,6 +141,8 @@ class VoltaConfig:
     # the matmul epilogues with zero extra traffic), so OFF by default;
     # kernel kept validated (tools/validate_tpu.py) for wider-model shapes
     # where the trade may flip.
+    # port: not ported yet (ROADMAP.md Queue 2 row 9); with use_pallas the
+    # model raises.
     fuse_hidden_dropout: bool = False
     # Generate the hidden-dropout keep masks with a dedicated Pallas kernel
     # (Mosaic hardware PRNG, lane-aligned bf16 writes) instead of XLA's
@@ -173,6 +175,8 @@ class VoltaConfig:
     # 77.15 ms vs 84.71 ms head-major → 3318 vs 3022 pairs/s (+9.8%), so
     # DEFAULT ON. Mask-consistency + negative-control validation in
     # tools/validate_tpu.py (logs/hw_validate_r3b.log).
+    # port: false runs the head-major CUDA kernels of Queue 2 rows 5-8
+    # (ops/attention_head_major_cuda.py) behind the same layout copies.
     attn_natural_layout: bool = True
     # Fused dual-stream tails: in two-stream sublayers (ViLBERT/LXMERT-style,
     # no single_ln) run ONE dropout+residual+LayerNorm chain over the

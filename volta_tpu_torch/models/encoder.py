@@ -10,8 +10,12 @@ in both modes: in training mode each sublayer runs attention dropout inside
 the attention kernel and hash dropout in its residual LayerNorm, one seed
 per site from the forward's ``DropoutSeeds``; with the config's LayerNorm
 flags the tails run the CUDA LayerNorm or fused residual kernels
-(``_make_ln``). A dual-stream plan or ``use_scan`` raises at construction.
-Submodules are named after the Flax tree (``attn_0``, ``ff_1``, ...).
+(``_make_ln``). ``attn_natural_layout`` picks the attention kernels as in
+the JAX package (encoder.py:94-96, 113-116): the natural [B, L, H·D] ones
+(Queue 2 rows 1-4) by default, the head-major [H, B, L, D] ones (rows 5-8)
+with false. A dual-stream plan, ``use_scan`` or ``fuse_hidden_dropout``
+(row 9, not ported) raises at construction. Submodules are named after the
+Flax tree (``attn_0``, ``ff_1``, ...).
 """
 
 from __future__ import annotations
@@ -56,12 +60,18 @@ def _fully_fused(spec: SublayerSpec) -> bool:
 
 class GatedAttentionSublayer(nn.Module):
     """Self-attention over the joined sequence: Q/K/V dense -> attention on
-    the natural [B, L, H·D] layout (dropout on the probabilities in
-    training) -> out_dense -> LN(dropout(o) + x)."""
+    the natural [B, L, H·D] layout, or head-major with ``natural`` false
+    (dropout on the probabilities in training) -> out_dense ->
+    LN(dropout(o) + x)."""
 
     def __init__(self, cfg: VoltaConfig, spec: SublayerSpec):
         super().__init__()
+        if cfg.use_pallas and cfg.fuse_hidden_dropout:
+            raise NotImplementedError(
+                "fuse_hidden_dropout is not ported yet (ROADMAP.md Queue 2 "
+                "row 9, pallas_dropout_attention_hm)")
         std, dt = cfg.initializer_range, compute_dtype(cfg)
+        self.natural = cfg.attn_natural_layout
         self.num_heads = spec.num_heads
         self.head_dim = spec.attn_hidden_size // spec.num_heads
         self.attn_rate = cfg.attention_probs_dropout_prob
@@ -82,7 +92,7 @@ class GatedAttentionSublayer(nn.Module):
         attn_seed = site_seed(self, self.attn_rate, seeds)
         ctx = fused_attention(q, k, v, bias, 1.0 / math.sqrt(d),
                               self.attn_rate if attn_seed is not None
-                              else 0.0, attn_seed)
+                              else 0.0, attn_seed, natural=self.natural)
         return self.out_ln(self.out_dense(ctx.reshape(b, l, h * d)),
                            residual=x, drop_rate=self.hidden_rate,
                            seed=site_seed(self, self.hidden_rate, seeds))

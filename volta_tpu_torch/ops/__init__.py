@@ -11,6 +11,9 @@ so a run can show that its path went through the kernels.
 
 LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
+            "attention_head_major_fwd": 0, "attention_head_major_bwd": 0,
+            "attention_dropout_head_major_fwd": 0,
+            "attention_dropout_head_major_bwd": 0,
             "layer_norm_fwd": 0, "layer_norm_bwd": 0,
             "dropout_residual_ln_fwd": 0, "dropout_residual_ln_bwd": 0}
 

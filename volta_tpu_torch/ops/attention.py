@@ -43,33 +43,67 @@ def attention_out(probs, v):
     return out.to(v.dtype)
 
 
+def _bias2(bias, b, lk):
+    """An additive bias that broadcasts to [B, 1, 1, Lk] as the kernels'
+    [B, Lk] float32."""
+    return bias.to(torch.float32).expand(b, 1, 1, lk).reshape(b, lk)
+
+
 def fused_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
-                    seed: int = None):
+                    seed: int = None, natural: bool = True):
     """One-shot attention, [B,L,H,D] in and out, no probs for the caller.
 
     The single dispatch point. With ``dropout_rate > 0`` (training) the
     natural [B, L, H·D] views go to ``attention_dropout_cuda
     .DropoutAttention`` with the call's uint32 ``seed``; anything else goes
-    to ``attention_cuda.FusedAttention``. Both are autograd Functions whose
-    forward and backward launch the CUDA kernels for CUDA tensors and run
-    their plain twins for CPU tensors; there is no fallback on the card.
+    to ``attention_cuda.FusedAttention``. With ``natural=False`` (the
+    config's ``attn_natural_layout: false``) q, k and v are copied
+    head-major, [H, B, L, D], for ``attention_head_major_cuda``'s
+    ``HeadMajorDropoutAttention`` or ``HeadMajorAttention``, and the output
+    is transposed back, as the TPU path does around its head-major kernels
+    (pallas_attention.py:264-270, 979-981, 1011). All are autograd
+    Functions whose forward and backward launch the CUDA kernels for CUDA
+    tensors and run their plain twins for CPU tensors; there is no fallback
+    on the card.
     """
     # imported here: the wrappers build their twins from the functions above
-    from . import attention_cuda, attention_dropout_cuda
+    from . import attention_cuda, attention_dropout_cuda, \
+        attention_head_major_cuda
 
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    bias = bias.to(torch.float32).expand(b, 1, 1, lk).reshape(b, lk)
+    bias = _bias2(bias, b, lk)
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("fused_attention: dropout needs a seed")
+    if not natural:
+        qh, kh, vh = (x.permute(2, 0, 1, 3).contiguous() for x in (q, k, v))
+        if dropout_rate > 0.0:
+            out = attention_head_major_cuda.HeadMajorDropoutAttention.apply(
+                qh, kh, vh, bias, scale, float(dropout_rate), int(seed))
+        else:
+            out = attention_head_major_cuda.HeadMajorAttention.apply(
+                qh, kh, vh, bias, scale)
+        return out.permute(1, 2, 0, 3)
     q3, k3, v3 = (q.reshape(b, lq, h * d), k.reshape(b, lk, h * d),
                   v.reshape(b, lk, h * d))
     if dropout_rate > 0.0:
-        if seed is None:
-            raise ValueError("fused_attention: dropout needs a seed")
         out = attention_dropout_cuda.DropoutAttention.apply(
             q3, k3, v3, bias, scale, h, float(dropout_rate), int(seed))
     else:
         out = attention_cuda.FusedAttention.apply(q3, k3, v3, bias, scale, h)
     return out.view(b, lq, h, d)
+
+
+def dropout_attention_head_major(qh, kh, vh, bias, scale, rate, seed):
+    """Attention with dropout ``rate`` on operands already head-major,
+    [H, B, L, D] in and out, with no layout copies: the port of
+    ``dropout_attention_head_major`` (pallas_attention.py:316-358). The bias
+    broadcasts to [B, 1, 1, Lk]; it gets no gradient."""
+    from . import attention_head_major_cuda
+
+    bias = _bias2(bias, qh.shape[1], kh.shape[2])
+    return attention_head_major_cuda.HeadMajorDropoutAttention.apply(
+        qh, kh, vh, bias, scale, float(rate), int(seed))
 
 
 def additive_mask(mask, dtype=torch.float32):

@@ -47,17 +47,16 @@ def attention_fwd_ref(q, k, v, bias, scale, heads):
     return out.to(q.dtype).reshape(b, lq, hd)
 
 
-def attention_bwd_math(q, k, v, bias, g, scale, heads, keep=None,
-                       keep_scale=1.0):
+def attention_bwd_math(q, k, v, bias, g, scale, keep=None, keep_scale=1.0):
     """The backward recipe of ``_attn_bwd_math`` / ``_dropout_bwd_math``
-    (pallas_attention.py:884-904, 147-166) on [B, L, H·D] operands: P
-    recomputed in float32; with a keep mask [B,H,Lq,Lk], dP and P's share of
-    dv carry its factor ``keep * keep_scale``. Returns float32 (float64 for
-    float64 operands) dq, dk, dv [B, L, H, D] and dS [B, H, Lq, Lk]."""
-    b, lq, _ = q.shape
-    lk = k.shape[1]
+    (pallas_attention.py:884-904, 147-166) on [B, L, H, D] operands (views
+    of either layout), bias [B, Lk]: P recomputed in float32; with a keep
+    mask [B,H,Lq,Lk], dP and P's share of dv carry its factor ``keep *
+    keep_scale``. Returns float32 (float64 for float64 operands) dq, dk, dv
+    [B, L, H, D] and dS [B, H, Lq, Lk]."""
+    b, lk = bias.shape
     acc = acc_dtype(q)
-    qf, kf, vf, gf = (_heads4(x, heads).to(acc) for x in (q, k, v, g))
+    qf, kf, vf, gf = (x.to(acc) for x in (q, k, v, g))
     probs = attention_probs(qf, kf, bias.view(b, 1, 1, lk), scale)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     pd = probs
@@ -76,7 +75,9 @@ def attention_bwd_ref(q, k, v, bias, g, scale, heads, want_db=True):
     """Plain twin of the backward: q/g [B,Lq,H·D], k/v [B,Lk,H·D], bias
     [B,Lk] float32 -> dq, dk, dv in the operand dtype, and db [B,Lk] float32
     (dS summed over heads and queries; None unless ``want_db``)."""
-    dq, dk, dv, ds = attention_bwd_math(q, k, v, bias, g, scale, heads)
+    dq, dk, dv, ds = attention_bwd_math(
+        *(_heads4(x, heads) for x in (q, k, v)), bias, _heads4(g, heads),
+        scale)
     flat = lambda x, like: x.to(like.dtype).reshape(like.shape)  # noqa: E731
     db = ds.sum(dim=(1, 2)).to(torch.float32) if want_db else None
     return flat(dq, q), flat(dk, k), flat(dv, v), db
@@ -98,12 +99,14 @@ def bwd_smem_bytes(lq: int, lk: int, head_dim: int) -> int:
                 + 2 * BWD_ROWS * head_dim + 2 * KEY_CHUNK * (head_dim + 1))
 
 
-def check(name, q, k, v, bias, heads, smem, g=None):
+def check(name, q, k, v, bias, heads, smem, g=None, head_major=False):
     """Raise ValueError for anything the kernels do not take: operands off
     one CUDA device, dtypes other than bf16/fp32 (bias fp32), shapes that do
-    not agree, head dims outside HEAD_DIMS, grids or shared memory
-    (``smem(lq, lk, head_dim)`` bytes) over the card's limits, non-contiguous
-    or unaligned operands."""
+    not agree (q [B,Lq,H·D], k/v [B,Lk,H·D] with ``heads`` heads or, with
+    ``head_major``, q [H,B,Lq,D], k/v [H,B,Lk,D]; bias [B,Lk]; g like q),
+    head dims outside HEAD_DIMS, grids or shared memory (``smem(lq, lk,
+    head_dim)`` bytes) over the card's limits, non-contiguous or unaligned
+    operands."""
     ops = [("q", q), ("k", k), ("v", v)] + ([("g", g)] if g is not None
                                             else [])
     if not (q.is_cuda and all(t.device == q.device for _, t in ops)
@@ -117,26 +120,37 @@ def check(name, q, k, v, bias, heads, smem, g=None):
                          f"{[t.dtype for _, t in ops]}")
     if bias.dtype != torch.float32:
         raise ValueError(f"{name}: bias must be float32, got {bias.dtype}")
-    if q.dim() != 3 or k.dim() != 3 or bias.dim() != 2:
-        raise ValueError(f"{name}: expected q [B,Lq,H·D], k/v [B,Lk,H·D], "
-                         "bias [B,Lk]")
-    b, lq, hd = q.shape
-    lk = k.shape[1]
-    if (k.shape != (b, lk, hd) or v.shape != k.shape
+    if head_major:
+        if q.dim() != 4 or k.dim() != 4 or bias.dim() != 2:
+            raise ValueError(f"{name}: expected q [H,B,Lq,D], k/v "
+                             "[H,B,Lk,D], bias [B,Lk]")
+        heads, b, lq, d = q.shape
+        lk = k.shape[2]
+        k_shape = (heads, b, lk, d)
+    else:
+        if q.dim() != 3 or k.dim() != 3 or bias.dim() != 2:
+            raise ValueError(f"{name}: expected q [B,Lq,H·D], k/v "
+                             "[B,Lk,H·D], bias [B,Lk]")
+        b, lq, hd = q.shape
+        lk = k.shape[1]
+        k_shape = (b, lk, hd)
+        if heads < 1 or hd % heads:
+            raise ValueError(f"{name}: {heads} heads do not divide {hd}")
+        d = hd // heads
+    if (k.shape != k_shape or v.shape != k.shape
             or bias.shape != (b, lk) or (g is not None and g.shape != q.shape)):
         raise ValueError(f"{name}: shapes "
                          f"{[(n, tuple(t.shape)) for n, t in ops]}, bias "
                          f"{tuple(bias.shape)} do not agree")
-    if heads < 1 or hd % heads or hd // heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} / {heads} heads must be one "
-                         f"of {HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} must be one of {HEAD_DIMS}")
     if min(b, lq, lk) < 1 or b * heads >= 2**31 \
             or -(-lq // ROWS_PER_BLOCK) > 65535:
         raise ValueError(f"{name}: B={b}, Lq={lq}, Lk={lk}, H={heads} is "
                          "outside the kernel's grid")
-    need = smem(lq, lk, hd // heads)
+    need = smem(lq, lk, d)
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: Lq={lq}, Lk={lk} at D={hd // heads} "
+        raise ValueError(f"{name}: Lq={lq}, Lk={lk} at D={d} "
                          f"needs {need} bytes of shared memory per block, "
                          f"over the limit of {MAX_SMEM_BYTES}")
     for n, t in ops + [("bias", bias)]:

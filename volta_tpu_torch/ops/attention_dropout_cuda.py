@@ -26,8 +26,8 @@ from torch.autograd.function import once_differentiable
 
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
-from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_smem_bytes,
-                             check, launch_error, smem_bytes)
+from .attention_cuda import (DTYPE_CODE, _heads4, attention_bwd_math,
+                             bwd_smem_bytes, check, launch_error, smem_bytes)
 from .hash import dropout_threshold, hash_keep
 
 
@@ -62,8 +62,9 @@ def attention_dropout_bwd_ref(q, k, v, bias, g, scale, heads, rate, keep):
     """Plain twin of the backward (``_dropout_bwd_math``): dq, dk, dv in the
     operand dtype for the output cotangent g [B,Lq,H·D] and keep mask
     [B,H,Lq,Lk]."""
-    dq, dk, dv, _ = attention_bwd_math(q, k, v, bias, g, scale, heads, keep,
-                                       keep_scale(rate))
+    dq, dk, dv, _ = attention_bwd_math(
+        *(_heads4(x, heads) for x in (q, k, v)), bias, _heads4(g, heads),
+        scale, keep, keep_scale(rate))
     flat = lambda x, like: x.to(like.dtype).reshape(like.shape)  # noqa: E731
     return flat(dq, q), flat(dk, k), flat(dv, v)
 

@@ -41,8 +41,9 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dk, T* __restrict__ dv,
                      float* __restrict__ db_part, int Lq, int Lk, int H,
                      float scale) {
-  attention_bwd_block<T, D, false>(q, k, v, bias, g, dq, dk, dv, db_part, Lq,
-                                   Lk, H, scale, Dropout{0u, 0u, 0.f});
+  attention_bwd_block<T, D, false, false>(q, k, v, bias, g, dq, dk, dv,
+                                          db_part, Lq, Lk, H, scale,
+                                          Dropout{0u, 0u, 0.f}, nullptr);
 }
 
 template <typename T, int D>

@@ -5,7 +5,10 @@
 // one backward block body (attention_bwd_block) serves the no-dropout
 // backward (attention_bwd.cu) and the dropout backward
 // (attention_dropout.cu). The dropout flavour is a template flag, so the
-// no-dropout kernels compile without a trace of it.
+// no-dropout kernels compile without a trace of it. The layout is a template
+// flag too: the natural [B, L, H·D] operands of rows 1-4 or the head-major
+// [H, B, L, D] operands of rows 5-8 (attention_head_major.cu); only the
+// addressing differs (HeadLayout), so both layouts compute the same bits.
 //
 // Numerics follow the TPU kernels of volta_tpu/ops/pallas_attention.py:
 // scores in float32 from the operands, softmax in float32, the dropout keep
@@ -16,11 +19,14 @@
 // Dropout mask: keep(b, h, i, j) = fmix32(n * 0x9E3779B9 + seed) < threshold
 // with n = ((b * H + h) * Lq + i) * Lk + j modulo 2^32, the counter hash of
 // volta_tpu/models/layers.py:hash_dropout over the [B, H, Lq, Lk]
-// probabilities. The TPU kernels draw the mask from the Mosaic PRNG and save
-// it for the backward because that PRNG cannot be replayed
-// (pallas_attention.py:91-97); the hash can, so the backward recomputes it
-// and no mask tensor exists. The hash and the other helpers shared with the
-// LayerNorm kernels are in common.cuh.
+// probabilities, in both layouts, so one seed drops the same probabilities
+// in both. The TPU kernels draw the mask from the Mosaic PRNG and save it
+// for the backward because that PRNG cannot be replayed
+// (pallas_attention.py:91-97). The natural backward (row 4) replays the
+// hash, so no mask tensor exists there; the head-major forward (row 5)
+// writes the 0/1 mask as [H, B, Lq, Lk] bytes and its backward (row 6) reads
+// it back, as the TPU's head-major kernels do. The hash and the other
+// helpers shared with the LayerNorm kernels are in common.cuh.
 
 #pragma once
 
@@ -36,12 +42,12 @@ constexpr int kKeyChunk = 32;     // keys staged per round, one per lane
 constexpr int kBwdWarps = 8;      // backward: warps per block
 constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;  // query rows staged at once
 
-// Rows [0, n) of one head's [rows, D] slice (row stride hd elements) into
+// Rows [0, n) of one head's [rows, D] slice (row stride rs elements) into
 // shared memory as float32 with row stride ld; rows [n, nrows) are zeroed.
 // 16-byte loads, neighbouring threads on neighbouring addresses.
 template <typename T, int D, int kThreads>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           size_t hd, int n, int nrows,
+                                           size_t rs, int n, int nrows,
                                            float* dst, int ld, int tid) {
   constexpr int kVec = Vec16<T>::N;
   for (int idx = tid * kVec; idx < nrows * D; idx += kThreads * kVec) {
@@ -49,7 +55,7 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
     const int d = idx % D;
     float x[kVec];
     if (r < n) {
-      Vec16<T>::load(src + static_cast<size_t>(r) * hd + d, x);
+      Vec16<T>::load(src + static_cast<size_t>(r) * rs + d, x);
     } else {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) x[e] = 0.f;
@@ -65,6 +71,28 @@ struct Dropout {
   float scale;         // float32(1 / (1 - rate)), the kept value's factor
 };
 
+// Where the rows of one (b, h) pair lie. Natural: q, k, v, g and out are
+// [B, L, H·D], a head's rows H·D elements apart, and the per-pair tensors
+// (keep mask, bias-gradient partials) are [B, H, ...]. Head-major: operands
+// [H, B, L, D], rows D apart, per-pair tensors [H, B, ...].
+template <bool kHeadMajor, int D>
+struct HeadLayout {
+  int B, H;
+  __device__ __forceinline__ size_t stride() const {
+    return kHeadMajor ? D : static_cast<size_t>(H) * D;
+  }
+  // element offset of row 0 of pair (b, h) in an operand of L rows
+  __device__ __forceinline__ size_t rows(int b, int h, int L) const {
+    return kHeadMajor ? (static_cast<size_t>(h) * B + b) * L * D
+                      : static_cast<size_t>(b) * L * H * D + h * D;
+  }
+  // index of pair (b, h) in a per-pair tensor
+  __device__ __forceinline__ size_t pair(int b, int h) const {
+    return kHeadMajor ? static_cast<size_t>(h) * B + b
+                      : static_cast<size_t>(b) * H + h;
+  }
+};
+
 // linear index of probability (b, h, i, j) in [B, H, Lq, Lk], modulo 2^32
 __device__ __forceinline__ uint32_t prob_index(int b, int h, int i, int j,
                                                int H, int Lq, int Lk) {
@@ -75,6 +103,20 @@ __device__ __forceinline__ uint32_t prob_index(int b, int h, int i, int j,
 __device__ __forceinline__ float keep_factor(const Dropout& drop,
                                              uint32_t n) {
   return hash_keep(n, drop.seed, drop.threshold) ? drop.scale : 0.f;
+}
+
+// the backward's dropout factor of probability (b, h, i, j): the natural
+// kernel replays the hash, the head-major one reads the mask its forward
+// wrote
+template <bool kHeadMajor, int D>
+__device__ __forceinline__ float bwd_keep_factor(
+    const Dropout& drop, const uint8_t* __restrict__ mask,
+    const HeadLayout<kHeadMajor, D>& lay, int b, int h, int i, int j, int Lq,
+    int Lk) {
+  if constexpr (kHeadMajor)
+    return mask[(lay.pair(b, h) * Lq + i) * Lk + j] ? drop.scale : 0.f;
+  else
+    return keep_factor(drop, prob_index(b, h, i, j, lay.H, Lq, Lk));
 }
 
 // ---------------------------------------------------------------- forward
@@ -90,8 +132,9 @@ __device__ __forceinline__ float keep_factor(const Dropout& drop,
 // kRowsPerBlock x D + kKeyChunk x (D + 1) + kRowsPerBlock x lk_pad floats.
 // With kDropout the probabilities are multiplied by their keep factor in
 // float32 before the rounding to T; mask_out, when not null, receives the
-// 0/1 keep mask [B, H, Lq, Lk] the block applied.
-template <typename T, int D, bool kDropout>
+// 0/1 keep mask the block applied, [B, H, Lq, Lk] or, head-major,
+// [H, B, Lq, Lk]. The grid is (B * H, query tiles) in both layouts.
+template <typename T, int D, bool kDropout, bool kHeadMajor>
 __device__ __forceinline__ void attention_fwd_block(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ bias,
@@ -113,22 +156,24 @@ __device__ __forceinline__ void attention_fwd_block(
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int i0 = blockIdx.y * kRowsPerBlock;
-  const size_t hd = static_cast<size_t>(H) * D;
-  const T* qb = q + (static_cast<size_t>(b) * Lq + i0) * hd + h * D;
-  const T* kb = k + static_cast<size_t>(b) * Lk * hd + h * D;
-  const T* vb = v + static_cast<size_t>(b) * Lk * hd + h * D;
+  const HeadLayout<kHeadMajor, D> lay{static_cast<int>(gridDim.x) / H, H};
+  const size_t rs = lay.stride();
+  const size_t qoff = lay.rows(b, h, Lq);
+  const T* qb = q + qoff + static_cast<size_t>(i0) * rs;
+  const T* kb = k + lay.rows(b, h, Lk);
+  const T* vb = v + lay.rows(b, h, Lk);
   const float* bb = bias + static_cast<size_t>(b) * Lk;
   const int r0 = warp * kRowsPerWarp;  // this warp's first row in the tile
 
   // the tile's query rows in fp32; rows past Lq are zero and never stored
-  stage_rows<T, D, kThreads>(qb, hd, min(kRowsPerBlock, Lq - i0),
+  stage_rows<T, D, kThreads>(qb, rs, min(kRowsPerBlock, Lq - i0),
                              kRowsPerBlock, qs, D, tid);
 
   // scores, one chunk of keys at a time: lane j scores key c + j
   for (int c = 0; c < Lk; c += kKeyChunk) {
     const int nk = min(kKeyChunk, Lk - c);
     __syncthreads();  // the previous chunk is consumed, qs is written
-    stage_rows<T, D, kThreads>(kb + static_cast<size_t>(c) * hd, hd, nk, nk,
+    stage_rows<T, D, kThreads>(kb + static_cast<size_t>(c) * rs, rs, nk, nk,
                                ks, kKs, tid);
     __syncthreads();
     if (lane < nk) {
@@ -178,8 +223,7 @@ __device__ __forceinline__ void attention_fwd_block(
         const float f = keep_factor(drop, prob_index(b, h, i, j, H, Lq, Lk));
         p *= f;
         if (mask_out != nullptr && i < Lq)
-          mask_out[((static_cast<size_t>(b) * H + h) * Lq + i) * Lk + j] =
-              f != 0.f;
+          mask_out[(lay.pair(b, h) * Lq + i) * Lk + j] = f != 0.f;
       }
       pr[j] = to_float(from_float<T>(p));
     }
@@ -200,7 +244,7 @@ __device__ __forceinline__ void attention_fwd_block(
       float x[kPerLane];
 #pragma unroll
       for (int e = 0; e < kPerLane; ++e)
-        x[e] = to_float(vc[static_cast<size_t>(j) * hd + e]);
+        x[e] = to_float(vc[static_cast<size_t>(j) * rs + e]);
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const float p = pc[r * lk_pad + j];
@@ -211,8 +255,8 @@ __device__ __forceinline__ void attention_fwd_block(
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       if (i0 + r0 + r >= Lq) break;
-      T* orow = out + (static_cast<size_t>(b) * Lq + i0 + r0 + r) * hd +
-                h * D + lane * kPerLane;
+      T* orow = out + qoff + static_cast<size_t>(i0 + r0 + r) * rs +
+                lane * kPerLane;
 #pragma unroll
       for (int e = 0; e < kPerLane; ++e) orow[e] = from_float<T>(acc[r][e]);
     }
@@ -244,13 +288,13 @@ size_t fwd_smem_bytes(int Lk) {
 // the bias gradient).
 // Shared memory: 2 x lq4 x lk_pad + 2 x kBwdRows x D + 2 x kKeyChunk x (D+1)
 // floats, lq4 and lk_pad the lengths rounded up to 4.
-template <typename T, int D, bool kDropout>
+template <typename T, int D, bool kDropout, bool kHeadMajor>
 __device__ __forceinline__ void attention_bwd_block(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ bias,
     const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
     T* __restrict__ dv, float* __restrict__ db_part, int Lq, int Lk, int H,
-    float scale, Dropout drop) {
+    float scale, Dropout drop, const uint8_t* __restrict__ mask_in) {
   constexpr int kThreads = kBwdWarps * 32;
   constexpr int kPerLane = D >= 32 ? D / 32 : 1;
   constexpr int kLanes = D / kPerLane;
@@ -271,9 +315,10 @@ __device__ __forceinline__ void attention_bwd_block(
   const int lane = tid & 31;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const size_t hd = static_cast<size_t>(H) * D;
-  const size_t qoff = static_cast<size_t>(b) * Lq * hd + h * D;
-  const size_t koff = static_cast<size_t>(b) * Lk * hd + h * D;
+  const HeadLayout<kHeadMajor, D> lay{static_cast<int>(gridDim.x) / H, H};
+  const size_t rs = lay.stride();
+  const size_t qoff = lay.rows(b, h, Lq);
+  const size_t koff = lay.rows(b, h, Lk);
   const T* qb = q + qoff;
   const T* gb = g + qoff;
   const T* kb = k + koff;
@@ -285,16 +330,16 @@ __device__ __forceinline__ void attention_bwd_block(
   for (int g0 = 0; g0 < Lq; g0 += kBwdRows) {
     const int nr = min(kBwdRows, Lq - g0);
     __syncthreads();  // every warp is done with the previous group
-    stage_rows<T, D, kThreads>(qb + static_cast<size_t>(g0) * hd, hd, nr,
+    stage_rows<T, D, kThreads>(qb + static_cast<size_t>(g0) * rs, rs, nr,
                                kBwdRows, qs, D, tid);
-    stage_rows<T, D, kThreads>(gb + static_cast<size_t>(g0) * hd, hd, nr,
+    stage_rows<T, D, kThreads>(gb + static_cast<size_t>(g0) * rs, rs, nr,
                                kBwdRows, gs, D, tid);
     for (int c = 0; c < Lk; c += kKeyChunk) {
       const int nk = min(kKeyChunk, Lk - c);
       __syncthreads();  // the previous chunk is consumed, qs/gs are written
-      stage_rows<T, D, kThreads>(kb + static_cast<size_t>(c) * hd, hd, nk,
+      stage_rows<T, D, kThreads>(kb + static_cast<size_t>(c) * rs, rs, nk,
                                  nk, ks, kKs, tid);
-      stage_rows<T, D, kThreads>(vb + static_cast<size_t>(c) * hd, hd, nk,
+      stage_rows<T, D, kThreads>(vb + static_cast<size_t>(c) * rs, rs, nk,
                                  nk, vs, kKs, tid);
       __syncthreads();
       if (lane < nk) {
@@ -359,7 +404,7 @@ __device__ __forceinline__ void attention_bwd_block(
         const float p = pr[j] / sum;
         float dp = dr[j];
         if constexpr (kDropout)
-          dp *= keep_factor(drop, prob_index(b, h, i, j, H, Lq, Lk));
+          dp *= bwd_keep_factor(drop, mask_in, lay, b, h, i, j, Lq, Lk);
         pr[j] = p;
         dr[j] = dp;
         delta = fmaf(dp, p, delta);
@@ -369,7 +414,7 @@ __device__ __forceinline__ void attention_bwd_block(
         const float p = pr[j];
         dr[j] = p * (dr[j] - delta);
         if constexpr (kDropout)
-          pr[j] = p * keep_factor(drop, prob_index(b, h, i, j, H, Lq, Lk));
+          pr[j] = p * bwd_keep_factor(drop, mask_in, lay, b, h, i, j, Lq, Lk);
       }
     }
   }
@@ -390,7 +435,7 @@ __device__ __forceinline__ void attention_bwd_block(
         float x[kPerLane];
 #pragma unroll
         for (int e = 0; e < kPerLane; ++e)
-          x[e] = to_float(kc[static_cast<size_t>(j) * hd + e]);
+          x[e] = to_float(kc[static_cast<size_t>(j) * rs + e]);
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
           const float s = dc[r * lk_pad + j];
@@ -401,7 +446,7 @@ __device__ __forceinline__ void attention_bwd_block(
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         if (r0 + r >= Lq) break;
-        T* row = dq + qoff + static_cast<size_t>(r0 + r) * hd + lane * kPerLane;
+        T* row = dq + qoff + static_cast<size_t>(r0 + r) * rs + lane * kPerLane;
 #pragma unroll
         for (int e = 0; e < kPerLane; ++e)
           row[e] = from_float<T>(acc[r][e] * scale);
@@ -424,8 +469,8 @@ __device__ __forceinline__ void attention_bwd_block(
         float xq[kPerLane], xg[kPerLane];
 #pragma unroll
         for (int e = 0; e < kPerLane; ++e) {
-          xq[e] = to_float(qc[static_cast<size_t>(i) * hd + e]);
-          xg[e] = to_float(gc[static_cast<size_t>(i) * hd + e]);
+          xq[e] = to_float(qc[static_cast<size_t>(i) * rs + e]);
+          xg[e] = to_float(gc[static_cast<size_t>(i) * rs + e]);
         }
         // columns j0 .. j0 + 3 (lk_pad and j0 are multiples of 4)
         const float4 s4 =
@@ -445,7 +490,7 @@ __device__ __forceinline__ void attention_bwd_block(
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         if (j0 + r >= Lk) break;
-        const size_t off = koff + static_cast<size_t>(j0 + r) * hd +
+        const size_t off = koff + static_cast<size_t>(j0 + r) * rs +
                            lane * kPerLane;
 #pragma unroll
         for (int e = 0; e < kPerLane; ++e) {
@@ -463,7 +508,7 @@ __device__ __forceinline__ void attention_bwd_block(
         for (int i = lane; i < Lq; i += 32) acc += dps[i * lk_pad + j];
         acc = warp_sum(acc);
         if (lane == 0)
-          db_part[(static_cast<size_t>(b) * H + h) * Lk + j] = acc;
+          db_part[lay.pair(b, h) * Lk + j] = acc;
       }
     }
   }

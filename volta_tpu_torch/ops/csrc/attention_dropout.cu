@@ -45,8 +45,8 @@ attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              T* __restrict__ out, uint8_t* __restrict__ mask,
                              int Lq, int Lk, int H, float scale, int lk_pad,
                              Dropout drop) {
-  attention_fwd_block<T, D, true>(q, k, v, bias, out, Lq, Lk, H, scale,
-                                  lk_pad, drop, mask);
+  attention_fwd_block<T, D, true, false>(q, k, v, bias, out, Lq, Lk, H,
+                                         scale, lk_pad, drop, mask);
 }
 
 template <typename T, int D>
@@ -57,8 +57,9 @@ attention_dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ g, T* __restrict__ dq,
                              T* __restrict__ dk, T* __restrict__ dv, int Lq,
                              int Lk, int H, float scale, Dropout drop) {
-  attention_bwd_block<T, D, true>(q, k, v, bias, g, dq, dk, dv, nullptr, Lq,
-                                  Lk, H, scale, drop);
+  attention_bwd_block<T, D, true, false>(q, k, v, bias, g, dq, dk, dv,
+                                         nullptr, Lq, Lk, H, scale, drop,
+                                         nullptr);
 }
 
 template <typename T, int D>

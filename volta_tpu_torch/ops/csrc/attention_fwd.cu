@@ -37,8 +37,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, int Lq, int Lk, int H, float scale,
                      int lk_pad) {
-  attention_fwd_block<T, D, false>(q, k, v, bias, out, Lq, Lk, H, scale,
-                                   lk_pad, Dropout{0u, 0u, 0.f}, nullptr);
+  attention_fwd_block<T, D, false, false>(q, k, v, bias, out, Lq, Lk, H,
+                                          scale, lk_pad, Dropout{0u, 0u, 0.f},
+                                          nullptr);
 }
 
 template <typename T, int D>
