@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and fine-tuning paths once on one
 NVIDIA GPU: the natural-layout attention without and with the LayerNorm
-kernels, and the head-major attention (``attn_natural_layout: false``).
+kernels, the head-major attention (``attn_natural_layout: false``), the
+kernel-drawn hidden-dropout masks (``fuse_hidden_dropout``,
+``use_pallas_dropout_mask``), and the two matmul decision probes.
 
     python3 chip_smoke.py [--profile]
 
@@ -42,7 +44,20 @@ and each of which prints its seconds:
    torch LayerNorm forward and backward as the library yardstick; the
    host time per call of an eval-mode sublayer tail with and without
    kernel 10;
-7. eval slice: a synthetic VQA dataroot at full feature width (2048 dims,
+7. kernels 9 and 14 (the dropout attention that also draws two hidden
+   keep masks, and the keep-mask kernel) vs their twins: row 9 at the
+   shapes of phase 4 in bf16 and fp32, its output and probability mask
+   bit-equal to row 5's for the same seed, its hidden masks bit-equal to
+   the twin's hash; row 14 at the train shape and odd ones, bit-equal to
+   its twin and to ``hash_dropout``'s zero pattern; keep fractions 0.9 +-
+   0.005 at b256; times at the train shape;
+8. kernels 15 and 16 (the probes' wgrad and matmul + bias + gelu) vs their
+   twins at the probes' shapes and ragged ones (row 15 within one float32
+   rounding per 16 of the summed length, row 16 within two bf16 ulps);
+   times beside cuBLAS; then ``python -m volta_tpu_torch.tools
+   .wgrad_probe`` and ``.ffn_probe``'s ``main()`` at their default shapes
+   with 3 timed calls, whose launches are counted;
+9. eval slice: a synthetic VQA dataroot at full feature width (2048 dims,
    36 boxes, 3129 labels, 1200 train and 1024 val questions, written here
    through the port's own LMDB writer) through
    ``python -m volta_tpu_torch.eval_task``'s ``main()`` with
@@ -52,7 +67,7 @@ and each of which prints its seconds:
    same model on the plain twins (logits within 5e-2, the kernel being
    bit-equal to its twin); eval throughput at b256 and b1024, kernels vs
    twins;
-8. the eval slice again with ``use_pallas_layernorm`` and
+10. the eval slice again with ``use_pallas_layernorm`` and
    ``use_fused_residual_ln`` on (a copy of the config in a temporary
    directory): kernel 1 12 and kernel 10 29 times per batch, one answer per
    question; one batch through the kernels, the twins and the torch
@@ -63,13 +78,13 @@ and each of which prints its seconds:
    with at most 4 more answers flipped than that path flips; eval
    throughput at b256 and b1024 with the LayerNorm kernels on and off, in
    turns;
-9. the eval slice with ``attn_natural_layout: false`` (a copy of the
+11. the eval slice with ``attn_natural_layout: false`` (a copy of the
    config): kernel 7 12 times per batch and no natural kernel, one answer
    per question, logits within 5e-2 of the twins'; one batch against the
    same weights on the natural layout, fp32 within 1e-4 and bf16 under the
-   rule of phase 8; eval throughput at b256 and b1024, head-major vs
+   rule of phase 10; eval throughput at b256 and b1024, head-major vs
    natural, in turns;
-10. train slice: ``python -m volta_tpu_torch.train_task``'s ``main()``, 2
+12. train slice: ``python -m volta_tpu_torch.train_task``'s ``main()``, 2
     epochs at b256 in bf16 with the config's dropout: kernels 3 and 4 must
     run exactly 12 times per step and kernel 1 12 times per validation
     batch, losses finite and falling, one VAL line per epoch; 1 epoch of
@@ -79,19 +94,25 @@ and each of which prints its seconds:
     (and kernel 10 29 times per validation batch); 1 epoch of the
     head-major config, kernels 5 and 6 12 times per step and kernel 7 12
     times per validation batch; 1 epoch of it with dropout 0, kernels 7 and
-    8 12 times per step;
-11. one fp32 train step at full width (64 rows) with the kernels and with
+    8 12 times per step; 1 epoch with ``fuse_hidden_dropout``, kernels 9
+    and 6 12 times per step; 1 epoch with ``use_pallas_dropout_mask``,
+    kernel 14 24 times and kernels 3 and 4 12 times per step;
+13. one fp32 train step at full width (64 rows) with the kernels and with
     the twins from the same weights and seed, with dropout and without,
-    without and with the LayerNorm flags, and head-major, which is also
-    held to the same step on the natural layout (the same seed draws the
-    same masks): the losses within 1e-5 relative, every parameter within
-    2% of the step's largest update, the exact launches of each kernel;
-12. train-step throughput at b256 bf16, inputs on the card (forward,
+    without and with the LayerNorm flags, head-major, which is also held to
+    the same step on the natural layout, and with each hidden-mask flag and
+    both with the LayerNorm flags, which are also held to the same weights
+    with the mask flags off (the same seed draws the same masks): the
+    losses within 1e-5 relative, every parameter within 2% of the step's
+    largest update, the exact launches of each kernel, and whether the
+    match is bit-exact;
+14. train-step throughput at b256 bf16, inputs on the card (forward,
     backward, clip, AdamW), with the kernels and with the twins, then with
-    the LayerNorm kernels on and off, then head-major vs natural, and the
-    peak memory of each; with ``--profile`` the device time of a step by
-    kernel, without and with the LayerNorm kernels, and head-major;
-13. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+    the LayerNorm kernels on and off, then head-major vs natural, then each
+    hidden-mask flag on vs off, and the peak memory of each; with
+    ``--profile`` the device time of a step by kernel, without and with the
+    LayerNorm kernels, head-major, and with each hidden-mask flag;
+15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -157,7 +178,15 @@ KERNELS = {
                                 "volta_tpu/ops/fused_residual.py:49"),
     "dropout_residual_ln_bwd": ("fused_residual.cu",
                                 "volta_tpu/ops/fused_residual.py:72"),
+    "attention_dropout_hidden_masks_fwd": (
+        "attention_head_major.cu", "volta_tpu/ops/pallas_attention.py:125"),
+    "keep_mask": ("dropout_mask.cu", "volta_tpu/ops/dropout_mask.py:28"),
+    "wgrad": ("matmul.cu", "tools/wgrad_probe.py:36"),
+    "matmul_bias_act": ("matmul.cu", "tools/pallas_ffn_probe.py:46"),
 }
+# the probes' shapes: the b256 train step's tokens, hidden and FFN widths
+PROBE = (15360, 768, 3072)
+PROBE_ITERS = 3
 # the profile's kernel families, first match wins: the int64 ops are the
 # hash dropout's mask draws (the only int64 arithmetic of the step)
 KERNEL_FAMILIES = (
@@ -165,6 +194,7 @@ KERNEL_FAMILIES = (
     ("LayerNorm kernels (rows 10-11)", ("layer_norm_fwd_kernel",
                                         "layer_norm_bwd_kernel")),
     ("fused residual-LN kernels (rows 12-13)", ("dropout_residual_ln_",)),
+    ("keep-mask kernel (row 14)", ("keep_mask_kernel",)),
     ("hash dropout (int64 ops)", ("<long", "long>", "arange")),
     ("matmuls", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("torch LayerNorm fwd+bwd", ("layer_norm", "GammaBeta")),
@@ -221,13 +251,16 @@ def bound(nbytes, ops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(b, lq, lk, h, d, itemsize, backward, mask=False):
+def attention_bound(b, lq, lk, h, d, itemsize, backward, mask=False,
+                    hidden=False):
     """Forward: q, k, v, bias read, out written; 4·B·H·Lq·Lk·D operations
     (QKᵀ and PV). Backward: q, k, v, g, bias read, dq, dk, dv written;
     10·B·H·Lq·Lk·D (QKᵀ again, dV, dP, dQ, dK). With ``mask`` the
-    [H,B,Lq,Lk] uint8 keep mask written (forward) or read (backward)."""
+    [H,B,Lq,Lk] uint8 keep mask written (forward) or read (backward); with
+    ``hidden`` row 9's two [B,Lq,H·D] uint8 hidden masks written."""
     rows = b * (3 * lq + 4 * lk) if backward else b * (2 * lq + 2 * lk)
-    nbytes = rows * h * d * itemsize + b * lk * 4 + mask * b * h * lq * lk
+    nbytes = (rows * h * d * itemsize + b * lk * 4 + mask * b * h * lq * lk
+              + hidden * 2 * b * lq * h * d)
     return bound(nbytes, (10 if backward else 4) * b * h * lq * lk * d,
                  "bf16 tensor")
 
@@ -572,6 +605,207 @@ def check_head_major_kernels():
     return report
 
 
+def check_mask_kernels():
+    """Phase 7: kernels 9 and 14 against their twins. Row 9 at the shapes
+    of phase 4, its output and probability mask bit-equal to row 5's for
+    the same seed and its hidden masks bit-equal to the twin's; row 14 at
+    the train shape and odd ones, bit-equal to its twin and to
+    ``hash_dropout``'s zero pattern; keep fractions 0.9 +- 0.005 at b256;
+    times of both at the train shape."""
+    import torch
+
+    from volta_tpu_torch.models.layers import hash_dropout
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+    from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
+    from volta_tpu_torch.ops import dropout_mask as dm
+
+    report = {}
+    for i, shape in enumerate([SERVING] + ODD):
+        b, lq, lk, h, d = shape
+        for dt in ("bfloat16", "float32"):
+            q3, k3, v3, bias = attention_inputs(b, lq, lk, h, d,
+                                                getattr(torch, dt), 300 + i)
+            q, k, v = (head_major(x, h) for x in (q3, k3, v3))
+            scale, seeds = d ** -0.5, (3000 + i, 3100 + i, 3200 + i)
+            out, mask, hm0, hm1 = ahc.attention_dropout_hidden_masks_fwd(
+                q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:])
+            out5, mask5 = ahm.attention_dropout_head_major_fwd(
+                q, k, v, bias, scale, RATE, seeds[0])
+            torch.cuda.synchronize()
+            if not (torch.equal(out, out5) and torch.equal(mask, mask5)):
+                raise RuntimeError(f"row 9 differs from row 5 at {shape} "
+                                   f"{dt}")
+            ref, rmask, r0, r1 = ahc.attention_dropout_hidden_masks_fwd_ref(
+                q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:])
+            if not (torch.equal(mask, rmask) and torch.equal(hm0, r0)
+                    and torch.equal(hm1, r1)):
+                raise RuntimeError(f"row 9 masks differ from the twin's at "
+                                   f"{shape} {dt}")
+            err = close(out, ref, dt, "kernel 9")
+            frac = [float(m.float().mean()) for m in (hm0, hm1)]
+            print(f"kernel 9 B={b} Lq={lq} Lk={lk} H={h} D={d} {dt}: out "
+                  f"and probability mask bit-equal to kernel 5's, max abs "
+                  f"diff vs twin {err:.3e}, hidden masks bit-equal to the "
+                  f"twin's, keep fractions {frac[0]:.5f} / {frac[1]:.5f}",
+                  flush=True)
+            if shape == SERVING:
+                if max(abs(f - (1 - RATE)) for f in frac) > 0.005:
+                    raise RuntimeError(f"row 9 keep fractions {frac}")
+                if dt == "bfloat16":
+                    report["attention_dropout_hidden_masks_fwd"] = {
+                        "max_abs_err": err}
+                    args = (q, k, v, bias, scale, seeds)
+    for shape in (TRAIN_ROWS, (7, 768), (33, 100), (5,), (256, 60, 768)):
+        seed = 0xD00D + shape[0]
+        got = dm.keep_mask(shape, RATE, seed, "cuda")
+        torch.cuda.synchronize()
+        ref = dm.keep_mask_ref(shape, RATE, seed, "cuda")
+        ones = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+        if not (torch.equal(got, ref) and torch.equal(
+                got.bool(), hash_dropout(ones, seed, RATE) != 0)):
+            raise RuntimeError(f"row-14 mask differs at {shape}")
+        frac = float(got.float().mean())
+        print(f"kernel 14 {shape}: bit-equal to the twin and to "
+              f"hash_dropout's zero pattern, keep fraction {frac:.5f}",
+              flush=True)
+        if shape == TRAIN_ROWS and abs(frac - (1 - RATE)) > 0.005:
+            raise RuntimeError(f"row-14 keep fraction {frac}")
+    report["keep_mask"] = {"max_abs_err": 0.0}
+
+    q, k, v, bias, scale, seeds = args
+    h, b, lq, d = q.shape
+    lk = k.shape[2]
+    n, dd = TRAIN_ROWS
+    pairs = {
+        "attention_dropout_hidden_masks_fwd": (
+            lambda: ahc.attention_dropout_hidden_masks_fwd(
+                q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:]),
+            lambda: ahc.attention_dropout_hidden_masks_fwd_ref(
+                q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:]),
+            attention_bound(b, lq, lk, h, d, 2, False, mask=True,
+                            hidden=True)),
+        "keep_mask": (
+            lambda: dm.keep_mask(TRAIN_ROWS, RATE, 17, "cuda"),
+            lambda: dm.keep_mask_ref(TRAIN_ROWS, RATE, 17, "cuda"),
+            # a byte written for each element; the hash's integer
+            # operations are not counted
+            bound(n * dd, 0, "fp32"))}
+    for name, (kern, plain, bnd) in pairs.items():
+        ms = cuda_ms(kern, iters=50)
+        plain_ms = cuda_ms(plain, iters=20)
+        ms2 = cuda_ms(kern, iters=50)
+        report[name].update(ms=(ms + ms2) / 2, plain_ms=plain_ms,
+                            library_ms=None, bound=bnd)
+        print(f"{name} time {(ms + ms2) / 2:.4f} ms (runs {ms:.4f}, "
+              f"{ms2:.4f}), plain twin {plain_ms:.4f} ms (its hash "
+              f"included), bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return report
+
+
+def matmul_inputs(shapes, seed, scale=0.5):
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy((rng.randn(*s) * scale).astype(np.float32)).to(
+        "cuda", torch.bfloat16) for s in shapes]
+
+
+def check_matmul_kernels():
+    """Phase 8: kernels 15 and 16 against their twins at the probes' shapes
+    and at ragged ones; times at the probes' shapes beside cuBLAS; then
+    both ported probes' ``main()`` at their default shapes with
+    PROBE_ITERS timed calls, whose launches are the kernels' path."""
+    import torch
+    import torch.nn.functional as F
+
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.ops import matmul as mm
+    from volta_tpu_torch.tools import ffn_probe, wgrad_probe
+
+    n, h, f = PROBE
+    report = {}
+    for tn, th, tf in (PROBE, (1000, 100, 300), (17, 5, 9)):
+        g, a = matmul_inputs([(tn, th), (tn, tf)], seed=tn)
+        got = mm.wgrad(g, a)
+        torch.cuda.synchronize()
+        ref = mm.wgrad_ref(g, a)
+        top = float(ref.abs().max())
+        # the tensor cores round each 16-deep partial sum in float32: one
+        # rounding (2^-22 of the largest value) per 16 of the tn-long sum
+        tol = max(1e-5, 2.0 ** -22 * -(-tn // 16)) * top
+        err = float((got - ref).abs().max())
+        print(f"kernel 15 n={tn} h={th} f={tf}: max abs diff vs twin "
+              f"{err:.3e} (tol {tol:.3e}, |ref| max {top:.3f})", flush=True)
+        if not (got.shape == ref.shape and err <= tol):
+            raise RuntimeError(f"kernel 15 disagrees at {(tn, th, tf)}")
+        if tn == n:
+            report["wgrad"] = {"max_abs_err": err}
+            wargs = (g, a)
+    for (tn, tk, tm), act in (((n, h, f), True), ((n, f, h), False),
+                              ((1000, 100, 300), True),
+                              ((1000, 100, 300), False), ((17, 40, 9), True)):
+        x, w, b = matmul_inputs([(tn, tk), (tk, tm), (1, tm)], seed=tk)
+        w = w * tk ** -0.5
+        got = mm.matmul_bias_act(x, w, b, act)
+        torch.cuda.synchronize()
+        err = close(got, mm.matmul_bias_act_ref(x, w, b, act), "bfloat16",
+                    f"kernel 16 {(tn, tk, tm)} act={act}")
+        print(f"kernel 16 n={tn} k={tk} m={tm} act={act}: max abs diff vs "
+              f"twin {err:.3e}", flush=True)
+        if (tn, tk, tm, act) == (n, h, f, True):
+            report["matmul_bias_act"] = {"max_abs_err": err}
+            margs = (x, w, b)
+        if (tn, tk, tm) == (n, f, h):
+            leg2 = (x, w, b)
+    g, a = wargs
+    x, w, b = margs
+    ops = 2 * n * h * f
+    pairs = {
+        "wgrad": (lambda: mm.wgrad(g, a), lambda: mm.wgrad_ref(g, a),
+                  lambda: torch.matmul(g.t(), a),
+                  bound(2 * n * (h + f) + 4 * h * f, ops, "bf16 tensor")),
+        "matmul_bias_act": (
+            lambda: mm.matmul_bias_act(x, w, b, True),
+            lambda: mm.matmul_bias_act_ref(x, w, b, True),
+            lambda: F.gelu(torch.addmm(b, x, w), approximate="tanh"),
+            bound(2 * (n * h + h * f + f + n * f), ops, "bf16 tensor"))}
+    for name, (kern, plain, lib, bnd) in pairs.items():
+        ms = cuda_ms(kern, iters=20)
+        plain_ms = cuda_ms(plain, iters=10)
+        ms2 = cuda_ms(kern, iters=20)
+        lib_ms = cuda_ms(lib, iters=20)
+        report[name].update(ms=(ms + ms2) / 2, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound=bnd)
+        print(f"{name} n={n} h={h} f={f} time {(ms + ms2) / 2:.4f} ms "
+              f"(runs {ms:.4f}, {ms2:.4f}; {ops / (ms + ms2) * 2e-9:.1f} "
+              f"TFLOP/s), plain twin {plain_ms:.4f} ms, cuBLAS "
+              f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})",
+              flush=True)
+    x2, w2, b2 = leg2
+    ms = cuda_ms(lambda: mm.matmul_bias_act(x2, w2, b2, False), iters=20)
+    lib_ms = cuda_ms(lambda: torch.addmm(b2, x2, w2), iters=20)
+    print(f"matmul_bias_act leg 2 n={n} k={f} m={h} (no gelu): {ms:.4f} ms, "
+          f"cuBLAS addmm {lib_ms:.4f} ms", flush=True)
+
+    # the probes, at their default shapes: their kernel launches are the
+    # path's counts (12 layers or calls, a warm call and PROBE_ITERS timed;
+    # the FFN chain's cuda1 runs one kernel a call, cuda2 two)
+    want = {"wgrad": 12 * (PROBE_ITERS + 1),
+            "matmul_bias_act": 12 * (PROBE_ITERS + 1) * 3}
+    counts = {}
+    for name, probe in (("wgrad", wgrad_probe), ("matmul_bias_act",
+                                                 ffn_probe)):
+        reset_launches()
+        probe.main(["--iters", str(PROBE_ITERS)])
+        torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        if counts[name] != expect(**{name: want[name]}):
+            raise RuntimeError(f"{probe.__name__} launched "
+                               f"{counts[name]}, expected {want[name]}")
+        torch.cuda.empty_cache()
+    return report, {k: c[k] for k, c in counts.items()}
+
+
 def ln_inputs(n, d, dtype, seed):
     import torch
 
@@ -727,14 +961,16 @@ def host_us(fn, iters=200):
 
 @contextlib.contextmanager
 def twins():
-    """The twelve kernels' plain twins in their wrappers' places: the
-    autograd Functions look their wrappers up at call time, so the card
-    runs the twins (the dropout twins with the kernels' hash mask). No
-    kernel may launch meanwhile."""
+    """The model's fourteen kernels' plain twins in their wrappers' places:
+    the autograd Functions and the LayerNorm look their wrappers up at call
+    time, so the card runs the twins (the dropout twins with the kernels'
+    hash mask). No kernel may launch meanwhile."""
     from volta_tpu_torch.ops import LAUNCHES
     from volta_tpu_torch.ops import attention_cuda as ac
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+    from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
+    from volta_tpu_torch.ops import dropout_mask as dm
     from volta_tpu_torch.ops import fused_residual as fr
     from volta_tpu_torch.ops import layernorm as ln
 
@@ -782,7 +1018,10 @@ def twins():
              (ln, "layer_norm_fwd", ln.layer_norm_fwd_ref),
              (ln, "layer_norm_bwd", ln.layer_norm_bwd_ref),
              (fr, "dropout_residual_ln_fwd", residual_fwd),
-             (fr, "dropout_residual_ln_bwd", residual_bwd)]
+             (fr, "dropout_residual_ln_bwd", residual_bwd),
+             (ahc, "attention_dropout_hidden_masks_fwd",
+              ahc.attention_dropout_hidden_masks_fwd_ref),
+             (dm, "keep_mask", dm.keep_mask_ref)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     before = dict(LAUNCHES)
     for mod, name, twin in swaps:
@@ -830,6 +1069,28 @@ def natural_layout(model):
     finally:
         for m, nat in zip(subs, saved):
             m.natural = nat
+
+
+@contextlib.contextmanager
+def mask_flags_off(model):
+    """The model's hidden-dropout mask flags off for the duration (no row 9,
+    no row 14): the same weights drawing the same masks through
+    ``hash_dropout`` or the fused tail kernels."""
+    from volta_tpu_torch.models.encoder import GatedAttentionSublayer
+    from volta_tpu_torch.models.layers import LayerNorm
+
+    mods = [(m, "fuse_hidden") for m in model.modules()
+            if isinstance(m, GatedAttentionSublayer)]
+    mods += [(m, "pallas_mask") for m in model.modules()
+             if isinstance(m, LayerNorm)]
+    saved = [getattr(m, attr) for m, attr in mods]
+    for m, attr in mods:
+        setattr(m, attr, False)
+    try:
+        yield
+    finally:
+        for (m, attr), val in zip(mods, saved):
+            setattr(m, attr, val)
 
 
 WORD_STEMS = [
@@ -988,7 +1249,7 @@ def throughput(step, batch, iters):
 
 def run_slice(root, data_dir, yml, power, config, tag, per_batch, routes,
               exact_twins, layout_check=False):
-    """Phases 7-9: the eval CLI on synthetic VQA at full width with
+    """Phases 9-11: the eval CLI on synthetic VQA at full width with
     ``config``. ``per_batch`` holds the launches of one batch; ``routes``
     gives, for the model, two named context managers whose eval throughputs
     are compared in turns (ab_turns); ``exact_twins`` says whether the
@@ -1082,7 +1343,7 @@ def run_slice(root, data_dir, yml, power, config, tag, per_batch, routes,
             raise RuntimeError("kernel model disagrees with the plain twins")
         if layout_check:
             # the natural layout's kernels sum in the same order: held to
-            # LOGIT_TOL_FP32 in fp32 and to phase 8's rule in bf16
+            # LOGIT_TOL_FP32 in fp32 and to phase 10's rule in bf16
             with natural_layout(net):
                 nat_logits = fn(one)["prediction"].float()
             ldiff = float((kernel_logits - nat_logits).abs().max())
@@ -1131,11 +1392,13 @@ def train_argv(root, data_dir, yml, config, epochs, tag):
             "--device", "cuda", "--seed", "0"]
 
 
-def run_train(root, data_dir, yml, flagged, hm):
-    """Phase 10: the train CLI at full width, with the config's dropout, with
+def run_train(root, data_dir, yml, flagged, hm, fuse, pmask):
+    """Phase 12: the train CLI at full width, with the config's dropout, with
     its dropout rates set to 0, with the LayerNorm flags on (``flagged``),
-    and with the head-major attention (``hm``) with the config's dropout and
-    with none. Returns the launches of each run."""
+    with the head-major attention (``hm``) with the config's dropout and
+    with none, and with each hidden-mask flag (``fuse``:
+    fuse_hidden_dropout, ``pmask``: use_pallas_dropout_mask). Returns the
+    launches of each run."""
     import torch
 
     from volta_tpu_torch import train_task
@@ -1156,7 +1419,9 @@ def run_train(root, data_dir, yml, flagged, hm):
                                 ("dropout_free", free, 1),
                                 ("flagged", flagged, 1),
                                 ("head_major", hm, 1),
-                                ("head_major_dropout_free", hm_free, 1)):
+                                ("head_major_dropout_free", hm_free, 1),
+                                ("hidden_masks", fuse, 1),
+                                ("keep_mask", pmask, 1)):
         argv = train_argv(root, data_dir, yml, config, epochs, tag)
         data = load_dataset(train_task.parse_args(argv), cfg,
                             load_task_config(yml), "1")
@@ -1202,7 +1467,15 @@ def run_train(root, data_dir, yml, flagged, hm):
                 attention_head_major_fwd=12 * val),
             "head_major_dropout_free": expect(
                 attention_head_major_fwd=12 * steps + 12 * val,
-                attention_head_major_bwd=12 * steps)}[tag]
+                attention_head_major_bwd=12 * steps),
+            "hidden_masks": expect(
+                attention_dropout_hidden_masks_fwd=12 * steps,
+                attention_dropout_head_major_bwd=12 * steps,
+                attention_fwd=12 * val),
+            "keep_mask": expect(attention_dropout_fwd=12 * steps,
+                                attention_dropout_bwd=12 * steps,
+                                keep_mask=24 * steps,
+                                attention_fwd=12 * val)}[tag]
         if launches != want:
             raise RuntimeError(f"{tag} launches {launches}, expected {want}")
         out[tag] = launches
@@ -1236,11 +1509,14 @@ def new_step(model, task_cfg, lr):
             make_task_train_step(model, opt, task_cfg, "TASK1"))
 
 
-def compare_steps(task_cfg, batch_np, flagged, hm):
-    """Phase 11: one fp32 step with the kernels and with the twins, without
-    and with the LayerNorm flags (``flagged``), and with the head-major
+def compare_steps(task_cfg, batch_np, flagged, hm, fuse, pmask, masks_ln):
+    """Phase 13: one fp32 step with the kernels and with the twins, without
+    and with the LayerNorm flags (``flagged``), with the head-major
     attention (``hm``), whose step is also held to the same step on the
-    natural layout: the same seed draws the same masks."""
+    natural layout, and with the hidden-mask flags (``fuse``, ``pmask``,
+    and both with the LayerNorm flags: ``masks_ln``), whose steps are also
+    held to the same weights with those flags off: the same seed draws the
+    same masks."""
     import torch
 
     from volta_tpu_torch.eval_step import to_device
@@ -1263,13 +1539,25 @@ def compare_steps(task_cfg, batch_np, flagged, hm):
             attention_dropout_head_major_fwd=12,
             attention_dropout_head_major_bwd=12)),
         ("head-major, dropout-free", hm, expect(
-            attention_head_major_fwd=12, attention_head_major_bwd=12)))
+            attention_head_major_fwd=12, attention_head_major_bwd=12)),
+        ("hidden masks (row 9), dropout", fuse, expect(
+            attention_dropout_hidden_masks_fwd=12,
+            attention_dropout_head_major_bwd=12)),
+        ("keep-mask kernel (row 14), dropout", pmask, expect(
+            attention_dropout_fwd=12, attention_dropout_bwd=12,
+            keep_mask=24)),
+        ("rows 9 and 14 with the LN flags, dropout", masks_ln, expect(
+            attention_dropout_hidden_masks_fwd=12,
+            attention_dropout_head_major_bwd=12, layer_norm_fwd=29,
+            layer_norm_bwd=29)))
     for mode, config, want in cases:
         model = build_model(task_cfg, "float32", config)
         init = {k: v.clone() for k, v in model.state_dict().items()}
         routes = {"kernel": contextlib.nullcontext, "twin": twins}
         if config == hm:
             routes["natural"] = lambda: natural_layout(model)
+        if config in (fuse, pmask, masks_ln):
+            routes["flags off"] = lambda: mask_flags_off(model)
         res = {}
         for route, ctx in routes.items():
             model.load_state_dict(init)
@@ -1290,10 +1578,12 @@ def compare_steps(task_cfg, batch_np, flagged, hm):
         for other in list(routes)[1:]:
             lt, pt, _ = res[other]
             diff = max(float((pk[n] - pt[n]).abs().max()) for n in pk)
+            exact = lk == lt and diff == 0.0
             print(f"fp32 step ({mode}), 64 rows, kernels vs {other}: loss "
                   f"{lk:.6f} vs {lt:.6f}, params max abs diff {diff:.3e} "
                   f"(largest update {upd:.3e}, tol {STEP_TOL:g} of it), "
-                  f"kernel launches {counts}", flush=True)
+                  f"{'bit-exact' if exact else 'not bit-exact'}, kernel "
+                  f"launches {counts}", flush=True)
             if not (abs(lk - lt) <= 1e-5 * abs(lt)
                     and diff <= STEP_TOL * upd and np.isfinite(lk)):
                 raise RuntimeError(f"{mode} step disagrees with the {other}")
@@ -1328,13 +1618,15 @@ def step_rates(step, state, batch, routes, power, what):
     return out
 
 
-def train_throughput(task_cfg, batch_np, power, profile, flagged, hm):
-    """Phase 12: pairs/s of the b256 bf16 train step with the kernels and
+def train_throughput(task_cfg, batch_np, power, profile, flagged, hm,
+                     fuse, pmask):
+    """Phase 14: pairs/s of the b256 bf16 train step with the kernels and
     with the twins (LayerNorm kernels off), then with the LayerNorm kernels
     on and off, then the head-major config (``hm``) against the same
-    weights on the natural layout; peak memory; with ``profile`` the device
-    time by kernel of the step without and with the LayerNorm kernels, and
-    head-major."""
+    weights on the natural layout, then each hidden-mask flag (``fuse``,
+    ``pmask``) against the same weights with it off; peak memory; with
+    ``profile`` the device time by kernel of the step without and with the
+    LayerNorm kernels, head-major, and with each hidden-mask flag."""
     from volta_tpu_torch.eval_step import to_device
     from volta_tpu_torch.optimization import warmup_linear_schedule
 
@@ -1368,6 +1660,19 @@ def train_throughput(task_cfg, batch_np, power, profile, flagged, hm):
     if profile:
         profile_step(step, state, batch, rates["head-major"][1],
                      "head-major")
+    for config, flag in ((fuse, "fuse_hidden_dropout"),
+                         (pmask, "use_pallas_dropout_mask")):
+        del model, state, step
+        model = build_model(task_cfg, "bfloat16", config).train()
+        state, step = new_step(model, task_cfg,
+                               warmup_linear_schedule(1e-4, 10, 1000))
+        rates.update(step_rates(step, state, batch,
+                                ((flag, contextlib.nullcontext),
+                                 (f"{flag} off",
+                                  lambda: mask_flags_off(model))),
+                                power, "kernels, LN kernels off,"))
+        if profile:
+            profile_step(step, state, batch, rates[flag][1], flag)
     return rates
 
 
@@ -1445,6 +1750,11 @@ def main(argv):
         results.update(check_head_major_kernels())
     with phase("6 kernels 10-13"):
         results.update(check_ln_kernels())
+    with phase("7 kernels 9 and 14"):
+        results.update(check_mask_kernels())
+    with phase("8 kernels 15 and 16, probes"):
+        report, probe_launches = check_matmul_kernels()
+        results.update(report)
     with tempfile.TemporaryDirectory() as root:
         with phase("dataroot"):
             data_dir, yml = make_dataroot(root)
@@ -1453,36 +1763,47 @@ def main(argv):
                                use_fused_residual_ln=True)
         hm = write_config(root, "ctrl_uniter_base_head_major.json",
                           attn_natural_layout=False)
-        with phase("7 eval slice"):
+        fuse = write_config(root, "ctrl_uniter_base_hidden_masks.json",
+                            fuse_hidden_dropout=True)
+        pmask = write_config(root, "ctrl_uniter_base_keep_mask.json",
+                             use_pallas_dropout_mask=True)
+        masks_ln = write_config(
+            root, "ctrl_uniter_base_masks_ln_kernels.json",
+            fuse_hidden_dropout=True, use_pallas_dropout_mask=True,
+            use_pallas_layernorm=True, use_fused_residual_ln=True)
+        with phase("9 eval slice"):
             run_slice(root, data_dir, yml, power, CONFIG, "base",
                       {"attention_fwd": 12},
                       lambda m: (("kernels", contextlib.nullcontext),
                                  ("twins", twins)), exact_twins=True)
-        with phase("8 eval slice, LN kernels"):
+        with phase("10 eval slice, LN kernels"):
             _, eval_rates = run_slice(
                 root, data_dir, yml, power, flagged, "ln_kernels",
                 {"attention_fwd": 12, "layer_norm_fwd": 29},
                 lambda m: (("LN kernels on", contextlib.nullcontext),
                            ("LN kernels off", lambda: ln_kernels_off(m))),
                 exact_twins=False)
-        with phase("9 eval slice, head-major"):
+        with phase("11 eval slice, head-major"):
             _, hm_rates = run_slice(
                 root, data_dir, yml, power, hm, "head_major",
                 {"attention_head_major_fwd": 12},
                 lambda m: (("head-major", contextlib.nullcontext),
                            ("natural", lambda: natural_layout(m))),
                 exact_twins=True, layout_check=True)
-        with phase("10 train slice"):
-            launches, data = run_train(root, data_dir, yml, flagged, hm)
+        with phase("12 train slice"):
+            launches, data = run_train(root, data_dir, yml, flagged, hm,
+                                       fuse, pmask)
         from volta_tpu_torch.task_utils import load_task_config
 
         task_cfg = load_task_config(yml)
         batch = next(iter(data["train_loader"]))
-        with phase("11 fp32 steps"):
-            compare_steps(task_cfg, batch, flagged, hm)
-        with phase("12 train throughput"):
+        with phase("13 fp32 steps"):
+            compare_steps(task_cfg, batch, flagged, hm, fuse, pmask,
+                          masks_ln)
+        with phase("14 train throughput"):
             rates = train_throughput(task_cfg, batch, power,
-                                     "--profile" in argv, flagged, hm)
+                                     "--profile" in argv, flagged, hm, fuse,
+                                     pmask)
     print(f"LN kernels on vs off [{power}]: eval b256 "
           f"{eval_rates[(256, 'LN kernels on')]:.1f} vs "
           f"{eval_rates[(256, 'LN kernels off')]:.1f}, b1024 "
@@ -1497,6 +1818,10 @@ def main(argv):
           f"{hm_rates[(1024, 'natural')]:.1f}, train b256 "
           f"{rates['head-major'][0]:.1f} vs {rates['natural'][0]:.1f} "
           "pairs/s", flush=True)
+    for flag in ("fuse_hidden_dropout", "use_pallas_dropout_mask"):
+        print(f"{flag} on vs off [{power}]: train b256 "
+              f"{rates[flag][0]:.1f} vs {rates[flag + ' off'][0]:.1f} "
+              "pairs/s", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
           flush=True)
 
@@ -1505,7 +1830,8 @@ def main(argv):
     if foreign:
         raise RuntimeError(f"the port imported {foreign[:5]}")
     # launches: rows 1-4 from the train runs without the LayerNorm flags,
-    # rows 5-8 from the head-major runs, rows 10-13 from the flagged run
+    # rows 5-8 from the head-major runs, rows 10-13 from the flagged run,
+    # rows 9 and 14 from the hidden-mask runs, rows 15-16 from the probes
     counts = {**{k: launches["dropout"][k] for k in
                  ("attention_fwd", "attention_dropout_fwd",
                   "attention_dropout_bwd")},
@@ -1519,7 +1845,11 @@ def main(argv):
                       "attention_head_major_bwd"],
               **{k: launches["flagged"][k] for k in
                  ("layer_norm_fwd", "layer_norm_bwd",
-                  "dropout_residual_ln_fwd", "dropout_residual_ln_bwd")}}
+                  "dropout_residual_ln_fwd", "dropout_residual_ln_bwd")},
+              "attention_dropout_hidden_masks_fwd": launches[
+                  "hidden_masks"]["attention_dropout_hidden_masks_fwd"],
+              "keep_mask": launches["keep_mask"]["keep_mask"],
+              **probe_launches}
     rows = [{"name": name, "route": "cuda", "source": CSRC + src,
              "replaces": replaces, "launches": counts[name],
              "max_abs_err": results[name]["max_abs_err"],

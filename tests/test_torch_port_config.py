@@ -105,6 +105,27 @@ def test_port_runs_without_the_jax_package(tmp_path):
     assert out == {"n": 6, "bad": []}
 
 
+def test_probe_runs_without_the_jax_package(tmp_path):
+    """The ported wgrad probe, run as a module on the CPU at a tiny size,
+    loads no ``volta_tpu``, ``jax``, ``jaxlib`` or ``flax`` module."""
+    code = ("import json, sys\n"
+            "from volta_tpu_torch.tools import wgrad_probe\n"
+            "wgrad_probe.main(['--device', 'cpu', '--tokens', '32', "
+            "'--hidden', '8', '--ffn', '16', '--layers', '1', "
+            "'--iters', '1'])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('volta_tpu', 'jax', 'jaxlib', 'flax'))\n"
+            "print(json.dumps({'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert "verdict" in json.loads(lines[-2])
+    assert json.loads(lines[-1]) == {"bad": []}
+
+
 def test_smoke_dataroot_is_the_synth_tool_s_without_the_jax_package(
         tmp_path):
     """chip_smoke.py writes its synthetic VQA dataroot itself, through the

@@ -486,3 +486,138 @@ def test_layer_norm_module_takes_the_kernels(cuda_device, fused):
     _assert_close(outs[1], outs[0], "float32", "out")
     for name, a, r in zip(("do", "dx", "dscale", "dbias"), *grads):
         _assert_close(a, r, "float32", name)
+
+
+# ------------------------------- hidden-dropout masks (rows 9 and 14)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [SERVING] + ODD,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_hidden_mask_attention_matches_row_5(cuda_device, dtype, shape):
+    """Row 9 against row 5's kernel for the same seed (output and
+    probability mask bit-equal) and against its twin; its hidden masks
+    [B, Lq, H·D] bit-equal to the twin's hash."""
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+    from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
+    from volta_tpu_torch.ops import dropout_mask as dm
+
+    b, lq, lk, h, d = shape
+    q, k, v, bias, _ = _inputs(shape, dtype, cuda_device, seed=9)
+    q, k, v = (_head_major(x, h) for x in (q, k, v))
+    seed, scale = 0xC0DE + lq, d ** -0.5
+    before = LAUNCHES["attention_dropout_hidden_masks_fwd"]
+    out, mask, hm0, hm1 = ahc.attention_dropout_hidden_masks_fwd(
+        q, k, v, bias, scale, RATE, seed, RATE, seed + 1, seed + 2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_dropout_hidden_masks_fwd"] == before + 1
+    out5, mask5 = ahm.attention_dropout_head_major_fwd(q, k, v, bias, scale,
+                                                       RATE, seed)
+    assert torch.equal(out, out5) and torch.equal(mask, mask5)
+    ref, rmask, r0, r1 = ahc.attention_dropout_hidden_masks_fwd_ref(
+        q, k, v, bias, scale, RATE, seed, RATE, seed + 1, seed + 2)
+    _assert_close(out, ref, dtype, "row 9 out")
+    assert torch.equal(mask, rmask)
+    assert hm0.shape == (b, lq, h * d) and hm0.dtype == torch.uint8
+    assert torch.equal(hm0, r0) and torch.equal(hm1, r1)
+    assert torch.equal(hm0, dm.keep_mask_ref(hm0.shape, RATE, seed + 1,
+                                             cuda_device))
+
+
+@pytest.mark.cuda
+def test_hidden_mask_function_takes_the_kernels(cuda_device):
+    """dropout_attention_hidden_masks launches row 9 forward and row 6
+    backward once each, and agrees with its CPU twin path: the output, the
+    gradients and the masks."""
+    from volta_tpu_torch.ops.attention import dropout_attention_hidden_masks
+
+    b, l, h, d = 4, 60, 12, 64
+    rng = np.random.RandomState(8)
+    qkv = [torch.from_numpy(rng.randn(b, l, h, d).astype(np.float32))
+           for _ in range(3)]
+    bias = torch.zeros(b, 1, 1, l)
+    bias[2, ..., 40:] = -10000.0
+    res = []
+    for dev in ("cpu", "cuda"):
+        x = [t.to(dev).detach().requires_grad_() for t in qkv]
+        before = dict(LAUNCHES)
+        out, hm0, hm1 = dropout_attention_hidden_masks(
+            *x, bias.to(dev), d ** -0.5, RATE, RATE, (11, 12, 13))
+        out.square().sum().backward()
+        launched = {n: LAUNCHES[n] - c for n, c in before.items()
+                    if LAUNCHES[n] != c}
+        assert launched == ({} if dev == "cpu" else {
+            "attention_dropout_hidden_masks_fwd": 1,
+            "attention_dropout_head_major_bwd": 1})
+        res.append([out.detach().cpu(), hm0.cpu(), hm1.cpu()]
+                   + [t.grad.cpu() for t in x])
+    cpu, gpu = res
+    assert torch.equal(gpu[1], cpu[1]) and torch.equal(gpu[2], cpu[2])
+    for a, r in zip(gpu[:1] + gpu[3:], cpu[:1] + cpu[3:]):
+        _assert_close(a, r, "float32", "row 9 Function")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15360, 768), (7, 768), (33, 100), (5,),
+                                   (3, 14, 128), (1,)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_keep_mask_kernel_matches_twin(cuda_device, shape):
+    """Row 14 bit-equal to its twin, with its 16-byte stores and the bytes
+    past the last 16; keep fraction 0.9 +- 0.005 at the train shape."""
+    from volta_tpu_torch.ops import dropout_mask as dm
+
+    before = LAUNCHES["keep_mask"]
+    got = dm.keep_mask(shape, RATE, 0xABCD, cuda_device)
+    torch.cuda.synchronize()
+    assert LAUNCHES["keep_mask"] == before + 1
+    ref = dm.keep_mask_ref(shape, RATE, 0xABCD, cuda_device)
+    assert got.dtype == torch.uint8 and torch.equal(got, ref)
+    if got.numel() > 10**6:
+        assert abs(float(got.float().mean()) - (1 - RATE)) < 0.005
+
+
+# --------------------------------------------- probe matmuls (rows 15-16)
+def _mm_inputs(shape, device, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(
+        device, torch.bfloat16) for s in shape]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,f", [(15360, 768, 3072), (1000, 100, 300),
+                                   (17, 5, 9), (64, 128, 256)])
+def test_wgrad_kernel_matches_twin(cuda_device, n, h, f):
+    """Row 15 against its twin (float32 products of the same bf16 values):
+    the tensor cores round each 16-deep partial sum in float32, so the
+    error is held to one float32 rounding (2^-22 of the largest value) per
+    16 of the n-long sum, at least 1e-5 of it."""
+    from volta_tpu_torch.ops import matmul as mm
+
+    g, a = _mm_inputs([(n, h), (n, f)], cuda_device, seed=n)
+    before = LAUNCHES["wgrad"]
+    got = mm.wgrad(g, a)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wgrad"] == before + 1
+    ref = mm.wgrad_ref(g, a)
+    assert got.dtype == torch.float32 and got.shape == (h, f)
+    top = float(ref.abs().max())
+    tol = max(1e-5, 2.0 ** -22 * -(-n // 16)) * top
+    assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [True, False], ids=["gelu", "bias_only"])
+@pytest.mark.parametrize("n,k,m", [(15360, 768, 3072), (15360, 3072, 768),
+                                   (1000, 100, 300), (17, 40, 9)])
+def test_matmul_bias_act_kernel_matches_twin(cuda_device, n, k, m, act):
+    """Row 16 against its twin: bf16 outputs within two bf16 ulps of the
+    largest value."""
+    from volta_tpu_torch.ops import matmul as mm
+
+    x, w, b = _mm_inputs([(n, k), (k, m), (1, m)], cuda_device, seed=k)
+    w = w * (k ** -0.5)
+    before = LAUNCHES["matmul_bias_act"]
+    got = mm.matmul_bias_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert LAUNCHES["matmul_bias_act"] == before + 1
+    _assert_close(got, mm.matmul_bias_act_ref(x, w, b, act), "bfloat16",
+                  "row 16")

@@ -223,9 +223,9 @@ def test_flagged_train_step_matches_jax(flax_params, wrapper_calls,
 
 
 def test_unported_dropout_flags_raise():
-    for flag, value, item in (("use_pallas_dropout_mask", True, "row 14"),
-                              ("use_hash_dropout", False, "item 2"),
-                              ("fuse_hidden_dropout", True, "row 9")):
+    for flag, value, item in (("use_hash_dropout", False,
+                               "int_threshold_dropout.*item 2"),
+                              ("remat_ff", True, "remat_ff.*item 2")):
         cfg = dataclasses.replace(port_cfg(flagged_cfg()), **{flag: value})
         with pytest.raises(NotImplementedError, match=item):
             VoltaForVLTasks(cfg, TASK_CFG, ("TASK1",))

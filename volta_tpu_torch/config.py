@@ -104,7 +104,8 @@ class VoltaConfig:
     # Use the Pallas fused attention kernel where available (wins on the
     # no-dropout/eval path; measured +18% eval throughput on v5e).
     # port: the attention always runs through the CUDA kernels; this flag
-    # only gates use_fused_residual_ln, as it does in the JAX encoder.
+    # only gates use_fused_residual_ln, fuse_hidden_dropout and
+    # use_pallas_dropout_mask, as it does in the JAX encoder.
     use_pallas: bool = True
     # Pallas fused LayerNorm (XLA's fused LN measured slightly faster at
     # BERT-base shapes, so off by default; flip for wider models).
@@ -121,6 +122,7 @@ class VoltaConfig:
     # activation). Never applied to the dropout-attention kernel — its
     # Mosaic PRNG draws are not reproducible across recompilations, so
     # recompute there would decorrelate the mask from the forward pass.
+    # port: not ported yet (ROADMAP.md Queue 1 item 2); true raises.
     remat_ff: bool = False
     # Fused dropout+residual+LayerNorm train kernel for the sublayer tails
     # (ops/fused_residual.py). Measured A/B on v5e (b256 seq23 r37 VQA
@@ -141,8 +143,10 @@ class VoltaConfig:
     # the matmul epilogues with zero extra traffic), so OFF by default;
     # kernel kept validated (tools/validate_tpu.py) for wider-model shapes
     # where the trade may flip.
-    # port: not ported yet (ROADMAP.md Queue 2 row 9); with use_pallas the
-    # model raises.
+    # port: with use_pallas, each training attention sublayer runs the CUDA
+    # kernel of Queue 2 row 9 (ops/attention_hidden_mask_cuda.py), which
+    # also writes the two tails' keep masks: hash_dropout's bits for the
+    # seeds those tails would draw.
     fuse_hidden_dropout: bool = False
     # Generate the hidden-dropout keep masks with a dedicated Pallas kernel
     # (Mosaic hardware PRNG, lane-aligned bf16 writes) instead of XLA's
@@ -150,7 +154,9 @@ class VoltaConfig:
     # dropout site (~4.0 ms/step of the 7.4 ms hidden-dropout cost at b256).
     # The mask *apply* (multiply + residual + LN) stays in XLA where it
     # fuses into the matmul epilogues.
-    # port: not ported yet (ROADMAP.md Queue 2 row 14); the model raises.
+    # port: with use_pallas, each training sublayer tail draws its keep mask
+    # with the CUDA kernel of Queue 2 row 14 (ops/dropout_mask.py):
+    # hash_dropout's bits for the tail's seed.
     use_pallas_dropout_mask: bool = False
     # Counter-based hidden dropout: keep bit = murmur3-fmix32(position +
     # seed) < threshold — a pure function of (iota, seed) that XLA fuses

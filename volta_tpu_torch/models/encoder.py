@@ -13,9 +13,14 @@ flags the tails run the CUDA LayerNorm or fused residual kernels
 (``_make_ln``). ``attn_natural_layout`` picks the attention kernels as in
 the JAX package (encoder.py:94-96, 113-116): the natural [B, L, H·D] ones
 (Queue 2 rows 1-4) by default, the head-major [H, B, L, D] ones (rows 5-8)
-with false. A dual-stream plan, ``use_scan`` or ``fuse_hidden_dropout``
-(row 9, not ported) raises at construction. Submodules are named after the
-Flax tree (``attn_0``, ``ff_1``, ...).
+with false. The hidden-dropout masks follow the JAX gates too: with
+``fuse_hidden_dropout`` the training attention runs row 9, which draws the
+keep masks of its own tail and of the next feed-forward's (encoder.py
+:161-187, 595-612); with ``use_pallas_dropout_mask`` the other tails draw
+theirs with row 14 (encoder.py:37-38). Every mask is ``hash_dropout``'s for
+the seed its tail would draw, so the flags change no mask. A dual-stream
+plan, ``use_scan`` or ``remat_ff`` raises at construction. Submodules are
+named after the Flax tree (``attn_0``, ``ff_1``, ...).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch
 from torch import nn
 
 from ..config import SublayerSpec, VoltaConfig
-from ..ops.attention import fused_attention
+from ..ops.attention import dropout_attention_hidden_masks, \
+    fused_attention
 from .embeddings import compute_dtype
 from .layers import ACT2FN, Dense, LayerNorm, site_seed
 
@@ -35,19 +41,18 @@ def _make_ln(cfg: VoltaConfig, dim: int) -> LayerNorm:
     """A sublayer tail's LayerNorm with the JAX gates (encoder.py:31-39):
     the LayerNorm kernels with ``use_pallas_layernorm``, the fused
     dropout+residual+LN kernels with ``use_pallas`` and
-    ``use_fused_residual_ln``. The Pallas keep-mask kernel and the non-hash
-    dropout are not ported and raise."""
-    if cfg.use_pallas and cfg.use_pallas_dropout_mask and not cfg.remat_ff:
-        raise NotImplementedError(
-            "use_pallas_dropout_mask is not ported yet (ROADMAP.md Queue 2 "
-            "row 14, pallas_keep_mask)")
+    ``use_fused_residual_ln``, the keep-mask kernel (row 14) with
+    ``use_pallas`` and ``use_pallas_dropout_mask``. The non-hash dropout is
+    not ported and raises."""
     if not cfg.use_hash_dropout:
         raise NotImplementedError(
             "use_hash_dropout=false (int_threshold_dropout) is not ported "
             "yet (ROADMAP.md Queue 1 item 2)")
     return LayerNorm(dim, use_kernel=cfg.use_pallas_layernorm,
                      fused_residual=cfg.use_pallas
-                     and cfg.use_fused_residual_ln)
+                     and cfg.use_fused_residual_ln,
+                     pallas_mask=cfg.use_pallas
+                     and cfg.use_pallas_dropout_mask and not cfg.remat_ff)
 
 
 def _fully_fused(spec: SublayerSpec) -> bool:
@@ -62,16 +67,16 @@ class GatedAttentionSublayer(nn.Module):
     """Self-attention over the joined sequence: Q/K/V dense -> attention on
     the natural [B, L, H·D] layout, or head-major with ``natural`` false
     (dropout on the probabilities in training) -> out_dense ->
-    LN(dropout(o) + x)."""
+    LN(dropout(o) + x). Returns the output and the next feed-forward's
+    keep mask, which only ``fuse_hidden`` draws (else None)."""
 
     def __init__(self, cfg: VoltaConfig, spec: SublayerSpec):
         super().__init__()
-        if cfg.use_pallas and cfg.fuse_hidden_dropout:
-            raise NotImplementedError(
-                "fuse_hidden_dropout is not ported yet (ROADMAP.md Queue 2 "
-                "row 9, pallas_dropout_attention_hm)")
         std, dt = cfg.initializer_range, compute_dtype(cfg)
         self.natural = cfg.attn_natural_layout
+        # the static half of the JAX gate of row 9 (encoder.py:161-164)
+        self.fuse_hidden = (cfg.use_pallas and cfg.fuse_hidden_dropout
+                            and spec.attn_hidden_size == cfg.hidden_size)
         self.num_heads = spec.num_heads
         self.head_dim = spec.attn_hidden_size // spec.num_heads
         self.attn_rate = cfg.attention_probs_dropout_prob
@@ -89,18 +94,34 @@ class GatedAttentionSublayer(nn.Module):
         q = self.query(x).view(b, l, h, d)
         k = self.key(x).view(b, l, h, d)
         v = self.value(x).view(b, l, h, d)
+        scale = 1.0 / math.sqrt(d)
+        if (self.fuse_hidden and self.training and self.attn_rate > 0.0
+                and self.hidden_rate > 0.0 and bias is not None and l >= 8):
+            # row 9: the seeds of the attention, of this tail and of the
+            # next feed-forward's tail, in the order the unfused path
+            # draws them, so each mask is the one that path draws
+            seeds3 = [site_seed(self, self.attn_rate, seeds)] + [
+                site_seed(self, self.hidden_rate, seeds) for _ in range(2)]
+            ctx, hm0, hm1 = dropout_attention_hidden_masks(
+                q, k, v, bias, scale, self.attn_rate, self.hidden_rate,
+                seeds3)
+            return self.out_ln(self.out_dense(ctx.reshape(b, l, h * d)),
+                               residual=x, drop_rate=self.hidden_rate,
+                               keep_mask=hm0), hm1
         attn_seed = site_seed(self, self.attn_rate, seeds)
-        ctx = fused_attention(q, k, v, bias, 1.0 / math.sqrt(d),
+        ctx = fused_attention(q, k, v, bias, scale,
                               self.attn_rate if attn_seed is not None
                               else 0.0, attn_seed, natural=self.natural)
         return self.out_ln(self.out_dense(ctx.reshape(b, l, h * d)),
                            residual=x, drop_rate=self.hidden_rate,
-                           seed=site_seed(self, self.hidden_rate, seeds))
+                           seed=site_seed(self, self.hidden_rate,
+                                          seeds)), None
 
 
 class GatedFeedForwardSublayer(nn.Module):
     """FFN over the joined sequence:
-    LN(dropout(out_dense(act(inter_dense(x)))) + x)."""
+    LN(dropout(out_dense(act(inter_dense(x)))) + x); with a ``keep_mask``
+    from the attention before it, that mask and no seed of its own."""
 
     def __init__(self, cfg: VoltaConfig, spec: SublayerSpec):
         super().__init__()
@@ -113,10 +134,12 @@ class GatedFeedForwardSublayer(nn.Module):
                                dt)
         self.out_ln = _make_ln(cfg, cfg.hidden_size)
 
-    def forward(self, x, seeds=None):
+    def forward(self, x, seeds=None, keep_mask=None):
+        seed = None if keep_mask is not None else site_seed(
+            self, self.hidden_rate, seeds)
         return self.out_ln(self.out_dense(self.act(self.inter_dense(x))),
-                           residual=x, drop_rate=self.hidden_rate,
-                           seed=site_seed(self, self.hidden_rate, seeds))
+                           residual=x, drop_rate=self.hidden_rate, seed=seed,
+                           keep_mask=keep_mask)
 
 
 class GatedEncoder(nn.Module):
@@ -128,6 +151,9 @@ class GatedEncoder(nn.Module):
         if cfg.use_scan:
             raise NotImplementedError(
                 "use_scan is not ported: the port runs the stack as a loop")
+        if cfg.remat_ff:
+            raise NotImplementedError(
+                "remat_ff is not ported yet (ROADMAP.md Queue 1 item 2)")
         self.names = []
         for spec in cfg.sublayer_plan():
             if not _fully_fused(spec):
@@ -146,11 +172,13 @@ class GatedEncoder(nn.Module):
     def forward(self, t, v, t_bias, v_bias, seeds=None):
         x = torch.cat([t, v], dim=1)
         bias = torch.cat([t_bias, v_bias], dim=-1)
+        ffn_mask = None  # row 9's mask for the next feed-forward's tail
         for name in self.names:
             layer = getattr(self, name)
             if isinstance(layer, GatedAttentionSublayer):
-                x = layer(x, bias, seeds)
+                x, ffn_mask = layer(x, bias, seeds)
             else:
-                x = layer(x, seeds)
+                x = layer(x, seeds, keep_mask=ffn_mask)
+                ffn_mask = None
         lt = t.shape[1]
         return x[:, :lt], x[:, lt:]

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import dropout_mask
 from ..ops.fused_residual import dropout_residual_ln
 from ..ops.hash import (_M32, GOLDEN, dropout_threshold,  # noqa: F401
                         fmix32, hash_keep)
@@ -73,20 +74,28 @@ class LayerNorm(nn.Module):
 
     Residual mode, ``ln(o, residual=x, drop_rate=p, seed=s)``, computes
     ``LN(hash_dropout(o, s, p) + x)``, the tail of every encoder sublayer
-    (volta_tpu/models/layers.py:111-172); without a seed the dropout is off
-    (eval). ``use_kernel`` and ``fused_residual`` are the port's names for
-    the JAX module's ``use_pallas`` and ``fused_residual``: with
-    ``fused_residual`` a dropping residual call runs the fused CUDA
-    dropout+residual+LN kernels (``ops.fused_residual``, the same mask as
-    ``hash_dropout``); otherwise, with ``use_kernel``, the LayerNorm runs
-    the CUDA LayerNorm kernels (``ops.layernorm``), else plain torch."""
+    (volta_tpu/models/layers.py:111-172); without a seed or a ``keep_mask``
+    the dropout is off (eval). ``use_kernel``, ``fused_residual`` and
+    ``pallas_mask`` are the port's names for the JAX module's
+    ``use_pallas``, ``fused_residual`` and ``pallas_mask``. A dropping
+    residual call takes, in the JAX module's order: an explicit 0/1
+    ``keep_mask`` (drawn by the attention kernel of row 9); else, with
+    ``pallas_mask`` at the shapes the TPU kernel takes, the keep mask of the
+    CUDA kernel of row 14 (``ops.dropout_mask``) for the seed; else, with
+    ``fused_residual``, the fused CUDA dropout+residual+LN kernels
+    (``ops.fused_residual``); else ``hash_dropout``. All draw the same
+    mask for the same seed. A mask is applied as ``hash_dropout`` applies
+    its own; then, with ``use_kernel``, the LayerNorm runs the CUDA
+    LayerNorm kernels (``ops.layernorm``), else plain torch."""
 
     def __init__(self, dim: int, eps: float = LN_EPS,
-                 use_kernel: bool = False, fused_residual: bool = False):
+                 use_kernel: bool = False, fused_residual: bool = False,
+                 pallas_mask: bool = False):
         super().__init__()
         self.eps = eps
         self.use_kernel = use_kernel
         self.fused_residual = fused_residual
+        self.pallas_mask = pallas_mask
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
         self.reset_parameters()
@@ -97,14 +106,22 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor = None,
-                drop_rate: float = 0.0, seed: Optional[int] = None
-                ) -> torch.Tensor:
+                drop_rate: float = 0.0, seed: Optional[int] = None,
+                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if residual is not None:
-            if seed is not None and drop_rate > 0.0:
-                if self.fused_residual:
-                    return dropout_residual_ln(x, residual, self.weight,
-                                               self.bias, seed, drop_rate,
-                                               self.eps)
+            dropping = drop_rate > 0.0 and (seed is not None
+                                            or keep_mask is not None)
+            if (dropping and keep_mask is None and self.pallas_mask
+                    and dropout_mask.supported(x.shape)):
+                keep_mask = dropout_mask.keep_mask(x.shape, drop_rate, seed,
+                                                   x.device)
+            if dropping and keep_mask is not None:
+                x = apply_keep_mask(x, keep_mask, drop_rate)
+            elif dropping and self.fused_residual:
+                return dropout_residual_ln(x, residual, self.weight,
+                                           self.bias, seed, drop_rate,
+                                           self.eps)
+            elif dropping:
                 x = hash_dropout(x, seed, drop_rate)
             x = x + residual
         if self.use_kernel:
@@ -175,9 +192,16 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     threshold; kept values are divided by 1 - rate in x's dtype (JAX's
     weak-typed scalar is rounded to x's dtype first, so is this one)."""
     n = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
-    keep = hash_keep(n.view(x.shape), seed, rate)
+    return apply_keep_mask(x, hash_keep(n.view(x.shape), seed, rate), rate)
+
+
+def apply_keep_mask(x: torch.Tensor, keep: torch.Tensor,
+                    rate: float) -> torch.Tensor:
+    """Dropout with a given 0/1 (or bool) keep mask of x's shape: kept
+    values divided by 1 - rate rounded to x's dtype (as JAX rounds its
+    weak-typed scalar), the others 0 (volta_tpu/models/layers.py:139-145)."""
     denom = float(torch.tensor(1.0 - rate, dtype=x.dtype))
-    return torch.where(keep, x / denom, x.new_zeros(()))
+    return torch.where(keep.bool(), x / denom, x.new_zeros(()))
 
 
 class DropoutSeeds:

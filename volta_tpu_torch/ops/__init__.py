@@ -1,5 +1,5 @@
-"""Attention and LayerNorm ops of the port and the hand-written CUDA kernels
-behind them.
+"""Attention, LayerNorm, dropout-mask and matmul ops of the port and the
+hand-written CUDA kernels behind them.
 
 Kernels are built from ``ops/csrc`` at first use (``ops/_build.py``);
 importing this package builds nothing.
@@ -14,8 +14,10 @@ LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
             "attention_head_major_fwd": 0, "attention_head_major_bwd": 0,
             "attention_dropout_head_major_fwd": 0,
             "attention_dropout_head_major_bwd": 0,
+            "attention_dropout_hidden_masks_fwd": 0,
             "layer_norm_fwd": 0, "layer_norm_bwd": 0,
-            "dropout_residual_ln_fwd": 0, "dropout_residual_ln_bwd": 0}
+            "dropout_residual_ln_fwd": 0, "dropout_residual_ln_bwd": 0,
+            "keep_mask": 0, "wgrad": 0, "matmul_bias_act": 0}
 
 
 def reset_launches():

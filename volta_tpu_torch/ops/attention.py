@@ -106,6 +106,30 @@ def dropout_attention_head_major(qh, kh, vh, bias, scale, rate, seed):
         qh, kh, vh, bias, scale, float(rate), int(seed))
 
 
+def dropout_attention_hidden_masks(q, k, v, bias, scale, rate, hidden_rate,
+                                   seeds3):
+    """Attention with dropout ``rate`` on the probabilities that also draws
+    the keep masks of the two hidden dropouts after it: the port of
+    ``pallas_dropout_attention_hm`` (pallas_attention.py:779-798). q, k, v
+    are [B, L, H, D]; ``seeds3`` the uint32 seeds of the attention dropout,
+    of the sublayer's tail and of the next feed-forward's tail. Always
+    head-major, with the layout copies of ``fused_attention(natural=False)``,
+    as the JAX entry is (:814). Returns (out [B, Lq, H, D], hm0, hm1), the
+    masks uint8 0/1 [B, Lq, H·D] for ``hidden_rate``; the bias gets no
+    gradient."""
+    from . import attention_hidden_mask_cuda
+
+    b, lq, h, d = q.shape
+    bias = _bias2(bias, b, k.shape[1])
+    qh, kh, vh = (x.permute(2, 0, 1, 3).contiguous() for x in (q, k, v))
+    seed, hseed0, hseed1 = (int(s) for s in seeds3)
+    out, hm0, hm1 = \
+        attention_hidden_mask_cuda.HiddenMaskDropoutAttention.apply(
+            qh, kh, vh, bias, scale, float(rate), seed, float(hidden_rate),
+            hseed0, hseed1)
+    return out.permute(1, 2, 0, 3), hm0, hm1
+
+
 def additive_mask(mask, dtype=torch.float32):
     """[B, L] 1/0 mask -> [B, 1, 1, L] additive bias with -10000 on pads
     (reference: volta/encoders.py:974-991); -10000, not -inf."""

@@ -15,7 +15,13 @@
 //          the probabilities, which writes the 0/1 keep mask [H, B, Lq, Lk];
 //   row 6  _attn_dropout_bwd_kernel (:169), launched by _dropout_bwd_core
 //          (:278, pallas_call :283), math _dropout_bwd_math (:147-166): its
-//          backward, which reads that mask back.
+//          backward, which reads that mask back;
+//   row 9  _attn_dropout_fwd_hm_kernel (:125), launched by
+//          _dropout_hm_fwd_impl (:809, pallas_call :818) behind
+//          pallas_dropout_attention_hm (:779, fuse_hidden_dropout): row 5
+//          plus the keep masks of the two hidden dropouts that follow, this
+//          sublayer's tail and the next feed-forward's. Its backward is row
+//          6 (_dropout_hm_bwd_rule :841 calls _dropout_bwd_rule).
 // q, g and out are [H, B, Lq, D], k and v [H, B, Lk, D], bf16 or fp32,
 // contiguous (the layout the TPU path transposes into, _head_major :178);
 // bias is [B, Lk] float32. The math is that of rows 1-4
@@ -39,6 +45,18 @@
 // take 0.240, 0.506, 0.286 and 0.529 ms on an H100 (NVIDIA H100 80GB
 // HBM3, 700 W, chip_smoke.py), a quarter less than rows 1, 2 and 4 on the
 // natural layout with the same loops.
+//
+// Row 9's hidden masks. The TPU kernel draws them from its PRNG as
+// [H, B, Lq, D] bf16 and transposes them to the [B, Lq, H·D] layout of the
+// out-dense output afterwards (pallas_attention.py:796). Here element
+// (b, i, h·D + j) of mask m is hash_dropout's keep bit for the seed of that
+// mask's tail over the natural linear index (b·Lq + i)·H·D + h·D + j, so the
+// tails drop what hash_dropout would drop with the seeds they would draw,
+// and it is written in place, as one byte: each (b, h) block of the
+// forward writes its query rows' D contiguous bytes of each mask, four
+// bytes a store, before the attention body; no transpose follows. The
+// masks add 2·B·Lq·H·D bytes to row 5's writes (23.6 MB at B = 256,
+// L = 60, H = 12, D = 64: 7 us at 3.35 TB/s).
 
 #include "attention_common.cuh"
 
@@ -86,6 +104,55 @@ attention_dropout_head_major_fwd_kernel(const T* __restrict__ q,
                                         lk_pad, drop, mask);
 }
 
+// The two hidden dropouts' seeds and their keep threshold (row 9).
+struct HiddenDropout {
+  uint32_t seed0, seed1;
+  uint32_t threshold;
+};
+
+// Row 9's hidden masks for the query tile of block (b·H + h, tile): rows
+// i0 .. i0 + kRowsPerBlock of [B, Lq, H·D] at columns h·D .. h·D + D, four
+// bytes (one uint32 of 0/1 bytes) a thread a store.
+template <int D>
+__device__ __forceinline__ void hidden_masks_block(
+    uint8_t* __restrict__ hm0, uint8_t* __restrict__ hm1, int Lq, int H,
+    const HiddenDropout& hd) {
+  constexpr int kWords = D / 4;  // uint32 words of a row's D bytes
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int i0 = blockIdx.y * kRowsPerBlock;
+  const int rows = min(kRowsPerBlock, Lq - i0);
+  for (int idx = threadIdx.x; idx < rows * kWords; idx += kWarps * 32) {
+    const int i = i0 + idx / kWords;
+    const size_t off =
+        ((static_cast<size_t>(b) * Lq + i) * H + h) * D + (idx % kWords) * 4;
+    const uint32_t n = static_cast<uint32_t>(off);  // the hash's index
+    uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      w0 |= static_cast<uint32_t>(hash_keep(n + e, hd.seed0, hd.threshold))
+            << (8 * e);
+      w1 |= static_cast<uint32_t>(hash_keep(n + e, hd.seed1, hd.threshold))
+            << (8 * e);
+    }
+    *reinterpret_cast<uint32_t*>(hm0 + off) = w0;
+    *reinterpret_cast<uint32_t*>(hm1 + off) = w1;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_dropout_hidden_masks_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out,
+    uint8_t* __restrict__ mask, uint8_t* __restrict__ hm0,
+    uint8_t* __restrict__ hm1, int Lq, int Lk, int H, float scale, int lk_pad,
+    Dropout drop, HiddenDropout hidden) {
+  hidden_masks_block<D>(hm0, hm1, Lq, H, hidden);
+  attention_fwd_block<T, D, true, true>(q, k, v, bias, out, Lq, Lk, H, scale,
+                                        lk_pad, drop, mask);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 attention_dropout_head_major_bwd_kernel(const T* __restrict__ q,
@@ -104,16 +171,28 @@ attention_dropout_head_major_bwd_kernel(const T* __restrict__ q,
 }
 
 // The forwards: grid (B * H, query tiles of kRowsPerBlock), as rows 1 and 3.
+// With hidden (row 9) hm[0] and hm[1] receive the hidden masks.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const void* bias, void* out, void* mask, int B, int Lq,
-                       int Lk, int H, float scale, const Dropout* drop,
+                       const void* bias, void* out, void* mask, void* const* hm,
+                       int B, int Lq, int Lk, int H, float scale,
+                       const Dropout* drop, const HiddenDropout* hidden,
                        cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes<D>(Lk);
   const dim3 grid(static_cast<unsigned>(B) * H,
                   (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
   const int lk_pad = (Lk + 3) & ~3;
-  if (drop == nullptr) {
+  if (hidden != nullptr) {
+    auto kern = attention_dropout_hidden_masks_fwd_kernel<T, D>;
+    const cudaError_t e = allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(bias),
+        static_cast<T*>(out), static_cast<uint8_t*>(mask),
+        static_cast<uint8_t*>(hm[0]), static_cast<uint8_t*>(hm[1]), Lq, Lk, H,
+        scale, lk_pad, *drop, *hidden);
+  } else if (drop == nullptr) {
     auto kern = attention_head_major_fwd_kernel<T, D>;
     const cudaError_t e = allow_smem(kern, smem);
     if (e != cudaSuccess) return e;
@@ -168,12 +247,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_fwd_d(const void* q, const void* k, const void* v,
-                         const void* bias, void* out, void* mask, int B,
-                         int Lq, int Lk, int H, int D, float scale,
-                         const Dropout* drop, cudaStream_t stream) {
+                         const void* bias, void* out, void* mask,
+                         void* const* hm, int B, int Lq, int Lk, int H, int D,
+                         float scale, const Dropout* drop,
+                         const HiddenDropout* hidden, cudaStream_t stream) {
   VOLTA_SWITCH_HEAD_DIM(
-      D, return launch_fwd<T, kD>(q, k, v, bias, out, mask, B, Lq, Lk, H,
-                                  scale, drop, stream))
+      D, return launch_fwd<T, kD>(q, k, v, bias, out, mask, hm, B, Lq, Lk, H,
+                                  scale, drop, hidden, stream))
 }
 
 template <typename T>
@@ -188,18 +268,19 @@ cudaError_t launch_bwd_d(const void* q, const void* k, const void* v,
 }
 
 cudaError_t fwd(const void* q, const void* k, const void* v,
-                const void* bias, void* out, void* mask, int B, int Lq,
-                int Lk, int H, int D, float scale, const Dropout* drop,
-                int dtype, int device, void* stream) {
+                const void* bias, void* out, void* mask, void* const* hm,
+                int B, int Lq, int Lk, int H, int D, float scale,
+                const Dropout* drop, const HiddenDropout* hidden, int dtype,
+                int device, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fwd_d<float>(q, k, v, bias, out, mask, B, Lq, Lk, H, D,
-                               scale, drop, s);
+    return launch_fwd_d<float>(q, k, v, bias, out, mask, hm, B, Lq, Lk, H, D,
+                               scale, drop, hidden, s);
   if (dtype == 1)
-    return launch_fwd_d<__nv_bfloat16>(q, k, v, bias, out, mask, B, Lq, Lk,
-                                       H, D, scale, drop, s);
+    return launch_fwd_d<__nv_bfloat16>(q, k, v, bias, out, mask, hm, B, Lq,
+                                       Lk, H, D, scale, drop, hidden, s);
   return cudaErrorInvalidValue;
 }
 
@@ -231,8 +312,8 @@ extern "C" int volta_attention_head_major_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     int B, int Lq, int Lk, int H, int D, float scale, int dtype, int device,
     void* stream) {
-  return fwd(q, k, v, bias, out, nullptr, B, Lq, Lk, H, D, scale, nullptr,
-             dtype, device, stream);
+  return fwd(q, k, v, bias, out, nullptr, nullptr, B, Lq, Lk, H, D, scale,
+             nullptr, nullptr, dtype, device, stream);
 }
 
 // Row 8; db_part (float32 [H, B, Lk]) may be null.
@@ -253,8 +334,23 @@ extern "C" int volta_attention_dropout_head_major_fwd(
     uint32_t seed, uint32_t threshold, float keep_scale, int dtype,
     int device, void* stream) {
   const Dropout drop{seed, threshold, keep_scale};
-  return fwd(q, k, v, bias, out, mask, B, Lq, Lk, H, D, scale, &drop, dtype,
-             device, stream);
+  return fwd(q, k, v, bias, out, mask, nullptr, B, Lq, Lk, H, D, scale, &drop,
+             nullptr, dtype, device, stream);
+}
+
+// Row 9; as row 5, and hm0, hm1 (uint8 [B, Lq, H·D], 4-byte aligned)
+// receive the hidden keep masks for hseed0 and hseed1 at hthreshold.
+extern "C" int volta_attention_dropout_hidden_masks_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* out,
+    void* mask, void* hm0, void* hm1, int B, int Lq, int Lk, int H, int D,
+    float scale, uint32_t seed, uint32_t threshold, float keep_scale,
+    uint32_t hseed0, uint32_t hseed1, uint32_t hthreshold, int dtype,
+    int device, void* stream) {
+  const Dropout drop{seed, threshold, keep_scale};
+  const HiddenDropout hidden{hseed0, hseed1, hthreshold};
+  void* const hm[2] = {hm0, hm1};
+  return fwd(q, k, v, bias, out, mask, hm, B, Lq, Lk, H, D, scale, &drop,
+             &hidden, dtype, device, stream);
 }
 
 // Row 6; mask is row 5's.

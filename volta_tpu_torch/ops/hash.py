@@ -40,8 +40,13 @@ def dropout_threshold(rate: float) -> int:
     return int((1.0 - rate) * 4294967295.0)
 
 
+def hash_bits(index: torch.Tensor, seed: int) -> torch.Tensor:
+    """The uint32 draws (held in int64) of the elements at linear ``index``
+    (int64): fmix32(index * 0x9E3779B9 + seed), all modulo 2^32."""
+    return fmix32((_mul32(index & _M32, GOLDEN) + (int(seed) & _M32)) & _M32)
+
+
 def hash_keep(index: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Keep bits of the elements at linear ``index`` (int64):
-    fmix32(index * 0x9E3779B9 + seed) < threshold, all modulo 2^32."""
-    h = fmix32((_mul32(index & _M32, GOLDEN) + (int(seed) & _M32)) & _M32)
-    return h < dropout_threshold(rate)
+    """Keep bits of the elements at linear ``index`` (int64): their draw
+    ``hash_bits(index, seed)`` < threshold."""
+    return hash_bits(index, seed) < dropout_threshold(rate)
