@@ -106,12 +106,19 @@ def test_wrapper_takes_twin_on_cpu_only():
 
 
 def test_shared_memory_bound():
-    # the longest task sequence (GuessWhatPointing, 256 + 306 + 1 keys)
-    # fits with room to spare; the limit is ~3.2k keys at D = 128
+    # the CUDA-core body (fp32 forward, every dropout forward): the longest
+    # task sequence (GuessWhatPointing, 256 + 306 + 1 keys) fits with room
+    # to spare; the limit is ~3.2k keys at D = 128
     assert attention_cuda.smem_bytes(60, 64) < 48 * 1024
     assert attention_cuda.smem_bytes(563, 128) <= \
         attention_cuda.MAX_SMEM_BYTES
     assert attention_cuda.smem_bytes(3200, 128) <= \
         attention_cuda.MAX_SMEM_BYTES
     assert attention_cuda.smem_bytes(3300, 128) > \
+        attention_cuda.MAX_SMEM_BYTES
+    # the tensor-core body (bf16 forward of rows 1 and 7) streams the keys
+    # in tiles: the same bytes at every Lk, within the limit at D = 128
+    _, _, tc = attention_cuda.fwd_body(torch.bfloat16)
+    assert tc(60, 60, 64) < 48 * 1024
+    assert tc(5, 563, 128) == tc(5, 10**6, 128) <= \
         attention_cuda.MAX_SMEM_BYTES

@@ -6,7 +6,8 @@ JAX, so it runs where only PyTorch is installed:
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
 Tolerances: the no-dropout forward output bf16 2e-2 (two bf16 ulps at
-|x| ~ 2; fp32 1e-5). The backward sums run in another order than the twin's
+|x| ~ 2; fp32 1e-5); its head-major row equals its natural row bit for bit.
+The backward sums run in another order than the twin's
 einsums, then both round: bf16 within two bf16 ulps of the tensor's largest
 magnitude (2^-6 * max|ref|), fp32 within 1e-5 * max(1, max|ref|). The
 dropout mask is compared bit for bit.
@@ -23,6 +24,10 @@ SERVING = (256, 60, 60, 12, 64)
 # (B, Lq, Lk, H, D): Lq != Lk, Lq < 8, D = 16 and 128
 ODD = [(2, 9, 33, 4, 16), (3, 5, 37, 2, 64), (2, 17, 70, 2, 128),
        (1, 1, 1, 3, 32)]
+# the tensor-core forward's tile edges (64 query rows, 64 keys a tile):
+# Lq and Lk at 63, 64, 65 and 128, and the longest task sequence (563)
+EDGES = [(2, 63, 65, 3, 64), (2, 64, 64, 3, 128), (2, 65, 128, 2, 16),
+         (2, 128, 63, 2, 32), (2, 65, 563, 2, 64), (3, 5, 563, 12, 64)]
 RATE = 0.1
 
 
@@ -87,6 +92,35 @@ def test_cuda_kernel_matches_twin(cuda_device, dtype, shape, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SERVING] + ODD + EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_forward_matches_twin(cuda_device, shape):
+    """Rows 1 and 7 in bf16 run the tensor-core body: within 2e-2 of their
+    twins at the serving shape, odd shapes and the tile edges, with one
+    batch row whose keys are all padded but one; row 7 equal to row 1 bit
+    for bit on the same operands."""
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+
+    assert attention_cuda.fwd_body(torch.bfloat16)[0] == "tensor-core"
+    b, lq, lk, h, d = shape
+    q, k, v, bias, _ = _inputs(shape, "bfloat16", cuda_device, seed=11)
+    bias[0, 1:] = -10000.0
+    scale = d ** -0.5
+    names = ("attention_fwd", "attention_head_major_fwd")
+    before = tuple(LAUNCHES[n] for n in names)
+    out = attention_cuda.attention_fwd(q, k, v, bias, scale, h)
+    hq, hk, hv = (_head_major(x, h) for x in (q, k, v))
+    hout = ahm.attention_head_major_fwd(hq, hk, hv, bias, scale)
+    torch.cuda.synchronize()
+    assert tuple(LAUNCHES[n] - c for n, c in zip(names, before)) == (1, 1)
+    ref = attention_cuda.attention_fwd_ref(q, k, v, bias, scale, h)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+    assert torch.equal(hout.permute(1, 2, 0, 3).reshape(q.shape), out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [SERVING] + ODD,
                          ids=lambda s: "x".join(map(str, s)))
@@ -141,40 +175,84 @@ def test_dropout_kernels_match_twins(cuda_device, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("d", [16, 128])
-def test_largest_lengths_run_and_the_next_raise(cuda_device, d):
-    # forward kernels: the largest Lk at Lq = 5
-    lk = _max_lk(lambda lq, lk, d: attention_cuda.smem_bytes(lk, d), 5, d)
-    q, k, v, bias, g = _inputs((1, 5, lk, 2, d), "bfloat16", cuda_device)
-    ref = attention_cuda.attention_fwd_ref(q, k, v, bias, d ** -0.5, 2)
-    assert float((attention_cuda.attention_fwd(q, k, v, bias, d ** -0.5, 2)
-                  .float() - ref.float()).abs().max()) <= 2e-2
-    out, mask = adc.attention_dropout_fwd(q, k, v, bias, d ** -0.5, 2, RATE,
-                                          7, return_mask=True)
-    _assert_close(out, adc.attention_dropout_fwd_ref(
-        q, k, v, bias, d ** -0.5, 2, RATE, mask), "bfloat16", "dropout fwd")
-    _, k2, v2, bias2, _ = _inputs((1, 5, lk + 1, 2, d), "bfloat16",
-                                  cuda_device)
-    for fn in (lambda: attention_cuda.attention_fwd(q, k2, v2, bias2, 0.1, 2),
-               lambda: adc.attention_dropout_fwd(q, k2, v2, bias2, 0.1, 2,
-                                                 RATE, 7)):
+def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
+    """Each body at its own limit in each dtype. The no-dropout forward
+    (rows 1 and 7 share the body): float32 on the CUDA-core body, the
+    largest Lk its shared memory takes at Lq = 5; bf16 on the tensor-core
+    body, whose shared memory does not grow with Lk, four times that Lk, and
+    the largest Lq its grid takes. The dropout forward (row 3, CUDA-core in
+    both dtypes) at its largest Lk; the backwards at theirs at Lq = 128."""
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+
+    scale = d ** -0.5
+    core_lk = _max_lk(lambda lq, lk, d: attention_cuda.smem_bytes(lk, d), 5,
+                      d)
+    name, rows, smem = attention_cuda.fwd_body(getattr(torch, dtype))
+    if name == "CUDA-core":
+        assert _max_lk(smem, 5, d) == core_lk
+        q, k, v, bias, _ = _inputs((1, 5, core_lk, 2, d), dtype, cuda_device)
+        _assert_close(attention_cuda.attention_fwd(q, k, v, bias, scale, 2),
+                      attention_cuda.attention_fwd_ref(q, k, v, bias, scale,
+                                                       2), dtype, "row 1")
+        hq, hk, hv = (_head_major(x, 2) for x in (q, k, v))
+        _assert_close(ahm.attention_head_major_fwd(hq, hk, hv, bias, scale),
+                      ahm.attention_head_major_fwd_ref(hq, hk, hv, bias,
+                                                       scale), dtype, "row 7")
+        _, k2, v2, bias2, _ = _inputs((1, 5, core_lk + 1, 2, d), dtype,
+                                      cuda_device)
         with pytest.raises(ValueError, match="shared memory"):
-            fn()
+            attention_cuda.attention_fwd(q, k2, v2, bias2, scale, 2)
+        with pytest.raises(ValueError, match="shared memory"):
+            ahm.attention_head_major_fwd(hq, _head_major(k2, 2),
+                                         _head_major(v2, 2), bias2, scale)
+    else:
+        assert smem(5, 4 * core_lk, d) == smem(1, 1, d) <= \
+            attention_cuda.MAX_SMEM_BYTES
+        q, k, v, bias, _ = _inputs((1, 5, 4 * core_lk, 2, d), dtype,
+                                   cuda_device)
+        out = attention_cuda.attention_fwd(q, k, v, bias, scale, 2)
+        ref = attention_cuda.attention_fwd_ref(q, k, v, bias, scale, 2)
+        assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+        lq = 65535 * rows  # 4.2M queries: drawn on the card
+        _, k, v, bias, _ = _inputs((1, 1, 3, 1, d), dtype, cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(d)
+        q = torch.randn((1, lq, d), generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+        out = attention_cuda.attention_fwd(q, k, v, bias, scale, 1)
+        ref = attention_cuda.attention_fwd_ref(q, k, v, bias, scale, 1)
+        assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+        del q, out, ref
+        q2 = torch.empty((1, lq + 1, d), dtype=torch.bfloat16,
+                         device=cuda_device)
+        with pytest.raises(ValueError, match="grid"):
+            attention_cuda.attention_fwd(q2, k, v, bias, scale, 1)
+    # the dropout forward: the largest Lk at Lq = 5
+    q, k, v, bias, g = _inputs((1, 5, core_lk, 2, d), dtype, cuda_device)
+    out, mask = adc.attention_dropout_fwd(q, k, v, bias, scale, 2, RATE, 7,
+                                          return_mask=True)
+    _assert_close(out, adc.attention_dropout_fwd_ref(
+        q, k, v, bias, scale, 2, RATE, mask), dtype, "dropout fwd")
+    _, k2, v2, bias2, _ = _inputs((1, 5, core_lk + 1, 2, d), dtype,
+                                  cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        adc.attention_dropout_fwd(q, k2, v2, bias2, 0.1, 2, RATE, 7)
     # backward kernels: the largest Lk at Lq = 128 (at least 128 for every D)
     lk = _max_lk(attention_cuda.bwd_smem_bytes, 128, d)
     assert lk >= 128
-    q, k, v, bias, g = _inputs((1, 128, lk, 2, d), "float32", cuda_device)
-    got = attention_cuda.attention_bwd(q, k, v, bias, g, d ** -0.5, 2)
-    ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, d ** -0.5, 2)
+    q, k, v, bias, g = _inputs((1, 128, lk, 2, d), dtype, cuda_device)
+    got = attention_cuda.attention_bwd(q, k, v, bias, g, scale, 2)
+    ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, 2)
     for a, r in zip(got[:3], ref[:3]):
-        _assert_close(a, r, "float32", "bwd at the largest Lk")
-    got = adc.attention_dropout_bwd(q, k, v, bias, g, d ** -0.5, 2, RATE, 7)
+        _assert_close(a, r, dtype, "bwd at the largest Lk")
+    got = adc.attention_dropout_bwd(q, k, v, bias, g, scale, 2, RATE, 7)
     keep = adc.keep_mask(7, (1, 2, 128, lk), RATE, device=cuda_device)
-    ref = adc.attention_dropout_bwd_ref(q, k, v, bias, g, d ** -0.5, 2, RATE,
+    ref = adc.attention_dropout_bwd_ref(q, k, v, bias, g, scale, 2, RATE,
                                         keep)
     for a, r in zip(got, ref):
-        _assert_close(a, r, "float32", "dropout bwd at the largest Lk")
-    _, k2, v2, bias2, _ = _inputs((1, 128, lk + 1, 2, d), "float32",
+        _assert_close(a, r, dtype, "dropout bwd at the largest Lk")
+    _, k2, v2, bias2, _ = _inputs((1, 128, lk + 1, 2, d), dtype,
                                   cuda_device)
     for fn in (lambda: attention_cuda.attention_bwd(q, k2, v2, bias2, g, 0.1,
                                                     2),
@@ -278,7 +356,8 @@ def test_head_major_kernels_match_twins(cuda_device, dtype, shape):
 def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
     """For one seed rows 5-8 and rows 1-4 drop the same probabilities and
     agree on the same operands: outputs and gradients within the twins'
-    tolerance, the same dropped set."""
+    tolerance, the same dropped set; row 7 equal to row 1 bit for bit (one
+    body, two addressings)."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
 
     b, lq, lk, h, d = shape
@@ -287,9 +366,10 @@ def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
     seed, scale = 4242, d ** -0.5
     nat = lambda x: x.permute(1, 2, 0, 3).reshape(  # noqa: E731
         x.shape[1], x.shape[2], h * d)
-    _assert_close(nat(ahm.attention_head_major_fwd(hq, hk, hv, bias, scale)),
-                  attention_cuda.attention_fwd(q, k, v, bias, scale, h),
-                  dtype, "row 7 vs row 1")
+    hout = nat(ahm.attention_head_major_fwd(hq, hk, hv, bias, scale))
+    nout = attention_cuda.attention_fwd(q, k, v, bias, scale, h)
+    _assert_close(hout, nout, dtype, "row 7 vs row 1")
+    assert torch.equal(hout, nout)
     hgrads = ahm.attention_head_major_bwd(hq, hk, hv, bias, hg, scale, True)
     ngrads = attention_cuda.attention_bwd(q, k, v, bias, g, scale, h, True)
     for a, r in zip(hgrads[:3], ngrads[:3]):

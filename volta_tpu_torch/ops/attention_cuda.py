@@ -5,7 +5,9 @@ wrappers, their plain twins and the autograd Function over them.
 Ports of the TPU kernels behind ``pallas_fused_attention_nat``
 (volta_tpu/ops/pallas_attention.py:670-775): ``_attn_kernel_nat_bh``, the
 no-dropout joint attention on the natural [B, L, H·D] layout, and
-``_attn_bwd_kernel_nat_bh``, its backward. ``attention_fwd`` and
+``_attn_bwd_kernel_nat_bh``, its backward. The forward runs one of two
+block bodies by dtype (``fwd_body``): the tensor-core body for bf16, the
+CUDA-core body for fp32. ``attention_fwd`` and
 ``attention_bwd`` launch the kernels for CUDA tensors and raise on anything
 they do not take; for CPU tensors they run ``attention_fwd_ref`` and
 ``attention_bwd_ref``, the same functions in plain PyTorch. There is no
@@ -24,9 +26,16 @@ from . import LAUNCHES, _build
 from .attention import acc_dtype, attention_out, attention_probs
 
 HEAD_DIMS = (16, 32, 64, 128)
-ROWS_PER_BLOCK = 16  # kRowsPerBlock in csrc/attention_common.cuh
+# the CUDA-core bodies (csrc/attention_common.cuh): the float32 forward,
+# every dropout forward and every backward
+ROWS_PER_BLOCK = 16  # kRowsPerBlock, the forward's query tile
 KEY_CHUNK = 32  # kKeyChunk
 BWD_ROWS = 32  # kBwdRows
+# the tensor-core body of the bf16 no-dropout forward (rows 1 and 7,
+# csrc/attention_fwd_tc.cuh)
+TC_ROWS_PER_BLOCK = 64  # kTcRows, its query tile
+TC_KEYS = 64  # kTcKeys, its key tile
+TC_PAD = 8  # kTcPad, bf16 of padding a shared row
 MAX_SMEM_BYTES = 232448  # a Hopper block's dynamic shared memory limit
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,11 +93,32 @@ def attention_bwd_ref(q, k, v, bias, g, scale, heads, want_db=True):
 
 
 def smem_bytes(lk: int, head_dim: int) -> int:
-    """Dynamic shared memory of one forward block, all float32: its query
-    rows, a chunk of K rows (stride D + 1) and its rows of Lk scores (padded
-    to 4)."""
+    """Dynamic shared memory of one block of the CUDA-core forward body, all
+    float32: its query rows, a chunk of K rows (stride D + 1) and its rows
+    of Lk scores (padded to 4)."""
     return 4 * (ROWS_PER_BLOCK * (head_dim + (lk + 3) // 4 * 4)
                 + KEY_CHUNK * (head_dim + 1))
+
+
+def tc_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core forward body:
+    a Q tile and a K and a V key tile in bf16 (rows padded by TC_PAD) and a
+    key tile's float32 bias. It does not grow with Lk."""
+    return (2 * (TC_ROWS_PER_BLOCK + 2 * TC_KEYS) * (head_dim + TC_PAD)
+            + 4 * TC_KEYS)
+
+
+def fwd_body(dtype):
+    """The body the no-dropout forward kernels (rows 1 and 7) run for
+    operands of ``dtype``, as their launchers choose it: the tensor-core
+    body for bf16, the CUDA-core body otherwise (float32; ``check`` refuses
+    other dtypes), whose tensor-core counterpart would compute in TF32.
+    Returns (name, query rows per block, shared memory (lq, lk, d) ->
+    bytes)."""
+    if dtype == torch.bfloat16:
+        return ("tensor-core", TC_ROWS_PER_BLOCK,
+                lambda lq, lk, d: tc_smem_bytes(d))
+    return "CUDA-core", ROWS_PER_BLOCK, lambda lq, lk, d: smem_bytes(lk, d)
 
 
 def bwd_smem_bytes(lq: int, lk: int, head_dim: int) -> int:
@@ -99,14 +129,29 @@ def bwd_smem_bytes(lq: int, lk: int, head_dim: int) -> int:
                 + 2 * BWD_ROWS * head_dim + 2 * KEY_CHUNK * (head_dim + 1))
 
 
-def check(name, q, k, v, bias, heads, smem, g=None, head_major=False):
+def check_extent(name, b, lq, lk, heads, d, smem, rows=ROWS_PER_BLOCK):
+    """Raise ValueError where a body cannot take the lengths: its grid (B·H
+    blocks by query tiles of ``rows``) or its shared memory (``smem(lq, lk,
+    d)`` bytes a block) over the card's limits."""
+    if min(b, lq, lk) < 1 or b * heads >= 2**31 or -(-lq // rows) > 65535:
+        raise ValueError(f"{name}: B={b}, Lq={lq}, Lk={lk}, H={heads} is "
+                         "outside the kernel's grid")
+    need = smem(lq, lk, d)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: Lq={lq}, Lk={lk} at D={d} "
+                         f"needs {need} bytes of shared memory per block, "
+                         f"over the limit of {MAX_SMEM_BYTES}")
+
+
+def check(name, q, k, v, bias, heads, smem, g=None, head_major=False,
+          rows=ROWS_PER_BLOCK):
     """Raise ValueError for anything the kernels do not take: operands off
     one CUDA device, dtypes other than bf16/fp32 (bias fp32), shapes that do
     not agree (q [B,Lq,H·D], k/v [B,Lk,H·D] with ``heads`` heads or, with
     ``head_major``, q [H,B,Lq,D], k/v [H,B,Lk,D]; bias [B,Lk]; g like q),
-    head dims outside HEAD_DIMS, grids or shared memory (``smem(lq, lk,
-    head_dim)`` bytes) over the card's limits, non-contiguous or unaligned
-    operands."""
+    head dims outside HEAD_DIMS, lengths past the body's grid (query tiles
+    of ``rows``) or shared memory (``smem(lq, lk, head_dim)`` bytes) by
+    ``check_extent``, non-contiguous or unaligned operands."""
     ops = [("q", q), ("k", k), ("v", v)] + ([("g", g)] if g is not None
                                             else [])
     if not (q.is_cuda and all(t.device == q.device for _, t in ops)
@@ -144,15 +189,7 @@ def check(name, q, k, v, bias, heads, smem, g=None, head_major=False):
                          f"{tuple(bias.shape)} do not agree")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} must be one of {HEAD_DIMS}")
-    if min(b, lq, lk) < 1 or b * heads >= 2**31 \
-            or -(-lq // ROWS_PER_BLOCK) > 65535:
-        raise ValueError(f"{name}: B={b}, Lq={lq}, Lk={lk}, H={heads} is "
-                         "outside the kernel's grid")
-    need = smem(lq, lk, d)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: Lq={lq}, Lk={lk} at D={d} "
-                         f"needs {need} bytes of shared memory per block, "
-                         f"over the limit of {MAX_SMEM_BYTES}")
+    check_extent(name, b, lq, lk, heads, d, smem, rows)
     for n, t in ops + [("bias", bias)]:
         if not t.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous")
@@ -184,11 +221,13 @@ def _kernels():
 def attention_fwd(q, k, v, bias, scale, heads):
     """softmax(q·kᵀ·scale + bias)·v per head on the natural layout:
     q [B,Lq,H·D], k/v [B,Lk,H·D] (bf16 or fp32), bias [B,Lk] float32 ->
-    [B,Lq,H·D] in q.dtype. CPU tensors take the plain twin."""
+    [B,Lq,H·D] in q.dtype. bf16 runs the tensor-core body, fp32 the
+    CUDA-core body (``fwd_body``); either raises ValueError on what it
+    cannot take. CPU tensors take the plain twin."""
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, bias, scale, heads)
-    check("attention_fwd", q, k, v, bias, heads,
-          lambda lq, lk, d: smem_bytes(lk, d))
+    _, rows, smem = fwd_body(q.dtype)
+    check("attention_fwd", q, k, v, bias, heads, smem, rows=rows)
     fn, _, err_str = _kernels()
     b, lq, hd = q.shape
     out = torch.empty_like(q)

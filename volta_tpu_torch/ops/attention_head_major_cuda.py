@@ -37,7 +37,7 @@ from torch.autograd.function import once_differentiable
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_smem_bytes,
-                             check, launch_error, smem_bytes)
+                             check, fwd_body, launch_error, smem_bytes)
 from .attention_dropout_cuda import _check_rate, keep_mask, keep_scale
 from .hash import dropout_threshold
 
@@ -122,7 +122,8 @@ def _kernels():
     return fwd, bwd, dfwd, dbwd, lib.volta_cuda_error_string
 
 
-def _fwd_smem(lq, lk, d):
+def _dropout_fwd_smem(lq, lk, d):
+    """Row 5 runs the CUDA-core forward body in both dtypes."""
     return smem_bytes(lk, d)
 
 
@@ -146,12 +147,15 @@ def _stream(x):
 
 def attention_head_major_fwd(q, k, v, bias, scale):
     """softmax(q·kᵀ·scale + bias)·v per head: q [H,B,Lq,D], k/v [H,B,Lk,D]
-    (bf16 or fp32), bias [B,Lk] float32 -> [H,B,Lq,D] in q.dtype. CPU
+    (bf16 or fp32), bias [B,Lk] float32 -> [H,B,Lq,D] in q.dtype. The body
+    of row 1 by dtype (``fwd_body``: tensor cores for bf16, CUDA cores for
+    fp32) with head-major addressing, so it computes row 1's bits. CPU
     tensors take the plain twin."""
     if q.device.type == "cpu":
         return attention_head_major_fwd_ref(q, k, v, bias, scale)
-    check("attention_head_major_fwd", q, k, v, bias, None, _fwd_smem,
-          head_major=True)
+    _, rows, smem = fwd_body(q.dtype)
+    check("attention_head_major_fwd", q, k, v, bias, None, smem,
+          head_major=True, rows=rows)
     h, b, lq, lk, d = _dims(q, k)
     out = torch.empty_like(q)
     _launch("attention_head_major_fwd", 0, q.data_ptr(), k.data_ptr(),
@@ -193,8 +197,8 @@ def attention_dropout_head_major_fwd(q, k, v, bias, scale, rate, seed):
         keep = keep_mask_head_major(seed, (h, b, lq, lk), rate)
         return attention_dropout_head_major_fwd_ref(q, k, v, bias, scale,
                                                     rate, keep), keep
-    check("attention_dropout_head_major_fwd", q, k, v, bias, None, _fwd_smem,
-          head_major=True)
+    check("attention_dropout_head_major_fwd", q, k, v, bias, None,
+          _dropout_fwd_smem, head_major=True)
     out = torch.empty_like(q)
     mask = torch.empty((h, b, lq, lk), dtype=torch.uint8, device=q.device)
     _launch("attention_dropout_head_major_fwd", 2, q.data_ptr(),

@@ -1,7 +1,9 @@
 // Device code shared by the port's attention kernels (sm_90a).
 //
-// One forward block body (attention_fwd_block) serves the no-dropout
-// forward (attention_fwd.cu) and the dropout forward (attention_dropout.cu);
+// One CUDA-core forward block body (attention_fwd_block) serves the
+// no-dropout forward in float32 (attention_fwd.cu; in bf16 it runs the
+// tensor-core body of attention_fwd_tc.cuh) and the dropout forwards
+// (attention_dropout.cu, attention_head_major.cu) in both dtypes;
 // one backward block body (attention_bwd_block) serves the no-dropout
 // backward (attention_bwd.cu) and the dropout backward
 // (attention_dropout.cu). The dropout flavour is a template flag, so the

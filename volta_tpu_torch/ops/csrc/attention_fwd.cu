@@ -12,51 +12,45 @@
 // head h is columns h*D .. (h+1)*D (the natural projection layout, so no
 // transposes around the call). bias is [B, Lk] float32.
 //
-// What bounds it on this card: at the serving shape (L = 60, D = 64) one
-// (b, h) pair holds 60x60 scores and 2x60x64 K/V values, far too little to
-// fill a tensor-core tile, and its 4*L*L*D flops are small beside its
-// bytes. The floor is bytes: q, k, v read once and out written once, 94 MB
-// at B = 256, 28 us at 3.35 TB/s. This CUDA-core design takes 0.32 ms there
-// (NVIDIA H100 80GB HBM3, 700 W): it is bound by the issue and latency of
-// its shared-memory and FMA loops, not by device memory.
+// What bounds it on this card: bytes. At the serving shape (B = 256,
+// L = 60, H = 12, D = 64) q, k, v read once and out written once are 94 MB,
+// 28 us at 3.35 TB/s; the 2.8 GFLOP of Q Kᵀ and P V take 2.9 us at the
+// tensor cores' bf16 rate.
 //
-// The block design (attention_fwd_block in attention_common.cuh, shared
-// with the dropout forward): one block per (b, h) pair and 16 query rows,
-// 4 warps of 4 rows; K staged through shared memory 32 keys at a time,
-// scores kept in shared memory, V read coalesced for PV. Lk = 563 at
-// D = 128 needs 61 KB of shared memory, above the 48 KB default, which the
-// launcher raises. wgmma/TMA tiling is later work.
+// Two block bodies, chosen by dtype at compile time (attention_fwd_body):
+// - bf16, the serving path: the tensor-core body (attention_fwd_tc.cuh).
+//   One block per (b, h) pair and 64 query rows, so K and V are read once
+//   per pair at L = 60; Q, K, V staged as bf16 by cp.async, Q Kᵀ and P V by
+//   mma.sync with ldmatrix fragments, the exact softmax in registers, two
+//   passes over 64-key tiles where Lk > 64. Shared memory does not grow
+//   with Lk. It takes 0.038 ms at the serving shape (NVIDIA H100 80GB
+//   HBM3, 700 W, chip_smoke.py phase 3), 0.74 of the byte floor's rate and
+//   less than half of F.scaled_dot_product_attention's 0.083 ms. What holds
+//   it from the floor: a block loads, computes and stores in turn, so only
+//   the four blocks an SM holds overlap one another's loads; a persistent
+//   block that streams (b, h) pairs through a ring of stages is the next
+//   step (wgmma and TMA would not shorten so small a product).
+// - float32: the CUDA-core body (attention_fwd_block in
+//   attention_common.cuh), because the tensor cores would compute float32
+//   in TF32: one block per (b, h) pair and 16 query rows, 4 warps of 4
+//   rows; K staged through shared memory 32 keys at a time in float32,
+//   scores kept in shared memory, V read coalesced for PV. It is bound by
+//   the issue rate and latency of those loops (0.32 ms at the serving shape
+//   in bf16 on an H100 80GB HBM3 at 700 W, 11x the byte floor, before bf16
+//   moved to the tensor cores). Lk = 563 at D = 128 needs 61 KB of shared
+//   memory, above the 48 KB default, which the launcher raises.
 
-#include "attention_common.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, (kFwdMinBlocks<T, D>))
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, int Lq, int Lk, int H, float scale,
-                     int lk_pad) {
-  attention_fwd_block<T, D, false, false>(q, k, v, bias, out, Lq, Lk, H,
-                                          scale, lk_pad, Dropout{0u, 0u, 0.f},
-                                          nullptr);
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* out, int B, int Lq, int Lk, int H,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D>(Lk);
-  auto kern = attention_fwd_kernel<T, D>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>(B) * H,
-                  (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), Lq, Lk, H, scale, (Lk + 3) & ~3);
-  return cudaGetLastError();
+                     T* __restrict__ out, int Lq, int Lk, int H,
+                     float scale) {
+  attention_fwd_body<T, D, false>(q, k, v, bias, out, Lq, Lk, H, scale);
 }
 
 template <typename T>
@@ -64,7 +58,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, void* out, int B, int Lq, int Lk,
                      int H, int D, float scale, cudaStream_t stream) {
   VOLTA_SWITCH_HEAD_DIM(
-      D, return launch<T, kD>(q, k, v, bias, out, B, Lq, Lk, H, scale, stream))
+      D, return launch_fwd_body<T, kD>(attention_fwd_kernel<T, kD>, q, k, v,
+                                       bias, out, B, Lq, Lk, H, scale,
+                                       stream))
 }
 
 }  // namespace

@@ -35,16 +35,20 @@
 // same in half the bytes (11.1 MB at B = 256, L = 60, H = 12), and the
 // backward reads them instead of replaying the hash, as the TPU's does.
 //
-// The blocks are those of rows 1-4 (attention_common.cuh) with the
-// head-major addressing (HeadLayout<true>): a head's rows are D elements
-// apart instead of H·D, so a block's K, V, q and g rows are one contiguous
-// run each. They are bound like rows 1-4, by the instruction rate and
-// latency of their CUDA-core loops, not by device memory: at B = 256,
-// L = 60, H = 12, D = 64 in bf16 the forward's byte floor is 28 us and the
-// backward's 49 us (the mask adds 3.3 us to each), and rows 7, 8, 5 and 6
-// take 0.240, 0.506, 0.286 and 0.529 ms on an H100 (NVIDIA H100 80GB
-// HBM3, 700 W, chip_smoke.py), a quarter less than rows 1, 2 and 4 on the
-// natural layout with the same loops.
+// The blocks are those of rows 1-4 with the head-major addressing
+// (HeadLayout<true>): a head's rows are D elements apart instead of H·D, so
+// a block's K, V, q and g rows are one contiguous run each. Row 7 runs row
+// 1's body (attention_fwd_body): in bf16 the tensor-core body of
+// attention_fwd_tc.cuh, which computes row 1's bits, in float32 the
+// CUDA-core body. At B = 256, L = 60, H = 12, D = 64 in bf16 the forward's
+// byte floor is 28 us, and row 7 takes 0.040 ms, as row 1 takes 0.038 (it
+// took 0.240 ms on the CUDA-core body). Rows 8, 5 and 6 keep the CUDA-core
+// bodies of attention_common.cuh, bound like rows 2-4 by the instruction
+// rate and latency of their loops, not by device memory: the backward's
+// floor is 49 us (the mask adds 3.3 us to rows 5 and 6), and they take
+// 0.504, 0.286 and 0.528 ms (all NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py phase 5): rows 8 and 6 a quarter less than rows 2 and 4
+// on the natural layout with the same loops, row 5 about as row 3.
 //
 // Row 9's hidden masks. The TPU kernel draws them from its PRNG as
 // [H, B, Lq, D] bf16 and transposes them to the [B, Lq, H·D] layout of the
@@ -58,21 +62,21 @@
 // masks add 2·B·Lq·H·D bytes to row 5's writes (23.6 MB at B = 256,
 // L = 60, H = 12, D = 64: 7 us at 3.35 TB/s).
 
-#include "attention_common.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
+// Row 7: the body of row 1 (attention_fwd_body: tensor cores for bf16, the
+// CUDA-core body for float32) with the head-major addressing.
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, (kFwdMinBlocks<T, D>))
 attention_head_major_fwd_kernel(const T* __restrict__ q,
                                 const T* __restrict__ k,
                                 const T* __restrict__ v,
                                 const float* __restrict__ bias,
                                 T* __restrict__ out, int Lq, int Lk, int H,
-                                float scale, int lk_pad) {
-  attention_fwd_block<T, D, false, true>(q, k, v, bias, out, Lq, Lk, H, scale,
-                                         lk_pad, Dropout{0u, 0u, 0.f},
-                                         nullptr);
+                                float scale) {
+  attention_fwd_body<T, D, true>(q, k, v, bias, out, Lq, Lk, H, scale);
 }
 
 template <typename T, int D>
@@ -170,14 +174,18 @@ attention_dropout_head_major_bwd_kernel(const T* __restrict__ q,
                                         mask);
 }
 
-// The forwards: grid (B * H, query tiles of kRowsPerBlock), as rows 1 and 3.
-// With hidden (row 9) hm[0] and hm[1] receive the hidden masks.
+// The forwards: grid (B * H, query tiles), as rows 1 and 3: row 7 with the
+// tile of its body (launch_fwd_body), rows 5 and 9 with kRowsPerBlock. With
+// hidden (row 9) hm[0] and hm[1] receive the hidden masks.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* out, void* mask, void* const* hm,
                        int B, int Lq, int Lk, int H, float scale,
                        const Dropout* drop, const HiddenDropout* hidden,
                        cudaStream_t stream) {
+  if (hidden == nullptr && drop == nullptr)
+    return launch_fwd_body<T, D>(attention_head_major_fwd_kernel<T, D>, q, k,
+                                 v, bias, out, B, Lq, Lk, H, scale, stream);
   const size_t smem = fwd_smem_bytes<D>(Lk);
   const dim3 grid(static_cast<unsigned>(B) * H,
                   (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
@@ -192,14 +200,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
         static_cast<T*>(out), static_cast<uint8_t*>(mask),
         static_cast<uint8_t*>(hm[0]), static_cast<uint8_t*>(hm[1]), Lq, Lk, H,
         scale, lk_pad, *drop, *hidden);
-  } else if (drop == nullptr) {
-    auto kern = attention_head_major_fwd_kernel<T, D>;
-    const cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<T*>(out), Lq, Lk, H, scale, lk_pad);
   } else {
     auto kern = attention_dropout_head_major_fwd_kernel<T, D>;
     const cudaError_t e = allow_smem(kern, smem);

@@ -1,6 +1,6 @@
 // Device helpers shared by every kernel of the port (sm_90a): float
-// conversions, 16-byte vector loads and stores, warp reductions, the
-// dropout hash and the shared-memory opt-in.
+// conversions, 16-byte vector loads and stores, warp reductions, the bf16
+// tensor-core product, the dropout hash and the shared-memory opt-in.
 //
 // The dropout hash lives here alone, so the attention kernels
 // (attention_common.cuh) and the fused residual-LayerNorm kernels
@@ -83,6 +83,18 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// d += a . b on the tensor cores: one m16n8k16 product of bf16 fragments,
+// accumulated in float32 (the PTX ISA's fragment layouts).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // murmur3 finalizer, as volta_tpu/models/layers.py:_fmix32
