@@ -26,19 +26,25 @@ and each of which prints its seconds:
    bound;
 4. kernels 2-4 (attention backward, dropout attention forward and
    backward) vs their twins at the serving shape in bf16 and fp32 and at
-   odd shapes (Lq != Lk, Lq < 8, D = 16 and 128): dq/dk/dv/db and the
-   dropout output within two bf16 ulps of the largest value (fp32 1e-5
-   relative), the dropout mask bit-equal to the twin's, its keep fraction
-   0.9 +- 0.005 at b256; times of each kernel and twin at (a), kernel 2
-   beside SDPA's forward + backward;
+   odd shapes (Lq != Lk, Lq < 8, D = 16 and 128), kernel 2 also in bf16 at
+   the tensor-core backward's tile edges (Lq and Lk at 63, 64, 65, 128)
+   with one batch row whose keys are all padded but one: dq/dk/dv/db and
+   the dropout output within two bf16 ulps of the largest value (fp32 1e-5
+   relative), kernel 2's bf16 dq/dk/dv at (a) and the tile edges no more
+   than SPLIT_RATIO times as far from the float64 recipe as the twin's
+   (which a single bf16 rounding of P and dS exceeds), the dropout mask
+   bit-equal to the twin's, its keep fraction
+   0.9 +- 0.005 at b256; device times (``kernel_ms``) of each kernel and
+   twin at (a), kernel 2 beside SDPA's forward + backward;
 5. kernels 5-8 (the head-major dropout forward and backward, forward and
    backward) vs their twins at the shapes and tolerances of phase 4: row
    5's [H,B,Lq,Lk] mask bit-equal to the twin's, keep fraction 0.9 +-
    0.005 at b256, rows 5-6 vs rows 3-4 on the same operands and seed (the
-   same dropped set, outputs and gradients within the tolerance), row 7
-   bit-equal to row 1 on the same operands there and at phase 3's tile
-   edges in bf16 (where it is also held to its twin); device times at (a),
-   SDPA beside rows 7 (forward) and 8 (forward + backward);
+   same dropped set, outputs and gradients within the tolerance), rows 7
+   and 8 bit-equal to rows 1 and 2 on the same operands there (both
+   dtypes) and at phases 3's and 4's tile edges in bf16 (where they are
+   also held to their twins); device times at (a), SDPA beside rows 7
+   (forward) and 8 (forward + backward);
 6. kernels 10-13 (LayerNorm forward and backward, fused dropout + residual
    + LayerNorm forward and backward) vs their twins at the b256 train shape
    (15360 rows of 768) in bf16 and fp32, at 7 and 1000 rows and at the
@@ -116,13 +122,18 @@ and each of which prints its seconds:
     with the mask flags off (the same seed draws the same masks): the
     losses within 1e-5 relative, every parameter within 2% of the step's
     largest update, the exact launches of each kernel, and whether the
-    match is bit-exact;
+    match is bit-exact; then the gradients of one dropout-free b256 bf16
+    batch, natural and head-major, with the kernels (rows 1-2 or 7-8 on
+    the tensor cores) against the twins: within twice (at least 5e-2) the
+    twins' distance from the twins with the attention's sums in float64;
 14. train-step throughput at b256 bf16, inputs on the card (forward,
     backward, clip, AdamW), with the kernels and with the twins, then with
-    the LayerNorm kernels on and off, then head-major vs natural, then each
+    the LayerNorm kernels on and off, then head-major vs natural, then the
+    dropout-free step (rows 1-2, 7-8) head-major vs natural, then each
     hidden-mask flag on vs off, and the peak memory of each; with
     ``--profile`` the device time of a step by kernel, without and with the
-    LayerNorm kernels, head-major, and with each hidden-mask flag;
+    LayerNorm kernels, head-major, dropout-free natural and head-major, and
+    with each hidden-mask flag;
 15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
@@ -156,6 +167,21 @@ LOGIT_TOL_FP32 = 1e-4
 # most AGREE_SLACK more flipped answers
 NOISE_FACTOR = 2.0
 AGREE_SLACK = 4
+# the floor of the limit on the bf16 dropout-free gradients against the
+# twins' (phase 13), the largest relative L2 distance of a parameter's
+# gradient (grad_distance): the bf16 rounding of 12 layers lets two
+# summation orders differ by 5.6e-2 at b256 (the twins vs the twins with
+# float64 attention sums 5.620e-2, the tensor-core kernels vs the twins
+# 5.581e-2, both at bert.embeddings.feat_dense.weight on an H100 80GB HBM3
+# at 700 W); the kernels are held to NOISE_FACTOR times the former
+GRAD_TOL = 5e-2
+# the bf16 backward's mean distance from the float64 recipe, over the twin's
+# (split_ratio, phase 4): P and dS enter the kernel's products as bf16 hi +
+# lo halves, so its float32 values are the twin's up to the order of the
+# sums and both round alike; one bf16 rounding of P and dS, as
+# flash-attention kernels do, adds an error of the size of the output's own
+# rounding
+SPLIT_RATIO = 1.05
 STEP_TOL = 0.02
 RATE = 0.1
 EPS = 1e-12
@@ -165,6 +191,9 @@ ODD = [(2, 9, 33, 4, 16), (3, 5, 37, 2, 64), (2, 17, 70, 2, 128)]
 # Lq and Lk at 63, 64, 65 and 128, and 563 keys (the longest task sequence)
 EDGES = [(4, 63, 65, 12, 64), (4, 64, 64, 12, 128), (4, 65, 128, 12, 16),
          (4, 128, 63, 12, 32), (4, 65, 563, 12, 64)]
+# the bf16 tensor-core backward's tile edges (64-row query and key tiles):
+# Lq and Lk at 63, 64, 65 and 128
+BWD_EDGES = EDGES[:4] + [(4, 128, 128, 12, 64)]
 TRAIN_ROWS = (15360, 768)  # the b256 train shape: 256 x 60 rows of 768
 LN_SHAPES = [(TRAIN_ROWS, "bfloat16"), (TRAIN_ROWS, "float32"),
              ((7, 768), "bfloat16"), ((1000, 768), "float32"),
@@ -417,9 +446,38 @@ def close(got, ref, dtype, what):
     return err
 
 
+def split_ratio(got, q, k, v, bias, g, scale, h, shape):
+    """The largest over dq, dk, dv of mean|got - R64| / mean|twin - R64|:
+    R64 the backward recipe in float64 on the same bf16 operands, twin the
+    plain twin (float32, then rounded to bf16), got kernel 2's. Near 1
+    where the kernel's float32 values are the recipe's, as with P and dS in
+    hi + lo halves; raises past SPLIT_RATIO, which one bf16 rounding of P
+    and dS exceeds."""
+    from volta_tpu_torch.ops import attention_cuda as ac
+
+    heads = lambda x: x.view(x.shape[0], x.shape[1], h, -1)  # noqa: E731
+    exact = ac.attention_bwd_math(*(heads(x.double()) for x in (q, k, v)),
+                                  bias.double(), heads(g.double()), scale)
+    twin = ac.attention_bwd_ref(q, k, v, bias, g, scale, h, want_db=False)
+    ratio = max(float((a.double() - r.reshape(a.shape)).abs().mean()
+                      / (t.double() - r.reshape(a.shape)).abs().mean())
+                for a, t, r in zip(got[:3], twin[:3], exact[:3]))
+    print(f"kernel 2 at {shape} bfloat16: mean distance from the float64 "
+          f"recipe {ratio:.4f} x the twin's (limit {SPLIT_RATIO})",
+          flush=True)
+    if ratio > SPLIT_RATIO:
+        raise RuntimeError(f"kernel 2 at {shape} is {ratio:.4f} x as far "
+                           "from the float64 recipe as the twin: P or dS "
+                           "rounded before its product")
+    return ratio
+
+
 def check_train_kernels():
-    """Phase 4: kernels 2-4 against their twins; their times at (a), and
-    SDPA's forward + backward beside kernel 2."""
+    """Phase 4: kernels 2-4 against their twins, kernel 2 also at the bf16
+    tensor-core backward's tile edges with one batch row whose keys are all
+    padded but one, and in bf16 against the float64 recipe there and at
+    (a) (``split_ratio``); their times at (a) (``kernel_ms``), and SDPA's
+    forward + backward beside kernel 2."""
     import torch
     import torch.nn.functional as F
 
@@ -469,6 +527,20 @@ def check_train_kernels():
                 if dt == "bfloat16":
                     report = {n: {"max_abs_err": e} for n, e in errs.items()}
                     args = (q, k, v, bias, g, scale, h, seed)
+                    split_ratio(got, q, k, v, bias, g, scale, h, shape)
+    for i, (b, lq, lk, h, d) in enumerate(BWD_EDGES):
+        q, k, v, bias = attention_inputs(b, lq, lk, h, d, torch.bfloat16,
+                                         500 + i)
+        bias[0, 1:] = -10000.0
+        g = torch.randn_like(q)
+        got = ac.attention_bwd(q, k, v, bias, g, d ** -0.5, h, want_db=True)
+        torch.cuda.synchronize()
+        ref = ac.attention_bwd_ref(q, k, v, bias, g, d ** -0.5, h)
+        err = max(close(a, r, "bfloat16", f"kernel 2 {n} at {BWD_EDGES[i]}")
+                  for n, a, r in zip("q k v b".split(), got, ref))
+        print(f"kernel 2 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: max "
+              f"abs diff vs twin {err:.3e}", flush=True)
+        split_ratio(got, q, k, v, bias, g, d ** -0.5, h, BWD_EDGES[i])
     q, k, v, bias, g, scale, h, seed = args
     b, lq, lk, d = q.shape[0], q.shape[1], k.shape[1], q.shape[2] // h
     shape = (b, h, lq, lk)
@@ -490,9 +562,9 @@ def check_train_kernels():
                 q, k, v, bias, g, scale, h, RATE,
                 adc.keep_mask(seed, shape, RATE, device="cuda")))}
     for name, (kern, plain) in pairs.items():
-        ms = cuda_ms(kern, iters=50)
-        plain_ms = cuda_ms(plain, iters=50)
-        ms2 = cuda_ms(kern, iters=50)
+        ms = kernel_ms(kern, iters=50)
+        plain_ms = kernel_ms(plain, iters=50)
+        ms2 = kernel_ms(kern, iters=50)
         report[name].update(
             ms=(ms + ms2) / 2, plain_ms=plain_ms, library_ms=None,
             bound=attention_bound(b, lq, lk, h, d, 2,
@@ -505,12 +577,14 @@ def check_train_kernels():
     sq, sk, sv, mask = sdpa_operands(q, k, v, bias, h)
     leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
     sg = g.view(b, lq, h, d).transpose(1, 2)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+    lib_ms = kernel_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, attn_mask=mask), leaves, sg),
         iters=50)
-    report["attention_bwd"]["library_ms"] = lib_ms
+    row2 = report["attention_bwd"]
+    row2["library_ms"] = lib_ms
     print(f"attention_bwd library yardstick: SDPA forward + backward "
-          f"{lib_ms:.4f} ms", flush=True)
+          f"{lib_ms:.4f} ms; kernel 2 at {row2['bound'][0] / row2['ms']:.3f} "
+          "of its bound", flush=True)
     return report
 
 
@@ -528,10 +602,11 @@ def natural(x):
 
 def check_head_major_kernels():
     """Phase 5: kernels 5-8 against their twins at the shapes of phase 4;
-    rows 5-6 against rows 3-4 for one seed on the same operands; row 7
-    equal to row 1 bit for bit there and, in bf16, at the tile edges of
-    phase 3, where it is also held to its twin; their times at (a), SDPA
-    beside rows 7 and 8."""
+    rows 5-6 against rows 3-4 for one seed on the same operands; rows 7 and
+    8 equal to rows 1 and 2 bit for bit there (row 8's summed bias
+    gradient within float32 rounding) and, in bf16, at the tile edges of
+    phases 3 and 4, where they are also held to their twins; their times at
+    (a), SDPA beside rows 7 and 8."""
     import torch
     import torch.nn.functional as F
 
@@ -543,6 +618,16 @@ def check_head_major_kernels():
         if not torch.equal(natural(out),
                            ac.attention_fwd(q3, k3, v3, bias, scale, h)):
             raise RuntimeError(f"row 7 differs from row 1 at {what}")
+
+    def same_as_row_2(got, q3, k3, v3, bias, g3, scale, h, what):
+        nat = ac.attention_bwd(q3, k3, v3, bias, g3, scale, h, want_db=True)
+        if not all(torch.equal(natural(a), r)
+                   for a, r in zip(got[:3], nat[:3])):
+            raise RuntimeError(f"row 8 differs from row 2 at {what}")
+        db = float((got[3].sum(0) - nat[3]).abs().max())
+        if db > 1e-5 * max(1.0, float(nat[3].abs().max())):
+            raise RuntimeError(f"row 8's bias gradient differs from row 2's "
+                               f"by {db:.3e} at {what}")
 
     report = {}
     for i, shape in enumerate([SERVING] + ODD):
@@ -566,6 +651,8 @@ def check_head_major_kernels():
                                              RATE, seed)
             torch.cuda.synchronize()
             same_as_row_1(out, q3, k3, v3, bias, scale, h, f"{shape} {dt}")
+            same_as_row_2(got, q3, k3, v3, bias, g3, scale, h,
+                          f"{shape} {dt}")
             keep = ahm.keep_mask_head_major(seed, (h, b, lq, lk), RATE,
                                             device="cuda")
             if not torch.equal(mask, keep):
@@ -598,8 +685,9 @@ def check_head_major_kernels():
                   "max abs diff vs twins "
                   + " / ".join(f"{e:.3e}" for e in errs.values())
                   + f", mask bit-equal to the twin's and to kernel 3's, "
-                  f"kernels 5-6 vs 3-4 {cross:.3e}, kernel 7 bit-equal to "
-                  f"kernel 1, keep fraction {frac:.5f}", flush=True)
+                  f"kernels 5-6 vs 3-4 {cross:.3e}, kernels 7 and 8 "
+                  f"bit-equal to kernels 1 and 2, keep fraction {frac:.5f}",
+                  flush=True)
             if shape == SERVING:
                 if abs(frac - (1 - RATE)) > 0.005:
                     raise RuntimeError(f"row-5 keep fraction {frac} at b256")
@@ -619,6 +707,22 @@ def check_head_major_kernels():
         same_as_row_1(out, q3, k3, v3, bias, d ** -0.5, h, EDGES[i])
         print(f"kernel 7 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: max "
               f"abs diff vs twin {err:.3e}, bit-equal to kernel 1",
+              flush=True)
+    for i, (b, lq, lk, h, d) in enumerate(BWD_EDGES):
+        q3, k3, v3, bias = attention_inputs(b, lq, lk, h, d, torch.bfloat16,
+                                            600 + i)
+        bias[0, 1:] = -10000.0
+        g3 = torch.randn_like(q3)
+        q, k, v, g = (head_major(x, h) for x in (q3, k3, v3, g3))
+        got = ahm.attention_head_major_bwd(q, k, v, bias, g, d ** -0.5,
+                                           want_db=True)
+        torch.cuda.synchronize()
+        ref = ahm.attention_head_major_bwd_ref(q, k, v, bias, g, d ** -0.5)
+        err = max(close(a, r, "bfloat16", f"kernel 8 {n} at {BWD_EDGES[i]}")
+                  for n, a, r in zip(("dq", "dk", "dv", "db_part"), got, ref))
+        same_as_row_2(got, q3, k3, v3, bias, g3, d ** -0.5, h, BWD_EDGES[i])
+        print(f"kernel 8 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: max "
+              f"abs diff vs twin {err:.3e}, bit-equal to kernel 2",
               flush=True)
     q, k, v, bias, g, mask, scale, h, seed = args
     _, b, lq, d = q.shape
@@ -669,12 +773,13 @@ def check_head_major_kernels():
     report["attention_head_major_bwd"]["library_ms"] = kernel_ms(
         lambda: torch.autograd.grad(F.scaled_dot_product_attention(
             *leaves, attn_mask=smask), leaves, g.transpose(0, 1)), iters=50)
-    row7 = report["attention_head_major_fwd"]
+    row7, row8 = (report[n] for n in ("attention_head_major_fwd",
+                                       "attention_head_major_bwd"))
     print("rows 7 / 8 library yardstick: SDPA forward "
           f"{row7['library_ms']:.4f} ms, forward + backward "
-          f"{report['attention_head_major_bwd']['library_ms']:.4f} ms; row "
-          f"7 at {row7['bound'][0] / row7['ms']:.3f} of its bound",
-          flush=True)
+          f"{row8['library_ms']:.4f} ms; rows 7 and 8 at "
+          f"{row7['bound'][0] / row7['ms']:.3f} and "
+          f"{row8['bound'][0] / row8['ms']:.3f} of their bounds", flush=True)
     return report
 
 
@@ -1110,11 +1215,12 @@ def twins():
 
 @contextlib.contextmanager
 def float64_attention():
-    """Rows 1 and 7's function with its sums in float64 in their wrappers'
-    places: the probabilities and the output still rounded to the operand
-    dtype, only the sums taken otherwise. Inside ``twins()`` this is the
-    plain model with other sums, whose distance from the twins is the noise
-    floor that the kernels' own summation order is held to."""
+    """Rows 1, 2, 7 and 8's functions with their sums in float64 in their
+    wrappers' places: the forward's probabilities and every output still
+    rounded to the operand dtype, only the sums taken otherwise. Inside
+    ``twins()`` this is the plain model with other sums, whose distance
+    from the twins is the noise floor that the kernels' own summation order
+    is held to."""
     import torch
 
     from volta_tpu_torch.ops import attention_cuda as ac
@@ -1135,8 +1241,22 @@ def float64_attention():
         out = fwd(*(natural(x) for x in (q, k, v)), bias, scale, h)
         return head_major(out, h)
 
+    def bwd(q, k, v, bias, g, scale, heads, want_db=False):
+        dq, dk, dv, db = ac.attention_bwd_ref(
+            *(x.double() for x in (q, k, v, bias, g)), scale, heads, want_db)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None if db is None else db.float())
+
+    def bwd_head_major(q, k, v, bias, g, scale, want_db=False):
+        dq, dk, dv, db = ahm.attention_head_major_bwd_ref(
+            *(x.double() for x in (q, k, v, bias, g)), scale, want_db)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None if db is None else db.float())
+
     swaps = [(ac, "attention_fwd", fwd),
-             (ahm, "attention_head_major_fwd", fwd_head_major)]
+             (ahm, "attention_head_major_fwd", fwd_head_major),
+             (ac, "attention_bwd", bwd),
+             (ahm, "attention_head_major_bwd", bwd_head_major)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1511,13 +1631,13 @@ def train_argv(root, data_dir, yml, config, epochs, tag):
             "--device", "cuda", "--seed", "0"]
 
 
-def run_train(root, data_dir, yml, flagged, hm, fuse, pmask):
+def run_train(root, data_dir, yml, flagged, hm, fuse, pmask, free, hm_free):
     """Phase 12: the train CLI at full width, with the config's dropout, with
     its dropout rates set to 0, with the LayerNorm flags on (``flagged``),
     with the head-major attention (``hm``) with the config's dropout and
-    with none, and with each hidden-mask flag (``fuse``:
-    fuse_hidden_dropout, ``pmask``: use_pallas_dropout_mask). Returns the
-    launches of each run."""
+    with none (``free``, ``hm_free``: the configs with dropout rates 0), and
+    with each hidden-mask flag (``fuse``: fuse_hidden_dropout, ``pmask``:
+    use_pallas_dropout_mask). Returns the launches of each run."""
     import torch
 
     from volta_tpu_torch import train_task
@@ -1525,13 +1645,6 @@ def run_train(root, data_dir, yml, flagged, hm, fuse, pmask):
     from volta_tpu_torch.ops import LAUNCHES, reset_launches
     from volta_tpu_torch.task_utils import load_dataset, load_task_config
 
-    free = write_config(root, "ctrl_uniter_base_dropout_free.json",
-                        attention_probs_dropout_prob=0.0,
-                        hidden_dropout_prob=0.0)
-    hm_free = write_config(root, "ctrl_uniter_base_head_major_dropout_free"
-                           ".json", attn_natural_layout=False,
-                           attention_probs_dropout_prob=0.0,
-                           hidden_dropout_prob=0.0)
     cfg = VoltaConfig.from_json_file(CONFIG)
     out = {}
     for tag, config, epochs in (("dropout", CONFIG, 2),
@@ -1710,6 +1823,94 @@ def compare_steps(task_cfg, batch_np, flagged, hm, fuse, pmask, masks_ln):
         torch.cuda.empty_cache()
 
 
+def grads(model, task_cfg, batch):
+    """The loss and every parameter's gradient (float32) of one batch: the
+    train step's forward, task loss and backward, without the optimizer."""
+    from volta_tpu_torch.task_utils import process_batch, \
+        task_loss_and_score
+
+    tc = task_cfg["TASK1"]
+    inputs, info = process_batch(tc, batch)
+    pred = model(inputs["input_ids"], inputs["image_feat"],
+                 inputs["image_loc"], "TASK1", inputs["token_type_ids"],
+                 inputs["attention_mask"], inputs["image_attention_mask"],
+                 dropout_seed=0)
+    loss, _ = task_loss_and_score(tc["type"], pred, batch, info,
+                                  tc.get("loss", "BCEWithLogitLoss"))
+    loss.backward()
+    out = {n: p.grad.float().clone() for n, p in model.named_parameters()
+           if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), out
+
+
+def grad_distance(a, b):
+    """The distance of gradients a from b: the largest over parameters of
+    ||a - b|| / ||b|| (L2 norms), and that parameter. The key projections'
+    biases are left out: their gradient is 0 up to rounding (a constant
+    added to every score of a row leaves its softmax unchanged), so their
+    relative distance measures nothing but rounding."""
+    return max((float((a[n] - b[n]).norm() / b[n].norm()), n) for n in b
+               if not n.endswith("key.bias") and float(b[n].norm()) > 0)
+
+
+def compare_bf16_grads(task_cfg, batch_np, hm):
+    """Phase 13, bf16: the gradients of one dropout-free b256 batch with the
+    kernels (rows 1-2 natural, 7-8 head-major: the tensor-core bodies)
+    against the twins, within NOISE_FACTOR times the twins' distance from
+    the twins with the attention's sums in float64 (forward and backward),
+    at least GRAD_TOL; the head-major model's distance from the natural
+    layout's, with the kernels and with the twins."""
+    import torch
+
+    from volta_tpu_torch.eval_step import to_device
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.train_step import _widen_wire
+
+    batch = to_device(_widen_wire({k: v for k, v in batch_np.items()
+                                   if isinstance(v, np.ndarray)}), "cuda")
+    for tag, config, want in (
+            ("natural", CONFIG, expect(attention_fwd=12, attention_bwd=12)),
+            ("head-major", hm, expect(attention_head_major_fwd=12,
+                                      attention_head_major_bwd=12))):
+        model = build_model(task_cfg, "bfloat16", config).eval()  # no dropout
+        reset_launches()
+        lk, gk = grads(model, task_cfg, batch)
+        counts = dict(LAUNCHES)
+        if counts != want:
+            raise RuntimeError(f"bf16 {tag} gradients launched {counts}, "
+                               f"expected {want}")
+        with twins():
+            lt, gt = grads(model, task_cfg, batch)
+        with twins(), float64_attention():
+            l64, g64 = grads(model, task_cfg, batch)
+        (noise, nworst), (diff, worst) = (grad_distance(g64, gt),
+                                          grad_distance(gk, gt))
+        tol = max(GRAD_TOL, NOISE_FACTOR * noise)
+        print(f"bf16 gradients b{batch['question'].shape[0]} dropout-free "
+              f"({tag}): kernels vs plain twins {diff:.3e} at {worst} (tol "
+              f"{tol:.3e}; GRAD_TOL {GRAD_TOL:g}), twins vs float64 "
+              f"attention sums {noise:.3e} at {nworst}; loss "
+              f"{lk:.6f} / {lt:.6f} / {l64:.6f}; kernel launches {counts}",
+              flush=True)
+        if not (np.isfinite(lk) and all(bool(torch.isfinite(g).all())
+                                        for g in gk.values())):
+            raise RuntimeError(f"non-finite bf16 {tag} gradients")
+        if diff > tol:
+            raise RuntimeError(f"bf16 {tag} gradients disagree with the "
+                               "plain twins")
+        if tag == "head-major":
+            with natural_layout(model):
+                _, gn = grads(model, task_cfg, batch)
+                with twins():
+                    _, gtn = grads(model, task_cfg, batch)
+            print(f"bf16 gradients dropout-free, head-major vs natural "
+                  f"layout: kernels {grad_distance(gk, gn)}, twins "
+                  f"{grad_distance(gt, gtn)}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
 def step_rates(step, state, batch, routes, power, what):
     """pairs/s of the train step under two named routes in ab_turns, with
     the peak memory of each; returns {name: (median pairs/s, median
@@ -1738,14 +1939,16 @@ def step_rates(step, state, batch, routes, power, what):
 
 
 def train_throughput(task_cfg, batch_np, power, profile, flagged, hm,
-                     fuse, pmask):
+                     hm_free, fuse, pmask):
     """Phase 14: pairs/s of the b256 bf16 train step with the kernels and
     with the twins (LayerNorm kernels off), then with the LayerNorm kernels
     on and off, then the head-major config (``hm``) against the same
-    weights on the natural layout, then each hidden-mask flag (``fuse``,
+    weights on the natural layout, then the dropout-free step (``hm_free``)
+    head-major and natural, then each hidden-mask flag (``fuse``,
     ``pmask``) against the same weights with it off; peak memory; with
     ``profile`` the device time by kernel of the step without and with the
-    LayerNorm kernels, head-major, and with each hidden-mask flag."""
+    LayerNorm kernels, head-major, dropout-free natural and head-major, and
+    with each hidden-mask flag."""
     from volta_tpu_torch.eval_step import to_device
     from volta_tpu_torch.optimization import warmup_linear_schedule
 
@@ -1779,9 +1982,11 @@ def train_throughput(task_cfg, batch_np, power, profile, flagged, hm,
     if profile:
         profile_device(lambda: step(state, batch), rates["head-major"][1],
                        "head-major")
+    del model, state, step
+    rates.update(dropout_free_rates(task_cfg, batch, power, profile,
+                                    hm_free))
     for config, flag in ((fuse, "fuse_hidden_dropout"),
                          (pmask, "use_pallas_dropout_mask")):
-        del model, state, step
         model = build_model(task_cfg, "bfloat16", config).train()
         state, step = new_step(model, task_cfg,
                                warmup_linear_schedule(1e-4, 10, 1000))
@@ -1792,6 +1997,32 @@ def train_throughput(task_cfg, batch_np, power, profile, flagged, hm,
                                 power, "kernels, LN kernels off,"))
         if profile:
             profile_device(lambda: step(state, batch), rates[flag][1], flag)
+        del model, state, step
+    return rates
+
+
+def dropout_free_rates(task_cfg, batch, power, profile, hm_free):
+    """The b256 bf16 train step with dropout 0 (``hm_free``: rows 7-8, and
+    rows 1-2 on the same weights on the natural layout), head-major vs
+    natural in turns; with ``profile`` the device time of each by kernel."""
+    from volta_tpu_torch.optimization import warmup_linear_schedule
+
+    model = build_model(task_cfg, "bfloat16", hm_free).train()
+    state, step = new_step(model, task_cfg,
+                           warmup_linear_schedule(1e-4, 10, 1000))
+    nat = lambda: natural_layout(model)  # noqa: E731
+    rates = step_rates(step, state, batch,
+                       (("head-major dropout-free", contextlib.nullcontext),
+                        ("natural dropout-free", nat)),
+                       power, "kernels, LN kernels off,")
+    if profile:
+        with nat():
+            profile_device(lambda: step(state, batch),
+                           rates["natural dropout-free"][1],
+                           "natural dropout-free")
+        profile_device(lambda: step(state, batch),
+                       rates["head-major dropout-free"][1],
+                       "head-major dropout-free")
     return rates
 
 
@@ -1887,6 +2118,13 @@ def main(argv):
                             fuse_hidden_dropout=True)
         pmask = write_config(root, "ctrl_uniter_base_keep_mask.json",
                              use_pallas_dropout_mask=True)
+        free = write_config(root, "ctrl_uniter_base_dropout_free.json",
+                            attention_probs_dropout_prob=0.0,
+                            hidden_dropout_prob=0.0)
+        hm_free = write_config(
+            root, "ctrl_uniter_base_head_major_dropout_free.json",
+            attn_natural_layout=False, attention_probs_dropout_prob=0.0,
+            hidden_dropout_prob=0.0)
         masks_ln = write_config(
             root, "ctrl_uniter_base_masks_ln_kernels.json",
             fuse_hidden_dropout=True, use_pallas_dropout_mask=True,
@@ -1914,18 +2152,19 @@ def main(argv):
                 layout_check=True)
         with phase("12 train slice"):
             launches, data = run_train(root, data_dir, yml, flagged, hm,
-                                       fuse, pmask)
+                                       fuse, pmask, free, hm_free)
         from volta_tpu_torch.task_utils import load_task_config
 
         task_cfg = load_task_config(yml)
         batch = next(iter(data["train_loader"]))
-        with phase("13 fp32 steps"):
+        with phase("13 fp32 steps, bf16 gradients"):
             compare_steps(task_cfg, batch, flagged, hm, fuse, pmask,
                           masks_ln)
+            compare_bf16_grads(task_cfg, batch, hm)
         with phase("14 train throughput"):
             rates = train_throughput(task_cfg, batch, power,
-                                     "--profile" in argv, flagged, hm, fuse,
-                                     pmask)
+                                     "--profile" in argv, flagged, hm,
+                                     hm_free, fuse, pmask)
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -1945,6 +2184,11 @@ def main(argv):
           f"{hm_rates[(1024, 'natural')]:.1f}, train b256 "
           f"{rates['head-major'][0]:.1f} vs {rates['natural'][0]:.1f} "
           "pairs/s", flush=True)
+    print(f"dropout-free train step b256 [{power}]: natural "
+          f"{rates['natural dropout-free'][0]:.1f} pairs/s "
+          f"({rates['natural dropout-free'][1]:.2f} ms), head-major "
+          f"{rates['head-major dropout-free'][0]:.1f} pairs/s "
+          f"({rates['head-major dropout-free'][1]:.2f} ms)", flush=True)
     for flag in ("fuse_hidden_dropout", "use_pallas_dropout_mask"):
         print(f"{flag} on vs off [{power}]: train b256 "
               f"{rates[flag][0]:.1f} vs {rates[flag + ' off'][0]:.1f} "

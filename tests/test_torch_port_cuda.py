@@ -6,11 +6,11 @@ JAX, so it runs where only PyTorch is installed:
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
 Tolerances: the no-dropout forward output bf16 2e-2 (two bf16 ulps at
-|x| ~ 2; fp32 1e-5); its head-major row equals its natural row bit for bit.
-The backward sums run in another order than the twin's
-einsums, then both round: bf16 within two bf16 ulps of the tensor's largest
-magnitude (2^-6 * max|ref|), fp32 within 1e-5 * max(1, max|ref|). The
-dropout mask is compared bit for bit.
+|x| ~ 2; fp32 1e-5); its head-major row equals its natural row bit for bit,
+and so does the no-dropout backward's. The backward sums run in another
+order than the twin's einsums, then both round: bf16 within two bf16 ulps of
+the tensor's largest magnitude (2^-6 * max|ref|), fp32 within 1e-5 *
+max(1, max|ref|). The dropout mask is compared bit for bit.
 """
 
 import numpy as np
@@ -28,6 +28,9 @@ ODD = [(2, 9, 33, 4, 16), (3, 5, 37, 2, 64), (2, 17, 70, 2, 128),
 # Lq and Lk at 63, 64, 65 and 128, and the longest task sequence (563)
 EDGES = [(2, 63, 65, 3, 64), (2, 64, 64, 3, 128), (2, 65, 128, 2, 16),
          (2, 128, 63, 2, 32), (2, 65, 563, 2, 64), (3, 5, 563, 12, 64)]
+# the tensor-core backward's tile edges (64-row query and key tiles): Lq and
+# Lk at 63, 64, 65 and 128
+BWD_EDGES = EDGES[:4] + [(2, 128, 128, 2, 64), (2, 64, 130, 2, 64)]
 RATE = 0.1
 
 
@@ -121,25 +124,76 @@ def test_tensor_core_forward_matches_twin(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("want_db", [False, True], ids=["no_db", "db"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape", [SERVING] + ODD,
+@pytest.mark.parametrize("shape", [SERVING] + ODD + BWD_EDGES,
                          ids=lambda s: "x".join(map(str, s)))
-def test_bwd_kernel_matches_twin(cuda_device, dtype, shape):
+def test_bwd_kernel_matches_twin(cuda_device, dtype, shape, want_db):
+    """Rows 2 and 8 run the tensor-core body in bf16 and the CUDA-core body
+    in float32: dq, dk, dv (and the bias gradient) within the tolerance of
+    their twins at the serving shape, odd shapes and the tensor-core tile
+    edges, with one batch row whose keys are all padded but one; row 8
+    equal to row 2 bit for bit on the same operands."""
+    from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+
+    body = attention_cuda.bwd_body(getattr(torch, dtype))[0]
+    assert body == ("tensor-core" if dtype == "bfloat16" else "CUDA-core")
     b, lq, lk, h, d = shape
-    q, k, v, bias, g = _inputs(shape, dtype, cuda_device, seed=1)
-    before = LAUNCHES["attention_bwd"]
-    got = attention_cuda.attention_bwd(q, k, v, bias, g, d ** -0.5, h,
-                                       want_db=True)
+    q, k, v, bias, g = _inputs(shape, dtype, cuda_device, seed=12)
+    bias[0, 1:] = -10000.0
+    scale = d ** -0.5
+    names = ("attention_bwd", "attention_head_major_bwd")
+    before = tuple(LAUNCHES[n] for n in names)
+    got = attention_cuda.attention_bwd(q, k, v, bias, g, scale, h, want_db)
+    hq, hk, hv, hg = (_head_major(x, h) for x in (q, k, v, g))
+    hgot = ahm.attention_head_major_bwd(hq, hk, hv, bias, hg, scale, want_db)
     torch.cuda.synchronize()
-    assert LAUNCHES["attention_bwd"] == before + 1
-    ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, d ** -0.5, h)
+    assert tuple(LAUNCHES[n] - c for n, c in zip(names, before)) == (1, 1)
+    ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, h,
+                                           want_db)
     for name, a, r in zip(("dq", "dk", "dv"), got[:3], ref[:3]):
         _assert_close(a, r, dtype, name)
-    # db is float32 in both; its sums follow the operands' rounding
-    _assert_close(got[3], ref[3], "float32" if dtype == "float32"
-                  else "bfloat16", "db")
-    assert attention_cuda.attention_bwd(q, k, v, bias, g, d ** -0.5, h)[3] \
-        is None
+    nat = lambda x: x.permute(1, 2, 0, 3).reshape(  # noqa: E731
+        x.shape[1], x.shape[2], h * d)
+    for a, r in zip(hgot[:3], got[:3]):
+        assert torch.equal(nat(a), r)
+    if want_db:
+        # db is float32 in both; its sums follow the operands' rounding
+        _assert_close(got[3], ref[3], dtype, "db")
+        assert hgot[3].shape == (h, b, lk)
+        _assert_close(hgot[3].sum(0), ref[3], dtype, "row 8 db")
+    else:
+        assert got[3] is None and hgot[3] is None
+
+
+def _split_ratios(got, q, k, v, bias, g, scale, h):
+    """mean|got - R64| / mean|twin - R64| for dq, dk, dv: R64 the backward
+    recipe in float64 on the same bf16 operands, twin the plain twin
+    (float32, then rounded to bf16)."""
+    heads = lambda x: x.view(x.shape[0], x.shape[1], h, -1)  # noqa: E731
+    exact = attention_cuda.attention_bwd_math(
+        *(heads(x.double()) for x in (q, k, v)), bias.double(),
+        heads(g.double()), scale)
+    twin = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, h, False)
+    return [float((a.double() - r.reshape(a.shape)).abs().mean()
+                  / (t.double() - r.reshape(a.shape)).abs().mean())
+            for a, t, r in zip(got[:3], twin[:3], exact[:3])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SERVING, (2, 128, 130, 3, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bwd_products_take_float32_probabilities(cuda_device, shape):
+    """P and dS enter the bf16 backward's products as hi + lo halves, so
+    its dq, dk, dv are as far from the float64 recipe as the twin's (both
+    round the same float32 values), within 5% on the mean; one bf16
+    rounding of P and dS (as flash-attention kernels do) adds an error the
+    size of the outputs' own rounding and reads far above."""
+    b, lq, lk, h, d = shape
+    q, k, v, bias, g = _inputs(shape, "bfloat16", cuda_device, seed=13)
+    got = attention_cuda.attention_bwd(q, k, v, bias, g, d ** -0.5, h)
+    ratios = _split_ratios(got, q, k, v, bias, g, d ** -0.5, h)
+    assert max(ratios) <= 1.05, ratios
 
 
 @pytest.mark.cuda
@@ -183,7 +237,12 @@ def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
     largest Lk its shared memory takes at Lq = 5; bf16 on the tensor-core
     body, whose shared memory does not grow with Lk, four times that Lk, and
     the largest Lq its grid takes. The dropout forward (row 3, CUDA-core in
-    both dtypes) at its largest Lk; the backwards at theirs at Lq = 128."""
+    both dtypes) at its largest Lk. The backwards at Lq = 128: the dropout
+    backward (row 4, CUDA-core in both dtypes) at its largest Lk; the
+    no-dropout backward (rows 2 and 8 share the body) on the CUDA-core body
+    in float32 at the same Lk, on the tensor-core body in bf16, whose shared
+    memory grows with Lq alone, at four times that Lk, and at the largest
+    Lq its shared memory takes."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
 
     scale = d ** -0.5
@@ -238,14 +297,11 @@ def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
                                   cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         adc.attention_dropout_fwd(q, k2, v2, bias2, 0.1, 2, RATE, 7)
-    # backward kernels: the largest Lk at Lq = 128 (at least 128 for every D)
+    # backward kernels: the largest Lk of the CUDA-core body at Lq = 128
+    # (at least 128 for every D)
     lk = _max_lk(attention_cuda.bwd_smem_bytes, 128, d)
     assert lk >= 128
     q, k, v, bias, g = _inputs((1, 128, lk, 2, d), dtype, cuda_device)
-    got = attention_cuda.attention_bwd(q, k, v, bias, g, scale, 2)
-    ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, 2)
-    for a, r in zip(got[:3], ref[:3]):
-        _assert_close(a, r, dtype, "bwd at the largest Lk")
     got = adc.attention_dropout_bwd(q, k, v, bias, g, scale, 2, RATE, 7)
     keep = adc.keep_mask(7, (1, 2, 128, lk), RATE, device=cuda_device)
     ref = adc.attention_dropout_bwd_ref(q, k, v, bias, g, scale, 2, RATE,
@@ -254,12 +310,37 @@ def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
         _assert_close(a, r, dtype, "dropout bwd at the largest Lk")
     _, k2, v2, bias2, _ = _inputs((1, 128, lk + 1, 2, d), dtype,
                                   cuda_device)
-    for fn in (lambda: attention_cuda.attention_bwd(q, k2, v2, bias2, g, 0.1,
-                                                    2),
-               lambda: adc.attention_dropout_bwd(q, k2, v2, bias2, g, 0.1, 2,
-                                                 RATE, 7)):
+    with pytest.raises(ValueError, match="shared memory"):
+        adc.attention_dropout_bwd(q, k2, v2, bias2, g, 0.1, 2, RATE, 7)
+    name, smem = attention_cuda.bwd_body(getattr(torch, dtype))
+    if name == "CUDA-core":
+        assert _max_lk(smem, 128, d) == lk
+        got = attention_cuda.attention_bwd(q, k, v, bias, g, scale, 2)
+        ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, 2)
+        for a, r in zip(got[:3], ref[:3]):
+            _assert_close(a, r, dtype, "bwd at the largest Lk")
         with pytest.raises(ValueError, match="shared memory"):
-            fn()
+            attention_cuda.attention_bwd(q, k2, v2, bias2, g, 0.1, 2)
+        return
+    assert name == "tensor-core"
+    assert smem(128, 4 * lk, d) == smem(128, 1, d) <= \
+        attention_cuda.MAX_SMEM_BYTES
+    q, k, v, bias, g = _inputs((1, 128, 4 * lk, 2, d), dtype, cuda_device)
+    got = attention_cuda.attention_bwd(q, k, v, bias, g, scale, 2)
+    ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, 2)
+    for a, r in zip(got[:3], ref[:3]):
+        _assert_close(a, r, dtype, "bwd at four times the old largest Lk")
+    lq = 64
+    while smem(lq + 64, 3, d) <= attention_cuda.MAX_SMEM_BYTES:
+        lq += 64
+    q, k, v, bias, g = _inputs((1, lq, 3, 1, d), dtype, cuda_device)
+    got = attention_cuda.attention_bwd(q, k, v, bias, g, scale, 1)
+    ref = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, 1)
+    for a, r in zip(got[:3], ref[:3]):
+        _assert_close(a, r, dtype, "bwd at the largest Lq")
+    q2, _, _, _, g2 = _inputs((1, lq + 1, 3, 1, d), dtype, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_cuda.attention_bwd(q2, k, v, bias, g2, scale, 1)
 
 
 @pytest.mark.cuda
@@ -356,8 +437,8 @@ def test_head_major_kernels_match_twins(cuda_device, dtype, shape):
 def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
     """For one seed rows 5-8 and rows 1-4 drop the same probabilities and
     agree on the same operands: outputs and gradients within the twins'
-    tolerance, the same dropped set; row 7 equal to row 1 bit for bit (one
-    body, two addressings)."""
+    tolerance, the same dropped set; rows 7 and 8 equal to rows 1 and 2 bit
+    for bit (one body each, two addressings)."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
 
     b, lq, lk, h, d = shape
@@ -374,6 +455,7 @@ def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
     ngrads = attention_cuda.attention_bwd(q, k, v, bias, g, scale, h, True)
     for a, r in zip(hgrads[:3], ngrads[:3]):
         _assert_close(nat(a), r, dtype, "row 8 vs row 2")
+        assert torch.equal(nat(a), r)  # one body, two addressings
     _assert_close(hgrads[3].sum(0), ngrads[3], dtype, "row 8 vs row 2 db")
     hout, hmask = ahm.attention_dropout_head_major_fwd(hq, hk, hv, bias,
                                                        scale, RATE, seed)

@@ -5,9 +5,9 @@ wrappers, their plain twins and the autograd Function over them.
 Ports of the TPU kernels behind ``pallas_fused_attention_nat``
 (volta_tpu/ops/pallas_attention.py:670-775): ``_attn_kernel_nat_bh``, the
 no-dropout joint attention on the natural [B, L, H·D] layout, and
-``_attn_bwd_kernel_nat_bh``, its backward. The forward runs one of two
-block bodies by dtype (``fwd_body``): the tensor-core body for bf16, the
-CUDA-core body for fp32. ``attention_fwd`` and
+``_attn_bwd_kernel_nat_bh``, its backward. Each runs one of two block
+bodies by dtype (``fwd_body``, ``bwd_body``): the tensor-core body for
+bf16, the CUDA-core body for fp32. ``attention_fwd`` and
 ``attention_bwd`` launch the kernels for CUDA tensors and raise on anything
 they do not take; for CPU tensors they run ``attention_fwd_ref`` and
 ``attention_bwd_ref``, the same functions in plain PyTorch. There is no
@@ -31,10 +31,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 ROWS_PER_BLOCK = 16  # kRowsPerBlock, the forward's query tile
 KEY_CHUNK = 32  # kKeyChunk
 BWD_ROWS = 32  # kBwdRows
-# the tensor-core body of the bf16 no-dropout forward (rows 1 and 7,
-# csrc/attention_fwd_tc.cuh)
-TC_ROWS_PER_BLOCK = 64  # kTcRows, its query tile
-TC_KEYS = 64  # kTcKeys, its key tile
+# the tensor-core bodies of the bf16 no-dropout forward (rows 1 and 7,
+# csrc/attention_fwd_tc.cuh) and backward (rows 2 and 8,
+# csrc/attention_bwd_tc.cuh)
+TC_ROWS_PER_BLOCK = 64  # kTcRows, their query tile
+TC_KEYS = 64  # kTcKeys, their key tile
 TC_PAD = 8  # kTcPad, bf16 of padding a shared row
 MAX_SMEM_BYTES = 232448  # a Hopper block's dynamic shared memory limit
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -127,6 +128,26 @@ def bwd_smem_bytes(lq: int, lk: int, head_dim: int) -> int:
     staged k and v rows (stride D + 1)."""
     return 4 * (2 * ((lq + 3) // 4 * 4) * ((lk + 3) // 4 * 4)
                 + 2 * BWD_ROWS * head_dim + 2 * KEY_CHUNK * (head_dim + 1))
+
+
+def tc_bwd_smem_bytes(lq: int, head_dim: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core backward body:
+    Q, G, K and V tiles in bf16 (rows padded by TC_PAD), a key tile's
+    float32 bias and each query row's softmax max, sum and delta in float32
+    (Lq rounded up to a tile). It does not grow with Lk."""
+    lq_pad = -(-lq // TC_ROWS_PER_BLOCK) * TC_ROWS_PER_BLOCK
+    return (2 * 4 * TC_ROWS_PER_BLOCK * (head_dim + TC_PAD) + 4 * TC_KEYS
+            + 4 * 3 * lq_pad)
+
+
+def bwd_body(dtype):
+    """The body the no-dropout backward kernels (rows 2 and 8) run for
+    operands of ``dtype``, as their launchers choose it: the tensor-core
+    body for bf16, the CUDA-core body otherwise (float32). Returns (name,
+    shared memory (lq, lk, d) -> bytes)."""
+    if dtype == torch.bfloat16:
+        return "tensor-core", lambda lq, lk, d: tc_bwd_smem_bytes(lq, d)
+    return "CUDA-core", bwd_smem_bytes
 
 
 def check_extent(name, b, lq, lk, heads, d, smem, rows=ROWS_PER_BLOCK):
@@ -244,10 +265,11 @@ def attention_fwd(q, k, v, bias, scale, heads):
 def attention_bwd(q, k, v, bias, g, scale, heads, want_db=False):
     """The backward of ``attention_fwd`` for its output cotangent g
     [B,Lq,H·D]: dq, dk, dv in the operand dtype and, with ``want_db``, db
-    [B,Lk] float32 (else None). CPU tensors take the plain twin."""
+    [B,Lk] float32 (else None). bf16 runs the tensor-core body, fp32 the
+    CUDA-core body (``bwd_body``). CPU tensors take the plain twin."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, bias, g, scale, heads, want_db)
-    check("attention_bwd", q, k, v, bias, heads, bwd_smem_bytes, g=g)
+    check("attention_bwd", q, k, v, bias, heads, bwd_body(q.dtype)[1], g=g)
     _, fn, err_str = _kernels()
     b, lq, hd = q.shape
     lk = k.shape[1]

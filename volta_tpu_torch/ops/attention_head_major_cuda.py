@@ -36,8 +36,9 @@ from torch.autograd.function import once_differentiable
 
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
-from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_smem_bytes,
-                             check, fwd_body, launch_error, smem_bytes)
+from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_body,
+                             bwd_smem_bytes, check, fwd_body, launch_error,
+                             smem_bytes)
 from .attention_dropout_cuda import _check_rate, keep_mask, keep_scale
 from .hash import dropout_threshold
 
@@ -168,11 +169,13 @@ def attention_head_major_bwd(q, k, v, bias, g, scale, want_db=False):
     """The backward of ``attention_head_major_fwd`` for its output
     cotangent g [H,B,Lq,D]: dq, dk, dv in the operand dtype and, with
     ``want_db``, the per-head partial sums of the bias gradient [H,B,Lk]
-    float32 (else None). CPU tensors take the plain twin."""
+    float32 (else None). The body of row 2 by dtype (``bwd_body``: tensor
+    cores for bf16, CUDA cores for fp32) with head-major addressing, so it
+    computes row 2's bits. CPU tensors take the plain twin."""
     if q.device.type == "cpu":
         return attention_head_major_bwd_ref(q, k, v, bias, g, scale, want_db)
-    check("attention_head_major_bwd", q, k, v, bias, None, bwd_smem_bytes,
-          g=g, head_major=True)
+    check("attention_head_major_bwd", q, k, v, bias, None,
+          bwd_body(q.dtype)[1], g=g, head_major=True)
     h, b, lq, lk, d = _dims(q, k)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     db_part = torch.empty((h, b, lk), dtype=torch.float32,

@@ -14,53 +14,57 @@
 // its per-head partials the same way). db_part may be null: no bias in the
 // repo needs a gradient, and the wrapper then skips it.
 //
-// What bounds it on this card: at B = 256, L = 60, H = 12, D = 64 in bf16 it
-// must read q, k, v, g (94 MB) and write dq, dk, dv (71 MB), 49 us at
-// 3.35 TB/s, against 5 * 2 * L * L * D flops per (b, h) (7.1 GFLOP), which
-// the CUDA cores retire in ~0.1 ms at their 67 TFLOP/s float32 peak. The
-// design keeps the [L, L] tiles in shared memory (attention_bwd_block in
-// attention_common.cuh): one block of 8 warps per (b, h), S/P and dP/dS as
-// two float32 tiles, q/g staged 32 rows and k/v 32 keys at a time for the
-// two score products, then dq, dk, dv accumulated in registers with lanes
-// splitting D. It is bound by the issue of its FMA and shared-memory loops,
-// like the forward; tensor cores are later work.
+// What bounds it on this card: bytes. At B = 256, L = 60, H = 12, D = 64
+// in bf16 it must read q, k, v, g (94 MB) and write dq, dk, dv (71 MB),
+// 49 us at 3.35 TB/s; its 10 * B * H * L * L * D operations (7.1 GFLOP)
+// take 7 us at the tensor cores' bf16 rate.
 //
-// Shared memory: 2 x Lq x Lk floats of tiles (each length rounded up to 4)
-// + 2 x 32 x D + 2 x 32 x (D + 1) floats of staging: Lq = Lk = 60 at D = 64
-// takes 62 KB; the square limit is 144 at D = 128 and 164 at D = 16.
+// Two block bodies, chosen by dtype at compile time (attention_bwd_body in
+// attention_bwd_tc.cuh):
+// - bf16, the fine-tuning path: the tensor-core body (attention_bwd_tc.cuh).
+//   One block of 4 warps per (b, h) pair; Q, G, K, V staged as bf16 by
+//   cp.async; S and dP by mma.sync, the exact softmax, dq from dS in
+//   registers, then Sᵀ and dPᵀ again with the keys as rows for dk and dv;
+//   P and dS enter their products as bf16 hi + lo halves, so the float32
+//   recipe holds. Shared memory grows with Lq alone (12 bytes a row), so
+//   every length the CUDA-core body took still runs, and longer Lk too.
+//   It takes 0.114 ms at the serving shape (NVIDIA H100 80GB HBM3, 700 W,
+//   chip_smoke.py phase 4), 0.43 of the byte floor's rate, against 0.314 ms
+//   for F.scaled_dot_product_attention's forward + backward, timed alike
+//   (the head-major row 8 took 0.50 ms on the CUDA-core body, timed
+//   alike). The card checks the split itself: the outputs' mean distance
+//   from the recipe in float64 is the plain twin's, where one bf16
+//   rounding of P and dS reads 1.57-1.59 times it (phase 4). What holds it
+//   from the floor is not measured; the suspects: as in the forward, a
+//   block loads, computes and stores in turn with only 3 blocks an SM to
+//   overlap, and its stores are 4 bytes a lane straight from the
+//   accumulators.
+// - float32: the CUDA-core body (attention_bwd_block in
+//   attention_common.cuh), because the tensor cores would compute float32
+//   in TF32: one block of 8 warps per (b, h), S/P and dP/dS as two float32
+//   [Lq, Lk] tiles in shared memory, q/g staged 32 rows and k/v 32 keys at
+//   a time for the two score products, then dq, dk, dv accumulated in
+//   registers with lanes splitting D. It is bound by the issue of its FMA
+//   and shared-memory loops (0.50 ms for row 8 at the serving shape in bf16
+//   before bf16 moved to the tensor cores). Shared memory: 2 x Lq x Lk
+//   floats of tiles (each length rounded up to 4) + 2 x 32 x D + 2 x 32 x
+//   (D + 1) floats of staging: Lq = Lk = 60 at D = 64 takes 62 KB; the square
+//   limit is 144 at D = 128 and 164 at D = 16.
 
-#include "attention_common.cuh"
+#include "attention_bwd_tc.cuh"
 
 namespace {
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+__global__ void __launch_bounds__(kBwdThreads<T>, (kBwdMinBlocks<T, D>))
 attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      const T* __restrict__ g, T* __restrict__ dq,
                      T* __restrict__ dk, T* __restrict__ dv,
                      float* __restrict__ db_part, int Lq, int Lk, int H,
                      float scale) {
-  attention_bwd_block<T, D, false, false>(q, k, v, bias, g, dq, dk, dv,
-                                          db_part, Lq, Lk, H, scale,
-                                          Dropout{0u, 0u, 0.f}, nullptr);
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, const void* g, void* dq, void* dk,
-                   void* dv, void* db_part, int B, int Lq, int Lk, int H,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(Lq, Lk, D);
-  auto kern = attention_bwd_kernel<T, D>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<static_cast<unsigned>(B) * H, kBwdWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<float*>(db_part), Lq, Lk, H, scale);
-  return cudaGetLastError();
+  attention_bwd_body<T, D, false>(q, k, v, bias, g, dq, dk, dv, db_part, Lq,
+                                  Lk, H, scale);
 }
 
 template <typename T>
@@ -69,8 +73,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      void* dv, void* db_part, int B, int Lq, int Lk, int H,
                      int D, float scale, cudaStream_t stream) {
   VOLTA_SWITCH_HEAD_DIM(
-      D, return launch<T, kD>(q, k, v, bias, g, dq, dk, dv, db_part, B, Lq,
-                              Lk, H, scale, stream))
+      D, return launch_bwd_body<T, kD>(attention_bwd_kernel<T, kD>, q, k, v,
+                                       bias, g, dq, dk, dv, db_part, B, Lq,
+                                       Lk, H, scale, stream))
 }
 
 }  // namespace

@@ -1,12 +1,15 @@
 // Device code shared by the port's attention kernels (sm_90a).
 //
 // One CUDA-core forward block body (attention_fwd_block) serves the
-// no-dropout forward in float32 (attention_fwd.cu; in bf16 it runs the
-// tensor-core body of attention_fwd_tc.cuh) and the dropout forwards
-// (attention_dropout.cu, attention_head_major.cu) in both dtypes;
-// one backward block body (attention_bwd_block) serves the no-dropout
-// backward (attention_bwd.cu) and the dropout backward
-// (attention_dropout.cu). The dropout flavour is a template flag, so the
+// no-dropout forward in float32 (rows 1 and 7; in bf16 they run the
+// tensor-core body of attention_fwd_tc.cuh) and the dropout forwards (rows
+// 3, 5 and 9) in both dtypes; one CUDA-core backward block body
+// (attention_bwd_block) serves the no-dropout backward in float32 (rows 2
+// and 8; in bf16 they run the tensor-core body of attention_bwd_tc.cuh)
+// and the dropout backwards (rows 4 and 6) in both dtypes. The rows'
+// kernels are in attention_fwd.cu (1), attention_bwd.cu (2),
+// attention_dropout.cu (3, 4) and attention_head_major.cu (5-9). The
+// dropout flavour is a template flag, so the
 // no-dropout kernels compile without a trace of it. The layout is a template
 // flag too: the natural [B, L, H·D] operands of rows 1-4 or the head-major
 // [H, B, L, D] operands of rows 5-8 (attention_head_major.cu); only the

@@ -61,9 +61,10 @@ constexpr int kTcPad = 8;               // bf16 of padding a shared row
 
 using bf16 = __nv_bfloat16;
 
-// The forward body of operands of type T: the tensor cores for bf16.
+// The body of operands of type T, forward (here) and no-dropout backward
+// (attention_bwd_tc.cuh): the tensor cores for bf16.
 template <typename T>
-constexpr bool kTensorCoreFwd = std::is_same_v<T, bf16>;
+constexpr bool kTensorCore = std::is_same_v<T, bf16>;
 
 // Blocks an SM that a kernel running attention_fwd_body asks the compiler
 // to fit (its __launch_bounds__): 4 for the tensor-core body at D <= 64,
@@ -71,7 +72,7 @@ constexpr bool kTensorCoreFwd = std::is_same_v<T, bf16>;
 // at the serving shape than without the cap; the compiler's choice
 // elsewhere (at D = 128 the cap spills).
 template <typename T, int D>
-constexpr int kFwdMinBlocks = kTensorCoreFwd<T> && D <= 64 ? 4 : 1;
+constexpr int kFwdMinBlocks = kTensorCore<T> && D <= 64 ? 4 : 1;
 
 // Shared memory of one block: Q, K and V tiles of D + kTcPad bf16 a row,
 // and a key tile's bias in float32.
@@ -152,33 +153,54 @@ __device__ __forceinline__ void tc_stage_bias(const float* __restrict__ bb,
     bs[j] = j0 + j < Lk ? bb[j0 + j] : 0.f;
 }
 
-// One key tile's scores of the warp's 16 rows: s[n][e] is row g (+8 for
-// e >= 2), key 8 n + 2 t (+1 for odd e) of the tile, g = lane / 4 and
-// t = lane % 4; scale and bias applied in float32, -inf at keys >= nk.
+// The A fragments of the warp's 16 rows (from row r0) of a staged tile.
+template <int D>
+__device__ __forceinline__ void tc_rows_a(const bf16* tile, int r0, int lane,
+                                          uint32_t (&af)[D / 16][4]) {
+  constexpr int kLd = D + kTcPad;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(af[kk], tile + (r0 + (lane & 15)) * kLd + kk * 16 +
+                            (lane >> 4) * 8);
+}
+
+// acc = A Bᵀ for the warp's 16 rows of A (its fragments af, D wide) and the
+// kTcKeys rows of tile (shared, row-major, D + kTcPad a row): acc[n][e] is
+// row g (+8 for e >= 2) against tile row 8 n + 2 t (+1 for odd e), with
+// g = lane / 4 and t = lane % 4.
+template <int D>
+__device__ __forceinline__ void tc_abt(const uint32_t (&af)[D / 16][4],
+                                       const bf16* tile, int lane,
+                                       float (&acc)[kTcKeys / 8][4]) {
+  constexpr int kLd = D + kTcPad;
+#pragma unroll
+  for (int n = 0; n < kTcKeys / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < kTcKeys / 16; ++np) {
+      // matrices: tile rows 16 np (+8 for the upper two) x d 16 kk (+8 odd)
+      uint32_t bf[4];
+      ldmatrix_x4(bf, tile + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+      const uint32_t b0[2] = {bf[0], bf[1]};
+      const uint32_t b1[2] = {bf[2], bf[3]};
+      mma_bf16(acc[2 * np], af[kk], b0);
+      mma_bf16(acc[2 * np + 1], af[kk], b1);
+    }
+  }
+}
+
+// One key tile's scores of the warp's 16 rows, laid out as tc_abt's acc:
+// scale and bias applied in float32, -inf at keys >= nk.
 template <int D>
 __device__ __forceinline__ void tc_scores(const uint32_t (&qf)[D / 16][4],
                                           const bf16* ks, const float* bs,
                                           int nk, float scale, int lane,
                                           float (&s)[kTcKeys / 8][4]) {
-  constexpr int kLd = D + kTcPad;
-#pragma unroll
-  for (int n = 0; n < kTcKeys / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < kTcKeys / 16; ++np) {
-      // matrices: keys 16 np (+8 for the upper two) x d 16 kk (+8 odd)
-      uint32_t kf[4];
-      ldmatrix_x4(kf, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
-                          kk * 16 + ((lane >> 3) & 1) * 8);
-      const uint32_t b0[2] = {kf[0], kf[1]};
-      const uint32_t b1[2] = {kf[2], kf[3]};
-      mma_bf16(s[2 * np], qf[kk], b0);
-      mma_bf16(s[2 * np + 1], qf[kk], b1);
-    }
-  }
+  tc_abt<D>(qf, ks, lane, s);
   const int t = lane & 3;
 #pragma unroll
   for (int n = 0; n < kTcKeys / 8; ++n) {
@@ -211,6 +233,33 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One key tile of scores s of the rows g and g + 8 into the rows' running
+// max m and sum l (only the sum is rescaled when the max grows; first: the
+// tile is the row's first); s ends as exp(s - m).
+__device__ __forceinline__ void tc_row_stats(float (&s)[kTcKeys / 8][4],
+                                             float (&m)[2], float (&l)[2],
+                                             bool first) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mt = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kTcKeys / 8; ++n)
+      mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    const float mn = fmaxf(m[r], quad_max(mt));
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < kTcKeys / 8; ++n)
+#pragma unroll
+      for (int x = 2 * r; x < 2 * r + 2; ++x) {
+        s[n][x] = expf(s[n][x] - mn);
+        sum += s[n][x];
+      }
+    sum = quad_sum(sum);
+    l[r] = first ? sum : l[r] * expf(m[r] - mn) + sum;
+    m[r] = mn;
+  }
 }
 
 // o += P V for one key tile: p = e / l (times the keep factor of
@@ -305,12 +354,7 @@ __device__ __forceinline__ void attention_fwd_tc_block(
   __syncthreads();
 
   uint32_t qf[D / 16][4];  // the warp's Q rows as A fragments
-  if (active) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldmatrix_x4(qf[kk], qs + (r0 + (lane & 15)) * kLd + kk * 16 +
-                              (lane >> 4) * 8);
-  }
+  if (active) tc_rows_a<D>(qs, r0, lane, qf);
 
   // pass 1: the rows' max and sum of exp over every key tile; s ends as
   // exp(s - m) of the last tile
@@ -329,25 +373,7 @@ __device__ __forceinline__ void attention_fwd_tc_block(
     }
     if (!active) continue;
     tc_scores<D>(qf, ks, bs, Lk - j0, scale, lane, s);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < kTcKeys / 8; ++n)
-        mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      const float mn = fmaxf(m[r], quad_max(mt));
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < kTcKeys / 8; ++n)
-#pragma unroll
-        for (int x = 2 * r; x < 2 * r + 2; ++x) {
-          s[n][x] = expf(s[n][x] - mn);
-          sum += s[n][x];
-        }
-      sum = quad_sum(sum);
-      l[r] = t == 0 ? sum : l[r] * expf(m[r] - mn) + sum;
-      m[r] = mn;
-    }
+    tc_row_stats(s, m, l, t == 0);
   }
 
   float o[D / 8][4];
@@ -414,7 +440,7 @@ __device__ __forceinline__ void attention_fwd_body(
     const float* __restrict__ bias, T* __restrict__ out, int Lq, int Lk,
     int H, float scale) {
   const Dropout none{0u, 0u, 0.f};
-  if constexpr (kTensorCoreFwd<T>)
+  if constexpr (kTensorCore<T>)
     attention_fwd_tc_block<D, kHeadMajor, false>(q, k, v, bias, out, Lq, Lk,
                                                   H, scale, none);
   else
@@ -430,8 +456,8 @@ cudaError_t launch_fwd_body(Kernel kern, const void* q, const void* k,
                             int Lq, int Lk, int H, float scale,
                             cudaStream_t stream) {
   const size_t smem =
-      kTensorCoreFwd<T> ? tc_smem_bytes<D>() : fwd_smem_bytes<D>(Lk);
-  const int rows = kTensorCoreFwd<T> ? kTcRows : kRowsPerBlock;
+      kTensorCore<T> ? tc_smem_bytes<D>() : fwd_smem_bytes<D>(Lk);
+  const int rows = kTensorCore<T> ? kTcRows : kRowsPerBlock;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(B) * H, (Lq + rows - 1) / rows);

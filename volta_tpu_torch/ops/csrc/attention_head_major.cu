@@ -38,18 +38,20 @@
 // The blocks are those of rows 1-4 with the head-major addressing
 // (HeadLayout<true>): a head's rows are D elements apart instead of H·D, so
 // a block's K, V, q and g rows are one contiguous run each. Row 7 runs row
-// 1's body (attention_fwd_body): in bf16 the tensor-core body of
-// attention_fwd_tc.cuh, which computes row 1's bits, in float32 the
-// CUDA-core body. At B = 256, L = 60, H = 12, D = 64 in bf16 the forward's
-// byte floor is 28 us, and row 7 takes 0.040 ms, as row 1 takes 0.038 (it
-// took 0.240 ms on the CUDA-core body). Rows 8, 5 and 6 keep the CUDA-core
-// bodies of attention_common.cuh, bound like rows 2-4 by the instruction
-// rate and latency of their loops, not by device memory: the backward's
-// floor is 49 us (the mask adds 3.3 us to rows 5 and 6), and they take
-// 0.504, 0.286 and 0.528 ms (all NVIDIA H100 80GB HBM3, 700 W,
-// chip_smoke.py phase 5): rows 8 and 6 a quarter less than rows 2 and 4
-// on the natural layout with the same loops, row 5 about as row 3.
-//
+// 1's body (attention_fwd_body) and row 8 row 2's (attention_bwd_body): in
+// bf16 the tensor-core bodies of attention_fwd_tc.cuh and
+// attention_bwd_tc.cuh, which compute rows 1's and 2's bits, in float32
+// the CUDA-core bodies. At B = 256, L = 60, H = 12, D = 64 in bf16 the
+// forward's byte floor is 28 us and the backward's 49 us; row 7 takes
+// 0.040 ms, as row 1 takes 0.038 (0.240 ms on the CUDA-core body), and row
+// 8 takes 0.117 ms, as row 2 takes 0.114 (0.501 ms on the CUDA-core body).
+// Rows 5 and 6 keep the CUDA-core bodies of attention_common.cuh, bound
+// like rows 3-4 by the instruction rate and latency of their loops, not by
+// device memory (the mask adds 3.3 us to their floors): they take 0.286
+// and 0.528 ms (all NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 5),
+// row 6 a quarter less than row 4 on the natural layout with the same
+// loops, row 5 about as row 3.
+
 // Row 9's hidden masks. The TPU kernel draws them from its PRNG as
 // [H, B, Lq, D] bf16 and transposes them to the [B, Lq, H·D] layout of the
 // out-dense output afterwards (pallas_attention.py:796). Here element
@@ -62,7 +64,7 @@
 // masks add 2·B·Lq·H·D bytes to row 5's writes (23.6 MB at B = 256,
 // L = 60, H = 12, D = 64: 7 us at 3.35 TB/s).
 
-#include "attention_fwd_tc.cuh"
+#include "attention_bwd_tc.cuh"
 
 namespace {
 
@@ -79,8 +81,10 @@ attention_head_major_fwd_kernel(const T* __restrict__ q,
   attention_fwd_body<T, D, true>(q, k, v, bias, out, Lq, Lk, H, scale);
 }
 
+// Row 8: the body of row 2 (attention_bwd_body: tensor cores for bf16, the
+// CUDA-core body for float32) with the head-major addressing.
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+__global__ void __launch_bounds__(kBwdThreads<T>, (kBwdMinBlocks<T, D>))
 attention_head_major_bwd_kernel(const T* __restrict__ q,
                                 const T* __restrict__ k,
                                 const T* __restrict__ v,
@@ -89,9 +93,8 @@ attention_head_major_bwd_kernel(const T* __restrict__ q,
                                 T* __restrict__ dk, T* __restrict__ dv,
                                 float* __restrict__ db_part, int Lq, int Lk,
                                 int H, float scale) {
-  attention_bwd_block<T, D, false, true>(q, k, v, bias, g, dq, dk, dv,
-                                         db_part, Lq, Lk, H, scale,
-                                         Dropout{0u, 0u, 0.f}, nullptr);
+  attention_bwd_body<T, D, true>(q, k, v, bias, g, dq, dk, dv, db_part, Lq,
+                                 Lk, H, scale);
 }
 
 template <typename T, int D>
@@ -213,35 +216,29 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The backwards: one block of kBwdWarps warps per (b, h), as rows 2 and 4.
+// The backwards: one block per (b, h), as rows 2 and 4: row 8 with the
+// threads and shared memory of its body (launch_bwd_body), row 6 with
+// kBwdWarps warps.
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* bias, const void* g, const void* mask,
                        void* dq, void* dk, void* dv, void* db_part, int B,
                        int Lq, int Lk, int H, float scale, const Dropout* drop,
                        cudaStream_t stream) {
+  if (drop == nullptr)
+    return launch_bwd_body<T, D>(attention_head_major_bwd_kernel<T, D>, q, k,
+                                 v, bias, g, dq, dk, dv, db_part, B, Lq, Lk,
+                                 H, scale, stream);
   const size_t smem = bwd_smem_bytes(Lq, Lk, D);
-  const unsigned grid = static_cast<unsigned>(B) * H;
-  if (drop == nullptr) {
-    auto kern = attention_head_major_bwd_kernel<T, D>;
-    const cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kBwdWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-        static_cast<T*>(dv), static_cast<float*>(db_part), Lq, Lk, H, scale);
-  } else {
-    auto kern = attention_dropout_head_major_bwd_kernel<T, D>;
-    const cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kBwdWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<const T*>(g), static_cast<const uint8_t*>(mask),
-        static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), Lq,
-        Lk, H, scale, *drop);
-  }
+  auto kern = attention_dropout_head_major_bwd_kernel<T, D>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(B) * H, kBwdWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const T*>(g), static_cast<const uint8_t*>(mask),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), Lq, Lk,
+      H, scale, *drop);
   return cudaGetLastError();
 }
 
