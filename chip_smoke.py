@@ -47,22 +47,25 @@ and each of which prints its seconds:
    (forward) and 8 (forward + backward);
 6. kernels 10-13 (LayerNorm forward and backward, fused dropout + residual
    + LayerNorm forward and backward) vs their twins at the b256 train shape
-   (15360 rows of 768) in bf16 and fp32, at 7 and 1000 rows and at the
-   classifier width 1536: y/dx/do within two bf16 ulps of the largest value
-   (fp32 1e-5 relative), mean/rstd and dscale/dbias within 1e-5 relative
-   (float32 sums in another order), the row-12 mask and od bit-equal to the
-   twin's and the mask to ``hash_dropout``'s zero pattern, keep fraction
-   0.9 +- 0.005; times at the train shape in bf16, rows 10-11 beside the
-   torch LayerNorm forward and backward as the library yardstick; the
-   host time per call of an eval-mode sublayer tail with and without
-   kernel 10;
+   (15360 rows of 768) in bf16 and fp32, at 7 and 1000 rows, at the
+   classifier width 1536, at the b1024 eval shape (61440 rows) and one row
+   past a full wave of row 10's band grid in bf16:
+   y/dx/do within two bf16 ulps of the largest value (fp32 1e-5 relative),
+   mean/rstd and dscale/dbias within 1e-5 relative (float32 sums in
+   another order), kernel 11's dx, dscale and dbias bit-equal over two
+   calls, the row-12 mask and od bit-equal to the twin's and the mask to
+   ``hash_dropout``'s zero pattern, keep fraction 0.9 +- 0.005; device
+   times (``kernel_ms``) in bf16 at the train shape, rows 10-11 also at
+   the eval shape, each in turns with the torch LayerNorm forward or
+   backward as the library yardstick; the host time per call of the
+   wrappers and of an eval-mode sublayer tail with and without kernel 10;
 7. kernels 9 and 14 (the dropout attention that also draws two hidden
    keep masks, and the keep-mask kernel) vs their twins: row 9 at the
    shapes of phase 4 in bf16 and fp32, its output and probability mask
    bit-equal to row 5's for the same seed, its hidden masks bit-equal to
    the twin's hash; row 14 at the train shape and odd ones, bit-equal to
    its twin and to ``hash_dropout``'s zero pattern; keep fractions 0.9 +-
-   0.005 at b256; times at the train shape;
+   0.005 at b256; device times (``kernel_ms``) at the train shape;
 8. kernels 15 and 16 (the probes' wgrad and matmul + bias + gelu) vs their
    twins at the probes' shapes and ragged ones (row 15 within one float32
    rounding per 16 of the summed length, row 16 within two bf16 ulps);
@@ -94,7 +97,8 @@ and each of which prints its seconds:
    and are held as in phase 9, the torch LayerNorm path also counting as
    the twins with other sums; eval
    throughput at b256 and b1024 with the LayerNorm kernels on and off, in
-   turns;
+   turns; with ``--profile`` the device time of the b256 and b1024
+   forwards by kernel with the LayerNorm kernels on;
 11. the eval slice with ``attn_natural_layout: false`` (a copy of the
    config): kernel 7 12 times per batch and no natural kernel, one answer
    per question, logits held to the twins' as in phase 9; one batch
@@ -195,6 +199,10 @@ EDGES = [(4, 63, 65, 12, 64), (4, 64, 64, 12, 128), (4, 65, 128, 12, 16),
 # Lq and Lk at 63, 64, 65 and 128
 BWD_EDGES = EDGES[:4] + [(4, 128, 128, 12, 64)]
 TRAIN_ROWS = (15360, 768)  # the b256 train shape: 256 x 60 rows of 768
+EVAL_ROWS = 61440  # the b1024 eval forward's rows (1024 x 60)
+# rows 10-11 are timed at both: at 15360 rows each bf16 operand is 24 MB and
+# a warm 50 MB L2 can serve part of it, at 61440 (94 MB) it cannot
+LN_TIMED = (TRAIN_ROWS, (EVAL_ROWS, 768))
 LN_SHAPES = [(TRAIN_ROWS, "bfloat16"), (TRAIN_ROWS, "float32"),
              ((7, 768), "bfloat16"), ((1000, 768), "float32"),
              ((256, 1536), "bfloat16")]
@@ -240,7 +248,8 @@ PROBE_ITERS = 3
 KERNEL_FAMILIES = (
     ("attention kernels", ("attention_",)),
     ("LayerNorm kernels (rows 10-11)", ("layer_norm_fwd_kernel",
-                                        "layer_norm_bwd_kernel")),
+                                        "layer_norm_bwd_kernel",
+                                        "layer_norm_bwd_sum_kernel")),
     ("fused residual-LN kernels (rows 12-13)", ("dropout_residual_ln_",)),
     ("keep-mask kernel (row 14)", ("keep_mask_kernel",)),
     ("hash dropout (int64 ops)", ("<long", "long>", "arange")),
@@ -869,9 +878,9 @@ def check_mask_kernels():
             # operations are not counted
             bound(n * dd, 0, "fp32"))}
     for name, (kern, plain, bnd) in pairs.items():
-        ms = cuda_ms(kern, iters=50)
-        plain_ms = cuda_ms(plain, iters=20)
-        ms2 = cuda_ms(kern, iters=50)
+        ms = kernel_ms(kern)
+        plain_ms = kernel_ms(plain, iters=20)
+        ms2 = kernel_ms(kern)
         report[name].update(ms=(ms + ms2) / 2, plain_ms=plain_ms,
                             library_ms=None, bound=bnd)
         print(f"{name} time {(ms + ms2) / 2:.4f} ms (runs {ms:.4f}, "
@@ -997,10 +1006,11 @@ def ln_inputs(n, d, dtype, seed):
 
 
 def check_ln_kernels():
-    """Phase 6: kernels 10-13 against their twins; their times at the
-    train shape in bf16, rows 10-11 beside the torch LayerNorm."""
+    """Phase 6: kernels 10-13 against their twins, dx, dscale and dbias
+    bit-equal over two calls; their times at the train shape in bf16 and
+    rows 10-11's also at the b1024 eval shape, beside the torch LayerNorm
+    (``time_ln_kernels``); the host time of a call through each path."""
     import torch
-    import torch.nn.functional as F
 
     from volta_tpu_torch.models.layers import LayerNorm, hash_dropout
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
@@ -1011,16 +1021,24 @@ def check_ln_kernels():
     # float32 (1e-5 of the largest value): sums in another order
     f32 = "float32"
     report = {}
-    for (n, d), dt in LN_SHAPES:
+    # the b1024 eval shape, and one row past a full wave of row 10's band
+    # grid (every warp one row, then one warp two)
+    edge = ln.full_wave_rows(0, 768, torch.bfloat16) + 1
+    for (n, d), dt in LN_SHAPES + [((EVAL_ROWS, 768), "bfloat16"),
+                                   ((edge, 768), "bfloat16")]:
         x, o, g, w, b = ln_inputs(n, d, dt, seed=n + d)
         seed = 0xBEEF + n
         y, mean, rstd = ln.layer_norm_fwd(x, w, b, EPS)
         dx, dw, db = ln.layer_norm_bwd(g, x, w, mean, rstd)
+        again = ln.layer_norm_bwd(g, x, w, mean, rstd)
         fy, od, fmean, frstd = fr.dropout_residual_ln_fwd(o, x, w, b, seed,
                                                           RATE, EPS)
         fdo, fdx, fdw, fdb = fr.dropout_residual_ln_bwd(g, od, x, w, fmean,
                                                         frstd, seed, RATE)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b2) for a, b2 in zip((dx, dw, db), again)):
+            raise RuntimeError(f"kernel 11 differs from call to call at "
+                               f"{(n, d)} {dt}")
         keep = adc.keep_mask(seed, (n, d), RATE, device="cuda")
         if not torch.equal(od != 0, keep) or not torch.equal(
                 od != 0, hash_dropout(o, seed, RATE) != 0):
@@ -1053,63 +1071,30 @@ def check_ln_kernels():
         frac = float(keep.float().mean())
         print(f"kernels 10-13 n={n} d={d} {dt}: max abs diff vs twins "
               + " / ".join(f"{e:.3e}" for e in errs.values())
-              + f", row-12 mask and od bit-equal, keep fraction {frac:.5f}",
-              flush=True)
+              + ", kernel 11 bit-equal over two calls, row-12 mask and od "
+              f"bit-equal, keep fraction {frac:.5f}", flush=True)
         if (n, d) == TRAIN_ROWS:
             if abs(frac - (1 - RATE)) > 0.005:
                 raise RuntimeError(f"row-12 keep fraction {frac}")
             if dt == "bfloat16":
                 report = {k: {"max_abs_err": e} for k, e in errs.items()}
-                args = (x, o, g, w, b, seed, mean, rstd, od, fmean, frstd)
+        del x, o, g, w, b, y, od, keep
+        torch.cuda.empty_cache()
 
-    x, o, g, w, b, seed, mean, rstd, od, fmean, frstd = args
-    n, d = x.shape
-    keep = lambda: adc.keep_mask(seed, (n, d), RATE, device="cuda")
-    # the yardstick takes weights in x's dtype: cast once, outside the timing
-    w16, b16 = w.to(x.dtype), b.to(x.dtype)
-    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w16, b16, EPS)
-    pairs = {
-        "layer_norm_fwd": (
-            lambda: ln.layer_norm_fwd(x, w, b, EPS),
-            lambda: ln.layer_norm_fwd_ref(x, w, b, EPS),
-            lambda: F.layer_norm(x, (d,), w16, b16, EPS)),
-        "layer_norm_bwd": (
-            lambda: ln.layer_norm_bwd(g, x, w, mean, rstd),
-            lambda: ln.layer_norm_bwd_ref(g, x, w, mean, rstd),
-            lambda: torch.ops.aten.native_layer_norm_backward(
-                g, x, [d], lmean, lrstd, w16, b16, [True, True, True])),
-        "dropout_residual_ln_fwd": (
-            lambda: fr.dropout_residual_ln_fwd(o, x, w, b, seed, RATE, EPS),
-            lambda: fr.dropout_residual_ln_fwd_ref(o, x, w, b, keep(), RATE,
-                                                   EPS),
-            None),
-        "dropout_residual_ln_bwd": (
-            lambda: fr.dropout_residual_ln_bwd(g, od, x, w, fmean, frstd,
-                                               seed, RATE),
-            lambda: fr.dropout_residual_ln_bwd_ref(g, od, x, w, fmean, frstd,
-                                                   keep(), RATE),
-            None)}
-    for name, (kern, plain, lib) in pairs.items():
-        ms = cuda_ms(kern, iters=100)
-        plain_ms = cuda_ms(plain, iters=20)
-        ms2 = cuda_ms(kern, iters=100)
-        lib_ms = cuda_ms(lib, iters=100) if lib is not None else None
-        report[name].update(ms=(ms + ms2) / 2, plain_ms=plain_ms,
-                            library_ms=lib_ms,
-                            bound=row_bound(name, n, d, x.element_size()))
-        print(f"{name} n={n} d={d} bf16 time {(ms + ms2) / 2:.4f} ms (runs "
-              f"{ms:.4f}, {ms2:.4f}), plain twin {plain_ms:.4f} ms"
-              + (" (mask draw included)" if lib is None else
-                 f", torch LayerNorm {lib_ms:.4f} ms")
-              + f", bound {report[name]['bound'][0]:.4f} ms "
-              f"({report[name]['bound'][1]})", flush=True)
+    for k, v in time_ln_kernels().items():
+        report[k].update(v)
     # what an eval-mode sublayer tail LN(o + x) costs the host with and
     # without the LayerNorm kernels: 29 such calls make a forward
+    n, d = TRAIN_ROWS
+    x, o, g, w, b = ln_inputs(n, d, "bfloat16", seed=n + d)
+    mean, rstd = ln.layer_norm_fwd(x, w, b, EPS)[1:]
     mods = {kern: LayerNorm(d, use_kernel=kern).cuda()
             for kern in (True, False)}
     with torch.no_grad():
         host = {"layer_norm_fwd wrapper": host_us(
                     lambda: ln.layer_norm_fwd(x, w, b, EPS)),
+                "layer_norm_bwd wrapper": host_us(
+                    lambda: ln.layer_norm_bwd(g, x, w, mean, rstd)),
                 "tail, LayerNorm kernel": host_us(
                     lambda: mods[True](o, residual=x)),
                 "tail, torch LayerNorm": host_us(
@@ -1117,6 +1102,91 @@ def check_ln_kernels():
     print(f"host time per call, n={n} d={d} bf16: "
           + ", ".join(f"{k} {us:.1f} us" for k, us in host.items()),
           flush=True)
+    return report
+
+
+def time_ln_kernels():
+    """Device times of kernels 10-13 in bf16 by ``kernel_ms`` (100 calls a
+    reading, the card held busy while the host enqueues): rows 10-11 at
+    each of LN_TIMED in turns kernel, torch LayerNorm, torch LayerNorm,
+    kernel; rows 12-13 at the train shape twice; the twins at the train
+    shape. Returns {name: {ms, plain_ms, library_ms, bound, shapes}}, ms
+    and the rest at the train shape, ``shapes`` the readings of rows
+    10-11 at every timed shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
+    from volta_tpu_torch.ops import fused_residual as fr
+    from volta_tpu_torch.ops import layernorm as ln
+
+    report = {}
+    for n, d in LN_TIMED:
+        x, o, g, w, b = ln_inputs(n, d, "bfloat16", seed=n + d)
+        seed = 0xBEEF + n
+        _, mean, rstd = ln.layer_norm_fwd(x, w, b, EPS)
+        _, od, fmean, frstd = fr.dropout_residual_ln_fwd(o, x, w, b, seed,
+                                                         RATE, EPS)
+        keep = lambda: adc.keep_mask(seed, (n, d), RATE, device="cuda")
+        # the yardstick takes weights in x's dtype: cast once, outside the
+        # timing
+        w16, b16 = w.to(x.dtype), b.to(x.dtype)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w16, b16,
+                                                           EPS)
+        pairs = {
+            "layer_norm_fwd": (
+                lambda: ln.layer_norm_fwd(x, w, b, EPS),
+                lambda: ln.layer_norm_fwd_ref(x, w, b, EPS),
+                lambda: F.layer_norm(x, (d,), w16, b16, EPS)),
+            "layer_norm_bwd": (
+                lambda: ln.layer_norm_bwd(g, x, w, mean, rstd),
+                lambda: ln.layer_norm_bwd_ref(g, x, w, mean, rstd),
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    g, x, [d], lmean, lrstd, w16, b16, [True, True, True]))}
+        if (n, d) == TRAIN_ROWS:
+            pairs.update({
+                "dropout_residual_ln_fwd": (
+                    lambda: fr.dropout_residual_ln_fwd(o, x, w, b, seed,
+                                                       RATE, EPS),
+                    lambda: fr.dropout_residual_ln_fwd_ref(
+                        o, x, w, b, keep(), RATE, EPS),
+                    None),
+                "dropout_residual_ln_bwd": (
+                    lambda: fr.dropout_residual_ln_bwd(g, od, x, w, fmean,
+                                                       frstd, seed, RATE),
+                    lambda: fr.dropout_residual_ln_bwd_ref(
+                        g, od, x, w, fmean, frstd, keep(), RATE),
+                    None)})
+        for name, (kern, plain, lib) in pairs.items():
+            if lib is None:
+                ms, ms2, lib_ms = kernel_ms(kern), kernel_ms(kern), None
+            else:
+                ms, lib1, lib2, ms2 = (kernel_ms(f) for f in
+                                       (kern, lib, lib, kern))
+                lib_ms = (lib1 + lib2) / 2
+            bnd = row_bound(name, n, d, x.element_size())
+            t = (ms + ms2) / 2
+            print(f"{name} n={n} d={d} bf16 time {t:.4f} ms (runs {ms:.4f}, "
+                  f"{ms2:.4f})"
+                  + ("" if lib is None else
+                     f", torch LayerNorm {lib_ms:.4f} ms (runs "
+                     f"{lib1:.4f}, {lib2:.4f})")
+                  + f", bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                  f"{bnd[0] / t:.3f} of the bound", flush=True)
+            entry = report.setdefault(name, {"shapes": []})
+            entry["shapes"].append({"n": n, "d": d, "ms": t,
+                                    "library_ms": lib_ms,
+                                    "bound_ms": bnd[0],
+                                    "bound_share": bnd[0] / t})
+            if (n, d) == TRAIN_ROWS:
+                plain_ms = kernel_ms(plain, iters=20)
+                print(f"{name} n={n} d={d} bf16 plain twin {plain_ms:.4f} ms"
+                      + (" (mask draw included)" if lib is None else ""),
+                      flush=True)
+                entry.update(ms=t, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound=bnd)
+        del x, o, g, w, b, od, mean, rstd, fmean, frstd, lmean, lrstd
+        torch.cuda.empty_cache()
     return report
 
 
@@ -2142,7 +2212,7 @@ def main(argv):
                 {"attention_fwd": 12, "layer_norm_fwd": 29},
                 lambda m: (("LN kernels on", contextlib.nullcontext),
                            ("LN kernels off", lambda: ln_kernels_off(m))),
-                ln_flags=True)
+                ln_flags=True, profile="--profile" in argv)
         with phase("11 eval slice, head-major"):
             _, hm_rates = run_slice(
                 root, data_dir, yml, power, hm, "head_major",
@@ -2229,7 +2299,9 @@ def main(argv):
              "bound_ms": results[name]["bound"][0],
              "bound_by": results[name]["bound"][1],
              "bound_share": results[name]["bound"][0] / results[name]["ms"],
-             "library_ms": results[name]["library_ms"]}
+             "library_ms": results[name]["library_ms"],
+             **{k: results[name][k] for k in ("shapes",)
+                if k in results[name]}}
             for name, (src, replaces) in KERNELS.items()]
     print(power, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

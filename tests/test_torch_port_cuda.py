@@ -528,14 +528,30 @@ def _assert_sums_close(got, ref, what):
     assert err <= tol, (what, err, tol)
 
 
+def _ln_rows(shape, dtype):
+    """(n, d) of a LayerNorm case: WAVE_EDGE is one row past a full wave of
+    the forward's band grid on this card (every warp one row), 768 wide."""
+    from volta_tpu_torch.ops import layernorm as ln
+
+    if shape == WAVE_EDGE:
+        return ln.full_wave_rows(0, 768, getattr(torch, dtype)) + 1, 768
+    return shape
+
+
+# the b1024 eval shape and one row past a full wave of the band grid
+WAVE_EDGE = "wave_edge"
+LN_BAND_SHAPES = LN_SHAPES + [(61440, 768), WAVE_EDGE]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape", LN_SHAPES,
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", LN_BAND_SHAPES,
+                         ids=lambda s: s if s == WAVE_EDGE
+                         else "x".join(map(str, s)))
 def test_layer_norm_kernels_match_twins(cuda_device, dtype, shape):
     from volta_tpu_torch.ops import layernorm as ln
 
-    n, d = shape
+    n, d = _ln_rows(shape, dtype)
     x, g, _, w, b = _ln_inputs(n, d, dtype, cuda_device, seed=n + d)
     before = (LAUNCHES["layer_norm_fwd"], LAUNCHES["layer_norm_bwd"])
     y, mean, rstd = ln.layer_norm_fwd(x, w, b, 1e-12)
@@ -551,6 +567,27 @@ def test_layer_norm_kernels_match_twins(cuda_device, dtype, shape):
     _assert_close(dx, rdx, dtype, "dx")
     _assert_sums_close(dw, rdw, "dscale")
     _assert_sums_close(db, rdb, "dbias")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(15360, 768), (61440, 768), (33, 100),
+                                   WAVE_EDGE],
+                         ids=lambda s: s if s == WAVE_EDGE
+                         else "x".join(map(str, s)))
+def test_layer_norm_backward_is_the_same_from_call_to_call(cuda_device,
+                                                           dtype, shape):
+    """No atomics: dx, dscale and dbias are bit-equal over two calls."""
+    from volta_tpu_torch.ops import layernorm as ln
+
+    n, d = _ln_rows(shape, dtype)
+    x, g, _, w, b = _ln_inputs(n, d, dtype, cuda_device, seed=3 * n + d)
+    _, mean, rstd = ln.layer_norm_fwd(x, w, b, 1e-12)
+    first = ln.layer_norm_bwd(g, x, w, mean, rstd)
+    second = ln.layer_norm_bwd(g, x, w, mean, rstd)
+    torch.cuda.synchronize()
+    for name, a, b2 in zip(("dx", "dscale", "dbias"), first, second):
+        assert torch.equal(a, b2), name
 
 
 @pytest.mark.cuda

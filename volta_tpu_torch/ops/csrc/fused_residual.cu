@@ -27,8 +27,8 @@
 // Bound: bytes. At the b256 train shape (n = 15360, d = 768, bf16) the
 // forward reads o and x and writes y and od, 94 MB (28 us at 3.35 TB/s);
 // the backward reads g, od and x and writes do and dx, 118 MB (35 us). The
-// hash costs a few integer ops per element. Row layout and partial sums
-// as in layernorm.cu (rownorm.cuh).
+// hash costs a few integer ops per element. Row layout and partial sums:
+// rownorm.cuh.
 
 #include "rownorm.cuh"
 
@@ -44,7 +44,7 @@ dropout_residual_ln_fwd_kernel(const T* __restrict__ o,
                                float* __restrict__ mean,
                                float* __restrict__ rstd, int n, int d,
                                float eps, int vec, RowDropout drop) {
-  norm_fwd_row<T, kPer, true>(o, x, w, b, y, od, mean, rstd, n, d, eps,
+  norm_fwd_row<T, kPer>(o, x, w, b, y, od, mean, rstd, n, d, eps,
                               vec != 0, drop);
 }
 
@@ -60,7 +60,7 @@ dropout_residual_ln_bwd_kernel(const T* __restrict__ g,
                                float* __restrict__ dw_part,
                                float* __restrict__ db_part, int n, int d,
                                int vec, RowDropout drop) {
-  norm_bwd_rows<T, kPer, true>(g, od, x, w, mean, rstd, d_o, dx, dw_part,
+  norm_bwd_rows<T, kPer>(g, od, x, w, mean, rstd, d_o, dx, dw_part,
                                db_part, n, d, vec != 0, drop);
 }
 

@@ -1,7 +1,9 @@
-// Device code shared by the port's LayerNorm kernels (sm_90a): the plain
-// LayerNorm (layernorm.cu) and the fused dropout + residual + LayerNorm
-// (fused_residual.cu), forward and backward. The residual flavour is a
-// template flag, so the plain kernels compile without a trace of it.
+// Device code of the port's row kernels (sm_90a): the row layout and
+// helpers that every LayerNorm kernel uses (slot_elem, load_row,
+// store_row, row_stats, norm_per_lane), and the bodies of the fused
+// dropout + residual + LayerNorm forward and backward (fused_residual.cu).
+// The plain LayerNorm of layernorm.cu walks bands of rows instead
+// (rowband.cuh); these bodies keep one row per warp.
 //
 // Numerics follow the TPU kernels (volta_tpu/ops/layernorm.py:27-54,
 // volta_tpu/ops/fused_residual.py:40-91): rows of d elements normalised
@@ -130,11 +132,10 @@ __device__ __forceinline__ void row_stats(const float (&v)[kPer], int d,
 }
 
 // ---------------------------------------------------------------- forward
-// One warp per row, kFwdWarps rows a block. Plain (kResidual false):
-// y = LN(x). Residual: od = dropout(o) in float32 (keep ? o * scale : 0),
-// s = od + x in float32, y = LN(s); od is written rounded to T. Both write
-// the row's float32 mean and rstd.
-template <typename T, int kPer, bool kResidual>
+// One warp per row, kFwdWarps rows a block: od = dropout(o) in float32
+// (keep ? o * scale : 0), s = od + x in float32, y = LN(s); od is written
+// rounded to T, and the row's float32 mean and rstd.
+template <typename T, int kPer>
 __device__ __forceinline__ void norm_fwd_row(
     const T* __restrict__ o, const T* __restrict__ x,
     const float* __restrict__ w, const float* __restrict__ b,
@@ -146,22 +147,17 @@ __device__ __forceinline__ void norm_fwd_row(
   if (row >= n) return;
   const size_t base = static_cast<size_t>(row) * d;
   float v[kPer];
-  if constexpr (kResidual) {
-    load_row<T, kPer>(o + base, d, lane, vec, v);
-    if (drop.drop) {
+  load_row<T, kPer>(o + base, d, lane, vec, v);
+  if (drop.drop) {
 #pragma unroll
-      for (int s = 0; s < kPer; ++s) {
-        const uint32_t idx =
-            static_cast<uint32_t>(base + slot_elem<T>(s, lane));
-        v[s] = hash_keep(idx, drop.seed, drop.threshold) ? v[s] * drop.scale
-                                                          : 0.f;
-      }
+    for (int s = 0; s < kPer; ++s) {
+      const uint32_t idx = static_cast<uint32_t>(base + slot_elem<T>(s, lane));
+      v[s] = hash_keep(idx, drop.seed, drop.threshold) ? v[s] * drop.scale
+                                                        : 0.f;
     }
-    store_row<T, kPer>(od + base, d, lane, vec, v);
-    load_row<T, kPer, true>(x + base, d, lane, vec, v);
-  } else {
-    load_row<T, kPer>(x + base, d, lane, vec, v);
   }
+  store_row<T, kPer>(od + base, d, lane, vec, v);
+  load_row<T, kPer, true>(x + base, d, lane, vec, v);
   float mean, rstd;
   row_stats<T, kPer>(v, d, lane, eps, mean, rstd);
 #pragma unroll
@@ -177,13 +173,13 @@ __device__ __forceinline__ void norm_fwd_row(
 }
 
 // --------------------------------------------------------------- backward
-// kBwdRows rows a block, kBwdRowsPerWarp a warp. Plain: the LN VJP of
-// x for the output cotangent g, dx = ds. Residual: s = od + x recomputed
-// from the saved od, dx = ds and do = ds * keep * scale with the keep bit
-// replayed from the hash (never from od != 0: a kept element that was
-// exactly 0 keeps its gradient). Every block writes its [d] partial sums
-// of g * xhat and g to dw_part and db_part (row blockIdx.x).
-template <typename T, int kPer, bool kResidual>
+// kBwdRows rows a block, kBwdRowsPerWarp a warp: s = od + x recomputed
+// from the saved od, the LN VJP ds of s for the output cotangent g, dx =
+// ds and do = ds * keep * scale with the keep bit replayed from the hash
+// (never from od != 0: a kept element that was exactly 0 keeps its
+// gradient). Every block writes its [d] partial sums of g * xhat and g to
+// dw_part and db_part (row blockIdx.x).
+template <typename T, int kPer>
 __device__ __forceinline__ void norm_bwd_rows(
     const T* __restrict__ g, const T* __restrict__ od,
     const T* __restrict__ x, const float* __restrict__ w,
@@ -204,8 +200,7 @@ __device__ __forceinline__ void norm_bwd_rows(
     float gv[kPer], xh[kPer];
     load_row<T, kPer>(g + base, d, lane, vec, gv);
     load_row<T, kPer>(x + base, d, lane, vec, xh);
-    if constexpr (kResidual)
-      load_row<T, kPer, true>(od + base, d, lane, vec, xh);
+    load_row<T, kPer, true>(od + base, d, lane, vec, xh);
     const float mu = mean[row];
     const float rs = rstd[row];
     float m1 = 0.f, m2 = 0.f;
@@ -224,17 +219,14 @@ __device__ __forceinline__ void norm_bwd_rows(
 #pragma unroll
     for (int s = 0; s < kPer; ++s) gv[s] = rs * (gv[s] - m1 - xh[s] * m2);
     store_row<T, kPer>(dx + base, d, lane, vec, gv);
-    if constexpr (kResidual) {
 #pragma unroll
-      for (int s = 0; s < kPer; ++s) {
-        const uint32_t idx =
-            static_cast<uint32_t>(base + slot_elem<T>(s, lane));
-        const bool keep =
-            !drop.drop || hash_keep(idx, drop.seed, drop.threshold);
-        gv[s] = keep ? gv[s] * drop.scale : 0.f;
-      }
-      store_row<T, kPer>(d_o + base, d, lane, vec, gv);
+    for (int s = 0; s < kPer; ++s) {
+      const uint32_t idx = static_cast<uint32_t>(base + slot_elem<T>(s, lane));
+      const bool keep =
+          !drop.drop || hash_keep(idx, drop.seed, drop.threshold);
+      gv[s] = keep ? gv[s] * drop.scale : 0.f;
     }
+    store_row<T, kPer>(d_o + base, d, lane, vec, gv);
   }
 
   // the warps' column sums into shared memory, one warp after another

@@ -32,7 +32,9 @@ from . import LAUNCHES, _build
 from .attention_cuda import DTYPE_CODE, launch_error
 from .attention_dropout_cuda import keep_mask, keep_scale
 from .hash import dropout_threshold
-from .layernorm import LN_EPS, BWD_ROWS, check_rows, ln_rows, ln_rows_vjp
+from .layernorm import LN_EPS, check_rows, ln_rows, ln_rows_vjp
+
+BWD_ROWS = 64  # kBwdRows in csrc/rownorm.cuh: rows per backward block
 
 
 def dropout_residual_ln_fwd_ref(o, x, weight, bias, keep, rate, eps):

@@ -25,7 +25,7 @@ from .attention_cuda import DTYPE_CODE, launch_error
 
 LN_EPS = 1e-12  # TF-style epsilon, inside the square root
 MAX_WIDTH = 4096  # the widest row of the kernels' instances (rownorm.cuh)
-BWD_ROWS = 64  # kBwdRows in csrc/rownorm.cuh: rows per backward block
+BAND_WARPS = 8  # kBandWarps in csrc/rowband.cuh: warps of a band block
 
 
 def ln_rows(s, weight, bias, eps):
@@ -74,7 +74,32 @@ def check_rows(name, rows, vectors, stats=()):
     ``vectors`` [d] float32 and ``stats`` [n] float32, all contiguous on one
     device, with 1 <= n < 2^31 and 1 <= d <= MAX_WIDTH. Returns (n, d, vec)
     where vec says whether 16-byte vector access applies (d a multiple of
-    the vector and every row pointer 16-byte aligned)."""
+    the vector and every row pointer 16-byte aligned). One pass over the
+    operands; ``_refuse`` says what is wrong when it fails."""
+    first = rows[0][1]
+    dev, dtype, shape = first.get_device(), first.dtype, first.shape
+    f32 = torch.float32
+    ok = first.is_cuda and dtype in DTYPE_CODE and len(shape) == 2
+    if ok:
+        n, d = shape
+        ok = 1 <= n < 2**31 and 1 <= d <= MAX_WIDTH and all(
+            t.get_device() == dev and t.dtype == want and t.shape == like
+            and t.is_contiguous()
+            for group, want, like in ((rows, dtype, shape),
+                                      (vectors, f32, (d,)),
+                                      (stats, f32, (n,)))
+            for _, t in group)
+    if not ok:
+        _refuse(name, rows, vectors, stats)
+    vec = d % (16 // first.element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 for _, t in rows)
+    return n, d, int(vec)
+
+
+def _refuse(name, rows, vectors, stats):
+    """The ValueError for operands that ``check_rows`` refuses, naming the
+    first fault in the order: device, dtype, rank, shapes, vectors and
+    statistics, range, contiguity."""
     first = rows[0][1]
     every = list(rows) + list(vectors) + list(stats)
     if not (first.is_cuda and all(t.device == first.device
@@ -105,9 +130,37 @@ def check_rows(name, rows, vectors, stats=()):
     for nm, t in every:
         if not t.is_contiguous():
             raise ValueError(f"{name}: {nm} must be contiguous")
-    per_vec = 16 // first.element_size()
-    vec = d % per_vec == 0 and all(t.data_ptr() % 16 == 0 for _, t in rows)
-    return n, d, int(vec)
+    raise ValueError(f"{name}: operands the kernels do not take")
+
+
+def band_blocks(n, per_card):
+    """Blocks of the band kernels (rows 10-11, csrc/rowband.cuh) for n
+    rows: as many as the card holds at once (``per_card``, the SM count
+    times the blocks an SM holds), but no more than give each of a block's
+    BAND_WARPS warps a row where there are more rows than one block's
+    warps."""
+    return max(1, min(per_card, n // BAND_WARPS))
+
+
+def band_rows(n, blocks):
+    """The band [r0, r1) of rows that each of the grid's blocks *
+    BAND_WARPS warps walks (``band_range`` in csrc/rowband.cuh), in warp
+    order."""
+    warps = blocks * BAND_WARPS
+    return [(w * n // warps, (w + 1) * n // warps) for w in range(warps)]
+
+
+def full_wave_rows(device, d, dtype, backward=False):
+    """The rows at which every warp of the full band grid on CUDA device
+    ``device`` (an index) walks exactly one row, for width d and dtype."""
+    return _per_card(device, d, DTYPE_CODE[dtype], backward) * BAND_WARPS
+
+
+def bwd_workspace(d, blocks):
+    """float32 elements of the backward's workspace: the blocks' partial
+    dscale and dbias [2, blocks, d], then the summed dscale and dbias
+    [2, d]."""
+    return 2 * (blocks + 1) * d
 
 
 @functools.cache
@@ -115,14 +168,32 @@ def _kernels():
     lib = _build.load()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.volta_layer_norm_fwd
-    fwd.argtypes = [P] * 6 + [I, I, F, I, I, I, P]
+    fwd.argtypes = [P] * 6 + [I, I, F, I, I, I, I, P]
     fwd.restype = I
     bwd = lib.volta_layer_norm_bwd
-    bwd.argtypes = [P] * 8 + [I] * 5 + [P]
+    bwd.argtypes = [P] * 7 + [I] * 6 + [P]
     bwd.restype = I
+    lib.volta_layer_norm_blocks_per_sm.argtypes = [I] * 4 + [
+        ctypes.POINTER(I)]
+    lib.volta_layer_norm_blocks_per_sm.restype = I
     lib.volta_cuda_error_string.argtypes = [I]
     lib.volta_cuda_error_string.restype = ctypes.c_char_p
     return fwd, bwd, lib.volta_cuda_error_string
+
+
+@functools.cache
+def _per_card(device, d, code, backward):
+    """Blocks of the forward or backward band kernel that CUDA device
+    ``device`` holds at once for width d and dtype code: its SM count times
+    the blocks an SM holds (the occupancy API), read once."""
+    lib = _build.load()
+    per_sm = ctypes.c_int(0)
+    rc = lib.volta_layer_norm_blocks_per_sm(d, code, int(backward), device,
+                                            ctypes.byref(per_sm))
+    if rc != 0 or per_sm.value < 1:
+        raise launch_error("layer_norm occupancy", rc, _kernels()[2])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * per_sm.value
 
 
 def layer_norm_fwd(x, weight, bias, eps):
@@ -131,16 +202,22 @@ def layer_norm_fwd(x, weight, bias, eps):
     rows' float32 mean and rstd [n]. CPU tensors take the plain twin."""
     if x.device.type == "cpu":
         return layer_norm_fwd_ref(x, weight, bias, eps)
-    n, d, vec = check_rows("layer_norm_fwd", [("x", x)],
-                           [("weight", weight), ("bias", bias)])
+    n, d, vec = check_rows("layer_norm_fwd", (("x", x),),
+                           (("weight", weight), ("bias", bias)))
+    return _launch_fwd(x, weight, bias, eps, n, d, vec)
+
+
+def _launch_fwd(x, weight, bias, eps, n, d, vec):
+    """Row 10's launch on operands that ``check_rows`` took."""
     fn, _, err_str = _kernels()
+    dev, code = x.get_device(), DTYPE_CODE[x.dtype]
+    blocks = band_blocks(n, _per_card(dev, d, code, False))
     y = torch.empty_like(x)
     mean = torch.empty(n, dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), n, d, float(eps), vec,
-            DTYPE_CODE[x.dtype], x.device.index, stream)
+            mean.data_ptr(), rstd.data_ptr(), n, d, eps, vec, blocks, code,
+            dev, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise launch_error("layer_norm_fwd", rc, err_str)
     LAUNCHES["layer_norm_fwd"] += 1
@@ -150,26 +227,34 @@ def layer_norm_fwd(x, weight, bias, eps):
 def layer_norm_bwd(g, x, weight, mean, rstd):
     """The backward of ``layer_norm_fwd`` for the output cotangent g [n, d]
     (x's dtype) from the saved mean and rstd: dx [n, d] in g.dtype, dscale
-    and dbias [d] float32 (per-block partials summed over blocks). CPU
-    tensors take the plain twin."""
+    and dbias [d] float32 (per-block partials summed over blocks in a fixed
+    order, by a second kernel of the same launch). CPU tensors take the
+    plain twin."""
     if x.device.type == "cpu":
         return layer_norm_bwd_ref(g, x, weight, mean, rstd)
-    n, d, vec = check_rows("layer_norm_bwd", [("g", g), ("x", x)],
-                           [("weight", weight)],
-                           [("mean", mean), ("rstd", rstd)])
+    n, d, vec = check_rows("layer_norm_bwd", (("g", g), ("x", x)),
+                           (("weight", weight),),
+                           (("mean", mean), ("rstd", rstd)))
+    return _launch_bwd(g, x, weight, mean, rstd, n, d, vec)
+
+
+def _launch_bwd(g, x, weight, mean, rstd, n, d, vec):
+    """Row 11's launch on operands that ``check_rows`` took: the workspace
+    for the grid's partials is sized from the block count the launch is
+    given."""
     _, fn, err_str = _kernels()
+    dev, code = x.get_device(), DTYPE_CODE[x.dtype]
+    blocks = band_blocks(n, _per_card(dev, d, code, True))
     dx = torch.empty_like(g)
-    parts = torch.empty((2, -(-n // BWD_ROWS), d), dtype=torch.float32,
-                        device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = torch.empty(bwd_workspace(d, blocks), dtype=torch.float32,
+                     device=x.device)
     rc = fn(g.data_ptr(), x.data_ptr(), weight.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-            parts[1].data_ptr(), n, d, vec, DTYPE_CODE[x.dtype],
-            x.device.index, stream)
+            rstd.data_ptr(), dx.data_ptr(), ws.data_ptr(), n, d, vec,
+            blocks, code, dev, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise launch_error("layer_norm_bwd", rc, err_str)
     LAUNCHES["layer_norm_bwd"] += 1
-    dw, db = parts.sum(dim=1)
+    dw, db = ws[2 * blocks * d:].view(2, d)
     return dx, dw, db
 
 
@@ -197,5 +282,13 @@ class FusedLayerNorm(torch.autograd.Function):
 
 def fused_layer_norm(x, weight, bias, eps):
     """TF-style LayerNorm of x over its last axis through the CUDA kernels
-    (``FusedLayerNorm``); output in x.dtype."""
-    return FusedLayerNorm.apply(x, weight, bias, float(eps))
+    (``FusedLayerNorm``); output in x.dtype. Where autograd is off (eval
+    runs under ``torch.inference_mode``) the forward is called without the
+    Function and its bookkeeping, host time that an eval forward pays once
+    for each of its 29 LayerNorms."""
+    if torch.is_grad_enabled():
+        return FusedLayerNorm.apply(x, weight, bias, float(eps))
+    shape = x.shape
+    y = layer_norm_fwd(x.reshape(-1, shape[-1]).contiguous(), weight, bias,
+                       float(eps))[0]
+    return y.view(shape)
