@@ -26,24 +26,25 @@ and each of which prints its seconds:
    bound;
 4. kernels 2-4 (attention backward, dropout attention forward and
    backward) vs their twins at the serving shape in bf16 and fp32 and at
-   odd shapes (Lq != Lk, Lq < 8, D = 16 and 128), kernel 2 also in bf16 at
-   the tensor-core backward's tile edges (Lq and Lk at 63, 64, 65, 128)
-   with one batch row whose keys are all padded but one: dq/dk/dv/db and
-   the dropout output within two bf16 ulps of the largest value (fp32 1e-5
-   relative), kernel 2's bf16 dq/dk/dv at (a) and the tile edges no more
-   than SPLIT_RATIO times as far from the float64 recipe as the twin's
-   (which a single bf16 rounding of P and dS exceeds), the dropout mask
-   bit-equal to the twin's, its keep fraction
-   0.9 +- 0.005 at b256; device times (``kernel_ms``) of each kernel and
-   twin at (a), kernel 2 beside SDPA's forward + backward;
+   odd shapes (Lq != Lk, Lq < 8, D = 16 and 128), kernels 2 and 4 also in
+   bf16 at the tensor-core backward's tile edges (Lq and Lk at 63, 64, 65,
+   128) with one batch row whose keys are all padded but one: dq/dk/dv/db
+   and the dropout output within two bf16 ulps of the largest value (fp32
+   1e-5 relative), kernels 2's and 4's bf16 dq/dk/dv at (a) and the tile
+   edges no more than SPLIT_RATIO times as far from the float64 recipe as
+   the twin's (which a single bf16 rounding of P and dS exceeds), the
+   dropout mask bit-equal to the twin's, its keep fraction 0.9 +- 0.005 at
+   b256; device times (``kernel_ms``) of each kernel and twin at (a) and
+   their shares of the bound, kernel 2 beside SDPA's forward + backward;
 5. kernels 5-8 (the head-major dropout forward and backward, forward and
    backward) vs their twins at the shapes and tolerances of phase 4: row
    5's [H,B,Lq,Lk] mask bit-equal to the twin's, keep fraction 0.9 +-
-   0.005 at b256, rows 5-6 vs rows 3-4 on the same operands and seed (the
-   same dropped set, outputs and gradients within the tolerance), rows 7
-   and 8 bit-equal to rows 1 and 2 on the same operands there (both
-   dtypes) and at phases 3's and 4's tile edges in bf16 (where they are
-   also held to their twins); device times at (a), SDPA beside rows 7
+   0.005 at b256, row 5 vs row 3 on the same operands and seed (the same
+   dropped set, outputs within the tolerance), rows 7, 8 and 6 bit-equal
+   to rows 1, 2 and 4 on the same operands there (both dtypes) and at
+   phases 3's and 4's tile edges in bf16 (where they are also held to
+   their twins, row 6 also to the float64 recipe as in phase 4, and at
+   (a)); device times at (a) and shares of the bound, SDPA beside rows 7
    (forward) and 8 (forward + backward);
 6. kernels 10-13 (LayerNorm forward and backward, fused dropout + residual
    + LayerNorm forward and backward) vs their twins at the b256 train shape
@@ -126,10 +127,12 @@ and each of which prints its seconds:
     with the mask flags off (the same seed draws the same masks): the
     losses within 1e-5 relative, every parameter within 2% of the step's
     largest update, the exact launches of each kernel, and whether the
-    match is bit-exact; then the gradients of one dropout-free b256 bf16
-    batch, natural and head-major, with the kernels (rows 1-2 or 7-8 on
-    the tensor cores) against the twins: within twice (at least 5e-2) the
-    twins' distance from the twins with the attention's sums in float64;
+    match is bit-exact; then the gradients of one b256 bf16 batch,
+    dropout-free (rows 1-2 or 7-8) and with the config's dropout (rows 3-4
+    or 5-6, the twins drawing the same hash masks), natural and
+    head-major, with the kernels (every backward on the tensor cores)
+    against the twins: within twice (at least 5e-2) the twins' distance
+    from the twins with the attention's sums in float64;
 14. train-step throughput at b256 bf16, inputs on the card (forward,
     backward, clip, AdamW), with the kernels and with the twins, then with
     the LayerNorm kernels on and off, then head-major vs natural, then the
@@ -455,38 +458,48 @@ def close(got, ref, dtype, what):
     return err
 
 
-def split_ratio(got, q, k, v, bias, g, scale, h, shape):
+def split_ratio(got, q, k, v, bias, g, scale, h, shape, keep=None,
+                row="kernel 2"):
     """The largest over dq, dk, dv of mean|got - R64| / mean|twin - R64|:
     R64 the backward recipe in float64 on the same bf16 operands, twin the
-    plain twin (float32, then rounded to bf16), got kernel 2's. Near 1
-    where the kernel's float32 values are the recipe's, as with P and dS in
-    hi + lo halves; raises past SPLIT_RATIO, which one bf16 rounding of P
-    and dS exceeds."""
+    plain twin (float32, then rounded to bf16), got the kernel's ([B, L,
+    H·D]); with ``keep`` (the [B,H,Lq,Lk] mask of rows 4 and 6) the dropout
+    recipe and twin. Near 1 where the kernel's float32 values are the
+    recipe's, as with P (P·keep) and dS in hi + lo halves; raises past
+    SPLIT_RATIO, which one bf16 rounding of P and dS exceeds."""
     from volta_tpu_torch.ops import attention_cuda as ac
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
 
     heads = lambda x: x.view(x.shape[0], x.shape[1], h, -1)  # noqa: E731
     exact = ac.attention_bwd_math(*(heads(x.double()) for x in (q, k, v)),
-                                  bias.double(), heads(g.double()), scale)
-    twin = ac.attention_bwd_ref(q, k, v, bias, g, scale, h, want_db=False)
+                                  bias.double(), heads(g.double()), scale,
+                                  keep, adc.keep_scale(RATE))
+    if keep is None:
+        twin = ac.attention_bwd_ref(q, k, v, bias, g, scale, h,
+                                    want_db=False)
+    else:
+        twin = adc.attention_dropout_bwd_ref(q, k, v, bias, g, scale, h,
+                                             RATE, keep)
     ratio = max(float((a.double() - r.reshape(a.shape)).abs().mean()
                       / (t.double() - r.reshape(a.shape)).abs().mean())
                 for a, t, r in zip(got[:3], twin[:3], exact[:3]))
-    print(f"kernel 2 at {shape} bfloat16: mean distance from the float64 "
+    print(f"{row} at {shape} bfloat16: mean distance from the float64 "
           f"recipe {ratio:.4f} x the twin's (limit {SPLIT_RATIO})",
           flush=True)
     if ratio > SPLIT_RATIO:
-        raise RuntimeError(f"kernel 2 at {shape} is {ratio:.4f} x as far "
+        raise RuntimeError(f"{row} at {shape} is {ratio:.4f} x as far "
                            "from the float64 recipe as the twin: P or dS "
                            "rounded before its product")
     return ratio
 
 
 def check_train_kernels():
-    """Phase 4: kernels 2-4 against their twins, kernel 2 also at the bf16
-    tensor-core backward's tile edges with one batch row whose keys are all
-    padded but one, and in bf16 against the float64 recipe there and at
-    (a) (``split_ratio``); their times at (a) (``kernel_ms``), and SDPA's
-    forward + backward beside kernel 2."""
+    """Phase 4: kernels 2-4 against their twins, kernels 2 and 4 also at
+    the bf16 tensor-core backward's tile edges with one batch row whose
+    keys are all padded but one, and in bf16 against the float64 recipe
+    there and at (a) (``split_ratio``); their times at (a)
+    (``kernel_ms``) and shares of the bound, and SDPA's forward + backward
+    beside kernel 2."""
     import torch
     import torch.nn.functional as F
 
@@ -537,19 +550,32 @@ def check_train_kernels():
                     report = {n: {"max_abs_err": e} for n, e in errs.items()}
                     args = (q, k, v, bias, g, scale, h, seed)
                     split_ratio(got, q, k, v, bias, g, scale, h, shape)
+                    split_ratio(dgot, q, k, v, bias, g, scale, h, shape,
+                                keep=keep, row="kernel 4")
     for i, (b, lq, lk, h, d) in enumerate(BWD_EDGES):
         q, k, v, bias = attention_inputs(b, lq, lk, h, d, torch.bfloat16,
                                          500 + i)
         bias[0, 1:] = -10000.0
         g = torch.randn_like(q)
+        seed = 1500 + i
         got = ac.attention_bwd(q, k, v, bias, g, d ** -0.5, h, want_db=True)
+        dgot = adc.attention_dropout_bwd(q, k, v, bias, g, d ** -0.5, h,
+                                         RATE, seed)
         torch.cuda.synchronize()
         ref = ac.attention_bwd_ref(q, k, v, bias, g, d ** -0.5, h)
+        keep = adc.keep_mask(seed, (b, h, lq, lk), RATE, device="cuda")
+        dref = adc.attention_dropout_bwd_ref(q, k, v, bias, g, d ** -0.5, h,
+                                             RATE, keep)
         err = max(close(a, r, "bfloat16", f"kernel 2 {n} at {BWD_EDGES[i]}")
                   for n, a, r in zip("q k v b".split(), got, ref))
-        print(f"kernel 2 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: max "
-              f"abs diff vs twin {err:.3e}", flush=True)
+        derr = max(close(a, r, "bfloat16", f"kernel 4 d{n} at "
+                         f"{BWD_EDGES[i]}")
+                   for n, a, r in zip("qkv", dgot, dref))
+        print(f"kernels 2 / 4 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: "
+              f"max abs diff vs twins {err:.3e} / {derr:.3e}", flush=True)
         split_ratio(got, q, k, v, bias, g, d ** -0.5, h, BWD_EDGES[i])
+        split_ratio(dgot, q, k, v, bias, g, d ** -0.5, h, BWD_EDGES[i],
+                    keep=keep, row="kernel 4")
     q, k, v, bias, g, scale, h, seed = args
     b, lq, lk, d = q.shape[0], q.shape[1], k.shape[1], q.shape[2] // h
     shape = (b, h, lq, lk)
@@ -578,10 +604,11 @@ def check_train_kernels():
             ms=(ms + ms2) / 2, plain_ms=plain_ms, library_ms=None,
             bound=attention_bound(b, lq, lk, h, d, 2,
                                   name != "attention_dropout_fwd"))
+        bound_ms = report[name]["bound"][0]
         print(f"{name} (a) time {(ms + ms2) / 2:.4f} ms (runs {ms:.4f}, "
               f"{ms2:.4f}), plain twin {plain_ms:.4f} ms (mask draw "
-              f"included), bound {report[name]['bound'][0]:.4f} ms",
-              flush=True)
+              f"included), bound {bound_ms:.4f} ms, "
+              f"{2 * bound_ms / (ms + ms2):.3f} of the bound", flush=True)
     # the library yardstick of kernel 2: SDPA forward + backward
     sq, sk, sv, mask = sdpa_operands(q, k, v, bias, h)
     leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
@@ -611,11 +638,12 @@ def natural(x):
 
 def check_head_major_kernels():
     """Phase 5: kernels 5-8 against their twins at the shapes of phase 4;
-    rows 5-6 against rows 3-4 for one seed on the same operands; rows 7 and
-    8 equal to rows 1 and 2 bit for bit there (row 8's summed bias
+    rows 5-6 against rows 3-4 for one seed on the same operands; rows 7, 8
+    and 6 equal to rows 1, 2 and 4 bit for bit there (row 8's summed bias
     gradient within float32 rounding) and, in bf16, at the tile edges of
-    phases 3 and 4, where they are also held to their twins; their times at
-    (a), SDPA beside rows 7 and 8."""
+    phases 3 and 4, where they are also held to their twins, row 6 also to
+    the float64 recipe (``split_ratio``) there and at (a); their times at
+    (a) and shares of the bound, SDPA beside rows 7 and 8."""
     import torch
     import torch.nn.functional as F
 
@@ -637,6 +665,10 @@ def check_head_major_kernels():
         if db > 1e-5 * max(1.0, float(nat[3].abs().max())):
             raise RuntimeError(f"row 8's bias gradient differs from row 2's "
                                f"by {db:.3e} at {what}")
+
+    def same_as_row_4(got, nat, what):
+        if not all(torch.equal(natural(a), r) for a, r in zip(got, nat)):
+            raise RuntimeError(f"row 6 differs from row 4 at {what}")
 
     report = {}
     for i, shape in enumerate([SERVING] + ODD):
@@ -686,23 +718,25 @@ def check_head_major_kernels():
                         q, k, v, bias, scale, RATE, keep), dt, "kernel 5"),
                 "attention_dropout_head_major_bwd": max(
                     close(a, r, dt, "kernel 6") for a, r in zip(dgot, dref))}
-            cross = max([close(natural(dout), nout, dt, "kernel 5 vs 3")]
-                        + [close(natural(a), r, dt, "kernel 6 vs 4")
-                           for a, r in zip(dgot, ngot)])
+            cross = close(natural(dout), nout, dt, "kernel 5 vs 3")
+            same_as_row_4(dgot, ngot, f"{shape} {dt}")
             frac = float(mask.float().mean())
             print(f"kernels 7/8/5/6 B={b} Lq={lq} Lk={lk} H={h} D={d} {dt}: "
                   "max abs diff vs twins "
                   + " / ".join(f"{e:.3e}" for e in errs.values())
                   + f", mask bit-equal to the twin's and to kernel 3's, "
-                  f"kernels 5-6 vs 3-4 {cross:.3e}, kernels 7 and 8 "
-                  f"bit-equal to kernels 1 and 2, keep fraction {frac:.5f}",
-                  flush=True)
+                  f"kernel 5 vs 3 {cross:.3e}, kernels 7, 8 and 6 "
+                  f"bit-equal to kernels 1, 2 and 4, keep fraction "
+                  f"{frac:.5f}", flush=True)
             if shape == SERVING:
                 if abs(frac - (1 - RATE)) > 0.005:
                     raise RuntimeError(f"row-5 keep fraction {frac} at b256")
                 if dt == "bfloat16":
                     report = {n: {"max_abs_err": e} for n, e in errs.items()}
                     args = (q, k, v, bias, g, mask, scale, h, seed)
+                    split_ratio([natural(a) for a in dgot], q3, k3, v3, bias,
+                                g3, scale, h, shape, keep=nmask,
+                                row="kernel 6")
     for i, (b, lq, lk, h, d) in enumerate(EDGES):
         q3, k3, v3, bias = attention_inputs(b, lq, lk, h, d, torch.bfloat16,
                                             400 + i)
@@ -723,16 +757,31 @@ def check_head_major_kernels():
         bias[0, 1:] = -10000.0
         g3 = torch.randn_like(q3)
         q, k, v, g = (head_major(x, h) for x in (q3, k3, v3, g3))
-        got = ahm.attention_head_major_bwd(q, k, v, bias, g, d ** -0.5,
+        seed, scale = 2500 + i, d ** -0.5
+        mask = ahm.keep_mask_head_major(seed, (h, b, lq, lk), RATE,
+                                        device="cuda")
+        got = ahm.attention_head_major_bwd(q, k, v, bias, g, scale,
                                            want_db=True)
+        dgot = ahm.attention_dropout_head_major_bwd(q, k, v, bias, g, mask,
+                                                    scale, RATE)
         torch.cuda.synchronize()
-        ref = ahm.attention_head_major_bwd_ref(q, k, v, bias, g, d ** -0.5)
+        ref = ahm.attention_head_major_bwd_ref(q, k, v, bias, g, scale)
+        dref = ahm.attention_dropout_head_major_bwd_ref(q, k, v, bias, g,
+                                                        mask, scale, RATE)
         err = max(close(a, r, "bfloat16", f"kernel 8 {n} at {BWD_EDGES[i]}")
                   for n, a, r in zip(("dq", "dk", "dv", "db_part"), got, ref))
-        same_as_row_2(got, q3, k3, v3, bias, g3, d ** -0.5, h, BWD_EDGES[i])
-        print(f"kernel 8 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: max "
-              f"abs diff vs twin {err:.3e}, bit-equal to kernel 2",
-              flush=True)
+        derr = max(close(a, r, "bfloat16", f"kernel 6 d{n} at "
+                         f"{BWD_EDGES[i]}")
+                   for n, a, r in zip("qkv", dgot, dref))
+        same_as_row_2(got, q3, k3, v3, bias, g3, scale, h, BWD_EDGES[i])
+        same_as_row_4(dgot, adc.attention_dropout_bwd(
+            q3, k3, v3, bias, g3, scale, h, RATE, seed), BWD_EDGES[i])
+        print(f"kernels 8 / 6 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: "
+              f"max abs diff vs twins {err:.3e} / {derr:.3e}, bit-equal to "
+              "kernels 2 / 4", flush=True)
+        split_ratio([natural(a) for a in dgot], q3, k3, v3, bias, g3, scale,
+                    h, BWD_EDGES[i], keep=mask.transpose(0, 1).bool(),
+                    row="kernel 6")
     q, k, v, bias, g, mask, scale, h, seed = args
     _, b, lq, d = q.shape
     lk = k.shape[2]
@@ -768,9 +817,11 @@ def check_head_major_kernels():
             ms=(ms + ms2) / 2, plain_ms=plain_ms, library_ms=None,
             bound=attention_bound(b, lq, lk, h, d, 2, name.endswith("_bwd"),
                                   mask=masked))
+        bound_ms = report[name]["bound"][0]
         print(f"{name} (a) time {(ms + ms2) / 2:.4f} ms (runs {ms:.4f}, "
               f"{ms2:.4f}), plain twin {plain_ms:.4f} ms, bound "
-              f"{report[name]['bound'][0]:.4f} ms", flush=True)
+              f"{bound_ms:.4f} ms, {2 * bound_ms / (ms + ms2):.3f} of the "
+              "bound", flush=True)
     # the library yardstick of rows 7 and 8: SDPA forward, and forward +
     # backward, on the same operands viewed [B, H, L, D]
     sq, sk, sv = (x.transpose(0, 1) for x in (q, k, v))
@@ -1285,23 +1336,27 @@ def twins():
 
 @contextlib.contextmanager
 def float64_attention():
-    """Rows 1, 2, 7 and 8's functions with their sums in float64 in their
-    wrappers' places: the forward's probabilities and every output still
-    rounded to the operand dtype, only the sums taken otherwise. Inside
-    ``twins()`` this is the plain model with other sums, whose distance
-    from the twins is the noise floor that the kernels' own summation order
-    is held to."""
+    """Rows 1-8's functions with their sums in float64 in their wrappers'
+    places: the forward's probabilities and every output still rounded to
+    the operand dtype, only the sums taken otherwise; the dropout rows
+    (3-6) drop what the kernels drop (the hash mask of the same seed).
+    Inside ``twins()`` this is the plain model with other sums, whose
+    distance from the twins is the noise floor that the kernels' own
+    summation order is held to."""
     import torch
 
     from volta_tpu_torch.ops import attention_cuda as ac
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops.attention import attention_probs
 
-    def fwd(q, k, v, bias, scale, heads):
+    def fwd(q, k, v, bias, scale, heads, factor=None):
         b, lq, hd = q.shape
         lk = k.shape[1]
         h4 = lambda x: x.view(b, -1, heads, hd // heads).double()
         probs = attention_probs(h4(q), h4(k), bias.view(b, 1, 1, lk), scale)
+        if factor is not None:
+            probs = probs * factor
         out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).double(),
                            h4(v))
         return out.to(q.dtype).reshape(b, lq, hd)
@@ -1323,10 +1378,43 @@ def float64_attention():
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None if db is None else db.float())
 
+    def keep(q, k, heads, rate, seed):
+        return adc.keep_mask(seed, (q.shape[0], heads, q.shape[1],
+                                    k.shape[1]), rate, device=q.device)
+
+    def dropout_fwd(q, k, v, bias, scale, heads, rate, seed):
+        factor = keep(q, k, heads, rate, seed).double() * adc.keep_scale(rate)
+        return fwd(q, k, v, bias, scale, heads, factor)
+
+    def dropout_bwd(q, k, v, bias, g, scale, heads, rate, seed):
+        grads = adc.attention_dropout_bwd_ref(
+            *(x.double() for x in (q, k, v, bias, g)), scale, heads, rate,
+            keep(q, k, heads, rate, seed))
+        return tuple(x.to(q.dtype) for x in grads)
+
+    def dropout_fwd_head_major(q, k, v, bias, scale, rate, seed):
+        h, b, lq, d = q.shape
+        mask = ahm.keep_mask_head_major(seed, (h, b, lq, k.shape[2]), rate,
+                                        device=q.device)
+        out = dropout_fwd(*(natural(x) for x in (q, k, v)), bias, scale, h,
+                          rate, seed)
+        return head_major(out, h), mask
+
+    def dropout_bwd_head_major(q, k, v, bias, g, mask, scale, rate):
+        grads = ahm.attention_dropout_head_major_bwd_ref(
+            *(x.double() for x in (q, k, v, bias, g)), mask, scale, rate)
+        return tuple(x.to(q.dtype) for x in grads)
+
     swaps = [(ac, "attention_fwd", fwd),
              (ahm, "attention_head_major_fwd", fwd_head_major),
              (ac, "attention_bwd", bwd),
-             (ahm, "attention_head_major_bwd", bwd_head_major)]
+             (ahm, "attention_head_major_bwd", bwd_head_major),
+             (adc, "attention_dropout_fwd", dropout_fwd),
+             (adc, "attention_dropout_bwd", dropout_bwd),
+             (ahm, "attention_dropout_head_major_fwd",
+              dropout_fwd_head_major),
+             (ahm, "attention_dropout_head_major_bwd",
+              dropout_bwd_head_major)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1925,11 +2013,13 @@ def grad_distance(a, b):
 
 
 def compare_bf16_grads(task_cfg, batch_np, hm):
-    """Phase 13, bf16: the gradients of one dropout-free b256 batch with the
-    kernels (rows 1-2 natural, 7-8 head-major: the tensor-core bodies)
-    against the twins, within NOISE_FACTOR times the twins' distance from
-    the twins with the attention's sums in float64 (forward and backward),
-    at least GRAD_TOL; the head-major model's distance from the natural
+    """Phase 13, bf16: the gradients of one b256 batch with the kernels
+    against the twins, dropout-free (rows 1-2 natural, 7-8 head-major) and
+    with the config's dropout (rows 3-4 natural, 5-6 head-major; the twins
+    draw the same hash masks): the backwards on the tensor-core bodies,
+    within NOISE_FACTOR times the twins' distance from the twins with the
+    attention's sums in float64 (forward and backward), at least GRAD_TOL;
+    the dropout-free head-major model's distance from the natural
     layout's, with the kernels and with the twins."""
     import torch
 
@@ -1939,17 +2029,25 @@ def compare_bf16_grads(task_cfg, batch_np, hm):
 
     batch = to_device(_widen_wire({k: v for k, v in batch_np.items()
                                    if isinstance(v, np.ndarray)}), "cuda")
-    for tag, config, want in (
-            ("natural", CONFIG, expect(attention_fwd=12, attention_bwd=12)),
-            ("head-major", hm, expect(attention_head_major_fwd=12,
-                                      attention_head_major_bwd=12))):
-        model = build_model(task_cfg, "bfloat16", config).eval()  # no dropout
+    for tag, config, dropout, want in (
+            ("natural", CONFIG, False,
+             expect(attention_fwd=12, attention_bwd=12)),
+            ("head-major", hm, False,
+             expect(attention_head_major_fwd=12,
+                    attention_head_major_bwd=12)),
+            ("natural", CONFIG, True,
+             expect(attention_dropout_fwd=12, attention_dropout_bwd=12)),
+            ("head-major", hm, True,
+             expect(attention_dropout_head_major_fwd=12,
+                    attention_dropout_head_major_bwd=12))):
+        what = "with dropout" if dropout else "dropout-free"
+        model = build_model(task_cfg, "bfloat16", config).train(dropout)
         reset_launches()
         lk, gk = grads(model, task_cfg, batch)
         counts = dict(LAUNCHES)
         if counts != want:
-            raise RuntimeError(f"bf16 {tag} gradients launched {counts}, "
-                               f"expected {want}")
+            raise RuntimeError(f"bf16 {tag} gradients {what} launched "
+                               f"{counts}, expected {want}")
         with twins():
             lt, gt = grads(model, task_cfg, batch)
         with twins(), float64_attention():
@@ -1957,7 +2055,7 @@ def compare_bf16_grads(task_cfg, batch_np, hm):
         (noise, nworst), (diff, worst) = (grad_distance(g64, gt),
                                           grad_distance(gk, gt))
         tol = max(GRAD_TOL, NOISE_FACTOR * noise)
-        print(f"bf16 gradients b{batch['question'].shape[0]} dropout-free "
+        print(f"bf16 gradients b{batch['question'].shape[0]} {what} "
               f"({tag}): kernels vs plain twins {diff:.3e} at {worst} (tol "
               f"{tol:.3e}; GRAD_TOL {GRAD_TOL:g}), twins vs float64 "
               f"attention sums {noise:.3e} at {nworst}; loss "
@@ -1965,11 +2063,11 @@ def compare_bf16_grads(task_cfg, batch_np, hm):
               flush=True)
         if not (np.isfinite(lk) and all(bool(torch.isfinite(g).all())
                                         for g in gk.values())):
-            raise RuntimeError(f"non-finite bf16 {tag} gradients")
+            raise RuntimeError(f"non-finite bf16 {tag} gradients {what}")
         if diff > tol:
-            raise RuntimeError(f"bf16 {tag} gradients disagree with the "
-                               "plain twins")
-        if tag == "head-major":
+            raise RuntimeError(f"bf16 {tag} gradients {what} disagree with "
+                               "the plain twins")
+        if tag == "head-major" and not dropout:
             with natural_layout(model):
                 _, gn = grads(model, task_cfg, batch)
                 with twins():

@@ -166,43 +166,65 @@ def test_bwd_kernel_matches_twin(cuda_device, dtype, shape, want_db):
         assert got[3] is None and hgot[3] is None
 
 
-def _split_ratios(got, q, k, v, bias, g, scale, h):
+def _split_ratios(got, q, k, v, bias, g, scale, h, keep=None):
     """mean|got - R64| / mean|twin - R64| for dq, dk, dv: R64 the backward
-    recipe in float64 on the same bf16 operands, twin the plain twin
-    (float32, then rounded to bf16)."""
+    recipe in float64 on the same bf16 operands (with ``keep``, the dropout
+    recipe of rows 4 and 6 on that mask), twin the plain twin (float32,
+    then rounded to bf16)."""
     heads = lambda x: x.view(x.shape[0], x.shape[1], h, -1)  # noqa: E731
     exact = attention_cuda.attention_bwd_math(
         *(heads(x.double()) for x in (q, k, v)), bias.double(),
-        heads(g.double()), scale)
-    twin = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, h, False)
+        heads(g.double()), scale, keep, adc.keep_scale(RATE))
+    if keep is None:
+        twin = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, h,
+                                                False)
+    else:
+        twin = adc.attention_dropout_bwd_ref(q, k, v, bias, g, scale, h,
+                                             RATE, keep)
     return [float((a.double() - r.reshape(a.shape)).abs().mean()
                   / (t.double() - r.reshape(a.shape)).abs().mean())
             for a, t, r in zip(got[:3], twin[:3], exact[:3])]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("row", ["row 2", "row 4"])
 @pytest.mark.parametrize("shape", [SERVING, (2, 128, 130, 3, 64)],
                          ids=lambda s: "x".join(map(str, s)))
-def test_bwd_products_take_float32_probabilities(cuda_device, shape):
-    """P and dS enter the bf16 backward's products as hi + lo halves, so
-    its dq, dk, dv are as far from the float64 recipe as the twin's (both
-    round the same float32 values), within 5% on the mean; one bf16
-    rounding of P and dS (as flash-attention kernels do) adds an error the
-    size of the outputs' own rounding and reads far above."""
+def test_bwd_products_take_float32_probabilities(cuda_device, shape, row):
+    """P (row 4: P * keep) and dS enter the bf16 backward's products as hi
+    + lo halves, so its dq, dk, dv are as far from the float64 recipe as
+    the twin's (both round the same float32 values), within 5% on the
+    mean; one bf16 rounding of P and dS (as flash-attention kernels do)
+    adds an error the size of the outputs' own rounding and reads far
+    above."""
     b, lq, lk, h, d = shape
     q, k, v, bias, g = _inputs(shape, "bfloat16", cuda_device, seed=13)
-    got = attention_cuda.attention_bwd(q, k, v, bias, g, d ** -0.5, h)
-    ratios = _split_ratios(got, q, k, v, bias, g, d ** -0.5, h)
+    keep = None
+    if row == "row 2":
+        got = attention_cuda.attention_bwd(q, k, v, bias, g, d ** -0.5, h)
+    else:
+        got = adc.attention_dropout_bwd(q, k, v, bias, g, d ** -0.5, h, RATE,
+                                        31)
+        keep = adc.keep_mask(31, (b, h, lq, lk), RATE, device=cuda_device)
+    ratios = _split_ratios(got, q, k, v, bias, g, d ** -0.5, h, keep)
     assert max(ratios) <= 1.05, ratios
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape", [SERVING] + ODD,
+@pytest.mark.parametrize("shape", [SERVING] + ODD + BWD_EDGES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_dropout_kernels_match_twins(cuda_device, dtype, shape):
+    """Rows 3 and 4 against their twins fed the hash mask, with one batch
+    row whose keys are all padded but one: row 3 (the CUDA-core forward)
+    and its mask, row 4 on the tensor-core body in bf16 and the CUDA-core
+    body in float32, at the serving shape, odd shapes and the tensor-core
+    backward's tile edges."""
+    body = attention_cuda.bwd_body(getattr(torch, dtype), dropout=True)[0]
+    assert body == ("tensor-core" if dtype == "bfloat16" else "CUDA-core")
     b, lq, lk, h, d = shape
     q, k, v, bias, g = _inputs(shape, dtype, cuda_device, seed=2)
+    bias[0, 1:] = -10000.0
     seed = 0xC0FFEE + lq
     before = (LAUNCHES["attention_dropout_fwd"],
               LAUNCHES["attention_dropout_bwd"])
@@ -238,11 +260,12 @@ def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
     body, whose shared memory does not grow with Lk, four times that Lk, and
     the largest Lq its grid takes. The dropout forward (row 3, CUDA-core in
     both dtypes) at its largest Lk. The backwards at Lq = 128: the dropout
-    backward (row 4, CUDA-core in both dtypes) at its largest Lk; the
-    no-dropout backward (rows 2 and 8 share the body) on the CUDA-core body
-    in float32 at the same Lk, on the tensor-core body in bf16, whose shared
-    memory grows with Lq alone, at four times that Lk, and at the largest
-    Lq its shared memory takes."""
+    backward (row 4) at the largest Lk of its body (CUDA-core in float32,
+    tensor-core in bf16); the no-dropout backward (rows 2 and 8 share the
+    body) on the CUDA-core body in float32 at the CUDA-core largest Lk, on
+    the tensor-core body in bf16, whose shared memory grows with Lq alone,
+    at four times that Lk, and at the largest Lq its shared memory
+    takes."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
 
     scale = d ** -0.5
@@ -297,21 +320,30 @@ def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
                                   cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         adc.attention_dropout_fwd(q, k2, v2, bias2, 0.1, 2, RATE, 7)
-    # backward kernels: the largest Lk of the CUDA-core body at Lq = 128
-    # (at least 128 for every D)
-    lk = _max_lk(attention_cuda.bwd_smem_bytes, 128, d)
-    assert lk >= 128
-    q, k, v, bias, g = _inputs((1, 128, lk, 2, d), dtype, cuda_device)
+    # the dropout backward (rows 4 and 6 share the body) at Lq = 128 at the
+    # largest Lk of its body: the CUDA-core body's in float32, the
+    # tensor-core body's in bf16, where the keep bits grow by Lk / 8 bytes
+    # a query row
+    dname, dsmem = attention_cuda.bwd_body(getattr(torch, dtype), True)
+    dlk = _max_lk(dsmem, 128, d)
+    q, k, v, bias, g = _inputs((1, 128, dlk, 2, d), dtype, cuda_device)
     got = adc.attention_dropout_bwd(q, k, v, bias, g, scale, 2, RATE, 7)
-    keep = adc.keep_mask(7, (1, 2, 128, lk), RATE, device=cuda_device)
+    keep = adc.keep_mask(7, (1, 2, 128, dlk), RATE, device=cuda_device)
     ref = adc.attention_dropout_bwd_ref(q, k, v, bias, g, scale, 2, RATE,
                                         keep)
     for a, r in zip(got, ref):
-        _assert_close(a, r, dtype, "dropout bwd at the largest Lk")
-    _, k2, v2, bias2, _ = _inputs((1, 128, lk + 1, 2, d), dtype,
+        _assert_close(a, r, dtype, f"dropout bwd ({dname}) at Lk = {dlk}")
+    _, k2, v2, bias2, _ = _inputs((1, 128, dlk + 1, 2, d), dtype,
                                   cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         adc.attention_dropout_bwd(q, k2, v2, bias2, g, 0.1, 2, RATE, 7)
+    # the no-dropout backward: the largest Lk of the CUDA-core body at
+    # Lq = 128 (at least 128 for every D)
+    lk = _max_lk(attention_cuda.bwd_smem_bytes, 128, d)
+    assert lk >= 128 and dlk >= lk
+    q, k, v, bias, g = _inputs((1, 128, lk, 2, d), dtype, cuda_device)
+    _, k2, v2, bias2, _ = _inputs((1, 128, lk + 1, 2, d), dtype,
+                                  cuda_device)
     name, smem = attention_cuda.bwd_body(getattr(torch, dtype))
     if name == "CUDA-core":
         assert _max_lk(smem, 128, d) == lk
@@ -437,8 +469,9 @@ def test_head_major_kernels_match_twins(cuda_device, dtype, shape):
 def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
     """For one seed rows 5-8 and rows 1-4 drop the same probabilities and
     agree on the same operands: outputs and gradients within the twins'
-    tolerance, the same dropped set; rows 7 and 8 equal to rows 1 and 2 bit
-    for bit (one body each, two addressings)."""
+    tolerance, the same dropped set; rows 7, 8 and 6 equal to rows 1, 2 and
+    4 bit for bit (one body each, two addressings; row 6's keep bits are
+    read from the mask bytes, row 4's replayed from the hash)."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
 
     b, lq, lk, h, d = shape
@@ -468,6 +501,7 @@ def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
     ngrads = adc.attention_dropout_bwd(q, k, v, bias, g, scale, h, RATE, seed)
     for a, r in zip(hgrads, ngrads):
         _assert_close(nat(a), r, dtype, "row 6 vs row 4")
+        assert torch.equal(nat(a), r)  # one body, two addressings
 
 
 @pytest.mark.cuda

@@ -26,14 +26,14 @@ from . import LAUNCHES, _build
 from .attention import acc_dtype, attention_out, attention_probs
 
 HEAD_DIMS = (16, 32, 64, 128)
-# the CUDA-core bodies (csrc/attention_common.cuh): the float32 forward,
-# every dropout forward and every backward
+# the CUDA-core bodies (csrc/attention_common.cuh): the float32 forward and
+# backward, every dropout forward
 ROWS_PER_BLOCK = 16  # kRowsPerBlock, the forward's query tile
 KEY_CHUNK = 32  # kKeyChunk
 BWD_ROWS = 32  # kBwdRows
 # the tensor-core bodies of the bf16 no-dropout forward (rows 1 and 7,
-# csrc/attention_fwd_tc.cuh) and backward (rows 2 and 8,
-# csrc/attention_bwd_tc.cuh)
+# csrc/attention_fwd_tc.cuh) and of every bf16 backward (rows 2, 4, 6 and
+# 8, csrc/attention_bwd_tc.cuh)
 TC_ROWS_PER_BLOCK = 64  # kTcRows, their query tile
 TC_KEYS = 64  # kTcKeys, their key tile
 TC_PAD = 8  # kTcPad, bf16 of padding a shared row
@@ -140,12 +140,25 @@ def tc_bwd_smem_bytes(lq: int, head_dim: int) -> int:
             + 4 * 3 * lq_pad)
 
 
-def bwd_body(dtype):
-    """The body the no-dropout backward kernels (rows 2 and 8) run for
-    operands of ``dtype``, as their launchers choose it: the tensor-core
-    body for bf16, the CUDA-core body otherwise (float32). Returns (name,
-    shared memory (lq, lk, d) -> bytes)."""
+def tc_dropout_bwd_smem_bytes(lq: int, lk: int, head_dim: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core backward body's
+    dropout flavour (rows 4 and 6): ``tc_bwd_smem_bytes`` and the keep bits,
+    one a query row and key, both rounded up to a tile: Lq·Lk/8 bytes, a
+    64th of the CUDA-core body's 8 bytes a (query, key)."""
+    lq_pad = -(-lq // TC_ROWS_PER_BLOCK) * TC_ROWS_PER_BLOCK
+    lk_pad = -(-lk // TC_KEYS) * TC_KEYS
+    return tc_bwd_smem_bytes(lq, head_dim) + lq_pad * lk_pad // 8
+
+
+def bwd_body(dtype, dropout=False):
+    """The body the backward kernels run for operands of ``dtype``, as their
+    launchers choose it: the no-dropout rows 2 and 8 or, with ``dropout``,
+    rows 4 and 6 run the tensor-core body for bf16 (the dropout flavour
+    with its keep bits) and the CUDA-core body otherwise (float32). Returns
+    (name, shared memory (lq, lk, d) -> bytes)."""
     if dtype == torch.bfloat16:
+        if dropout:
+            return "tensor-core", tc_dropout_bwd_smem_bytes
         return "tensor-core", lambda lq, lk, d: tc_bwd_smem_bytes(lq, d)
     return "CUDA-core", bwd_smem_bytes
 

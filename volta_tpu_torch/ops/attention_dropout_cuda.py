@@ -27,7 +27,7 @@ from torch.autograd.function import once_differentiable
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, _heads4, attention_bwd_math,
-                             bwd_smem_bytes, check, launch_error, smem_bytes)
+                             bwd_body, check, launch_error, smem_bytes)
 from .hash import dropout_threshold, hash_keep
 
 
@@ -131,7 +131,9 @@ def attention_dropout_fwd(q, k, v, bias, scale, heads, rate, seed,
 def attention_dropout_bwd(q, k, v, bias, g, scale, heads, rate, seed):
     """The backward of ``attention_dropout_fwd`` for the same ``seed`` and
     the output cotangent g [B,Lq,H·D]: dq, dk, dv in the operand dtype. The
-    kernel replays the mask's hash; CPU tensors take the plain twin."""
+    kernel replays the mask's hash; bf16 runs the tensor-core body, fp32
+    the CUDA-core body (``bwd_body(dtype, dropout=True)``). CPU tensors take
+    the plain twin."""
     _check_rate(rate, seed)
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -139,7 +141,8 @@ def attention_dropout_bwd(q, k, v, bias, g, scale, heads, rate, seed):
         keep = keep_mask(seed, (b, heads, lq, lk), rate)
         return attention_dropout_bwd_ref(q, k, v, bias, g, scale, heads,
                                          rate, keep)
-    check("attention_dropout_bwd", q, k, v, bias, heads, bwd_smem_bytes, g=g)
+    check("attention_dropout_bwd", q, k, v, bias, heads,
+          bwd_body(q.dtype, dropout=True)[1], g=g)
     _, fn, err_str = _kernels()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -37,8 +37,7 @@ from torch.autograd.function import once_differentiable
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_body,
-                             bwd_smem_bytes, check, fwd_body, launch_error,
-                             smem_bytes)
+                             check, fwd_body, launch_error, smem_bytes)
 from .attention_dropout_cuda import _check_rate, keep_mask, keep_scale
 from .hash import dropout_threshold
 
@@ -215,14 +214,17 @@ def attention_dropout_head_major_fwd(q, k, v, bias, scale, rate, seed):
 def attention_dropout_head_major_bwd(q, k, v, bias, g, mask, scale, rate):
     """The backward of ``attention_dropout_head_major_fwd`` for the output
     cotangent g [H,B,Lq,D] and the forward's keep mask (uint8 [H,B,Lq,Lk]
-    on the card): dq, dk, dv in the operand dtype. CPU tensors take the
-    plain twin."""
+    on the card): dq, dk, dv in the operand dtype. The body of row 4 by
+    dtype (``bwd_body(dtype, dropout=True)``) with head-major addressing,
+    the keep bits read from the mask, so it computes row 4's bits. CPU
+    tensors take the plain twin."""
     _check_rate(rate, 0)
     if q.device.type == "cpu":
         return attention_dropout_head_major_bwd_ref(q, k, v, bias, g, mask,
                                                     scale, rate)
     name = "attention_dropout_head_major_bwd"
-    check(name, q, k, v, bias, None, bwd_smem_bytes, g=g, head_major=True)
+    check(name, q, k, v, bias, None, bwd_body(q.dtype, dropout=True)[1], g=g,
+          head_major=True)
     h, b, lq, lk, d = _dims(q, k)
     if (mask.dtype != torch.uint8 or mask.device != q.device
             or mask.shape != (h, b, lq, lk) or not mask.is_contiguous()):

@@ -63,8 +63,9 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dk, T* __restrict__ dv,
                      float* __restrict__ db_part, int Lq, int Lk, int H,
                      float scale) {
-  attention_bwd_body<T, D, false>(q, k, v, bias, g, dq, dk, dv, db_part, Lq,
-                                  Lk, H, scale);
+  attention_bwd_body<T, D, false, false>(q, k, v, bias, g, dq, dk, dv,
+                                         db_part, Lq, Lk, H, scale,
+                                         Dropout{0u, 0u, 0.f}, nullptr);
 }
 
 template <typename T>
@@ -73,9 +74,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      void* dv, void* db_part, int B, int Lq, int Lk, int H,
                      int D, float scale, cudaStream_t stream) {
   VOLTA_SWITCH_HEAD_DIM(
-      D, return launch_bwd_body<T, kD>(attention_bwd_kernel<T, kD>, q, k, v,
-                                       bias, g, dq, dk, dv, db_part, B, Lq,
-                                       Lk, H, scale, stream))
+      D, return launch_bwd_body<T, kD, false>(attention_bwd_kernel<T, kD>, q,
+                                              k, v, bias, g, dq, dk, dv,
+                                              db_part, B, Lq, Lk, H, scale,
+                                              stream))
 }
 
 }  // namespace

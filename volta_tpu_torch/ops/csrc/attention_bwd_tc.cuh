@@ -1,8 +1,9 @@
-// The tensor-core backward body of the no-dropout attention for bf16
-// operands (sm_90a): rows 2 (attention_bwd.cu) and 8
-// (attention_head_major.cu). float32 operands keep the CUDA-core body
-// (attention_bwd_block in attention_common.cuh): the tensor cores would
-// compute them in TF32.
+// The tensor-core backward body of the attention for bf16 operands
+// (sm_90a): without dropout rows 2 (attention_bwd.cu) and 8
+// (attention_head_major.cu), with kDropout rows 4 (attention_dropout.cu)
+// and 6 (attention_head_major.cu). float32 operands keep the CUDA-core
+// body (attention_bwd_block in attention_common.cuh): the tensor cores
+// would compute them in TF32.
 //
 // It computes the _attn_bwd_math recipe (volta_tpu/ops/pallas_attention.py:
 // 884-904) that _attn_bwd_kernel_nat_bh (:683) and _attn_bwd_kernel (:907)
@@ -22,7 +23,8 @@
 // 10 to 16 B·H·Lq·Lk·D operations; with the recomputation below, 20.
 //
 // Two sweeps, 4 warps a block, one block per (b, h) pair; nothing of size
-// Lq x Lk is held, so shared memory grows only by 12 bytes a query row.
+// Lq x Lk is held (but the dropout flavour's keep bits, below), so shared
+// memory grows only by 12 bytes a query row.
 // - Sweep 1, a warp per 16 query rows of a 64-row tile (tc_stage of Q and
 //   G): S by mma, the exact softmax of the forward body (quad max and sum,
 //   p = e / l by div_rn), dP by mma, delta = rowsum(dP * P), dS, then
@@ -45,9 +47,19 @@
 // are -inf (keys) or their P and dS are 0 (sweep 2), and they are never
 // stored. Padded keys that exist keep their -10000 bias.
 //
-// With kDropout the keep factor multiplies dP and P's share of dv, where
-// attention_bwd_block applies it (the dropout backwards of rows 4 and 6);
-// no kernel instantiates it yet.
+// With kDropout it computes _dropout_bwd_math (:147-166), the recipe of
+// _attn_dropout_bwd_kernel_nat_bh (:530, row 4) and _attn_dropout_bwd_kernel
+// (:169, row 6): the keep factor (1 / (1 - rate) or 0) multiplies dP and
+// P's share of dv in float32, each product rounded to float32 before it is
+// used (never fused into the next subtraction), and not the P inside dS;
+// P·keep and dS enter the products as hi + lo halves like P. Each
+// probability's keep bit is drawn once, in sweep 1 (row 4 replays
+// hash_dropout's hash, row 6 reads the byte its forward wrote), and kept
+// in shared memory as a bit a (query, key) for pass 3 and sweep 2 (the
+// words of tc_put_keep, Lq·Lk / 8 bytes, both lengths rounded up to a
+// tile: 512 bytes at L = 60), so no probability is hashed twice and sweep
+// 2 reads no mask byte Lk apart. One body and one set of bits: row 6
+// equals row 4 to the bit on the same operands.
 
 #pragma once
 
@@ -58,15 +70,20 @@ namespace {
 static_assert(kTcRows == kTcKeys, "a query tile and a key tile are alike");
 
 // Shared memory of one tensor-core backward block (mirrored in
-// ops/attention_cuda.py, tc_bwd_smem_bytes): Q, G, K and V tiles of 64 rows
-// of D + kTcPad bf16, a key tile's float32 bias, and each query row's max,
-// sum and delta in float32 (Lq rounded up to a tile).
-template <int D>
-size_t tc_bwd_smem_bytes(int Lq) {
+// ops/attention_cuda.py, tc_bwd_smem_bytes and tc_dropout_bwd_smem_bytes):
+// Q, G, K and V tiles of 64 rows of D + kTcPad bf16, a key tile's float32
+// bias, and each query row's max, sum and delta in float32 (Lq rounded up
+// to a tile); with kDropout also the keep bits, one a query row and key
+// (both rounded up to a tile).
+template <int D, bool kDropout>
+size_t tc_bwd_smem_bytes(int Lq, int Lk) {
   const size_t lq_pad = static_cast<size_t>(Lq + kTcRows - 1) / kTcRows *
                         kTcRows;
+  const size_t lk_pad = static_cast<size_t>(Lk + kTcKeys - 1) / kTcKeys *
+                        kTcKeys;
   return 4 * static_cast<size_t>(kTcRows) * (D + kTcPad) * sizeof(bf16) +
-         kTcKeys * sizeof(float) + 3 * lq_pad * sizeof(float);
+         kTcKeys * sizeof(float) + 3 * lq_pad * sizeof(float) +
+         (kDropout ? lq_pad * lk_pad / 8 : 0);
 }
 
 // x as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi), each packed.
@@ -132,41 +149,88 @@ __device__ __forceinline__ void tc_store_rows(const float (&o)[D / 8][4],
   }
 }
 
-// The backward's keep factor of probability (i, j), 0 outside the lengths
-// (the head-major mask is not read there).
-template <bool kHeadMajor, int D>
-__device__ __forceinline__ float tc_keep(const Dropout& drop,
-                                         const uint8_t* __restrict__ mask,
-                                         const HeadLayout<kHeadMajor, D>& lay,
-                                         int b, int h, int i, int j, int Lq,
-                                         int Lk) {
-  return i < Lq && j < Lk
-             ? bwd_keep_factor(drop, mask, lay, b, h, i, j, Lq, Lk)
-             : 0.f;
+// The keep bits (kDropout). Sweep 1 draws each probability's keep bit once
+// (bwd_keep: row 4 replays the hash, row 6 reads the forward's mask byte)
+// and leaves it in shared memory as words [key tile][2][lq_pad]: bit c of
+// word (jt, w, i) is the bit of query i and key 64 jt + 32 w + c. Pass 3 of
+// sweep 1 (Lk > 64) and sweep 2 read them back: no probability is hashed,
+// or its mask byte read, twice, and sweep 2 reads no byte Lk apart.
+//
+// In registers a thread keeps the bits of its accumulator elements [n][x]
+// (rows i_row[x / 2], keys j0 + 8 n + 2 t + x % 2) as kw[4]: bit
+// 8 (n % 4) + x % 2 of kw[2 (x / 2) + n / 4], the word layout above
+// shifted down by 2 t.
+__device__ __forceinline__ uint32_t tc_keep_bit(const uint32_t (&kw)[4],
+                                                int n, int x) {
+  return (kw[(x >> 1) * 2 + (n >> 2)] >> ((n & 3) * 8 + (x & 1))) & 1u;
 }
 
-// Sweep 1 on one key tile (first key j0) of the warp's rows i_row: e (the
-// exp(s - m) of tc_row_stats) becomes p = e / l; dp (G Vᵀ) takes its keep
-// factor with kDropout.
-template <bool kDropout, bool kHeadMajor, int D>
+// kw for key tile j0 of the warp's rows i_row, 0 outside the lengths (the
+// head-major mask is not read there).
+template <bool kHeadMajor, int D>
+__device__ __forceinline__ void tc_draw_keep(
+    uint32_t (&kw)[4], const Dropout& drop, const uint8_t* __restrict__ mask,
+    const HeadLayout<kHeadMajor, D>& lay, int b, int h,
+    const int (&i_row)[2], int j0, int Lq, int Lk, int t) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) kw[c] = 0u;
+#pragma unroll
+  for (int n = 0; n < kTcKeys / 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = i_row[x >> 1];
+      const int j = j0 + n * 8 + 2 * t + (x & 1);
+      if (i < Lq && j < Lk && bwd_keep(drop, mask, lay, b, h, i, j, Lq, Lk))
+        kw[(x >> 1) * 2 + (n >> 2)] |= 1u << ((n & 3) * 8 + (x & 1));
+    }
+}
+
+// kw of the quad into the words of key tile jt: the quad's four threads
+// hold disjoint bits of the same two rows; each stores one of the four
+// words. Every lane of the warp calls it.
+__device__ __forceinline__ void tc_put_keep(const uint32_t (&kw)[4],
+                                            uint32_t* words, int lq_pad,
+                                            int jt, const int (&i_row)[2],
+                                            int t) {
+  uint32_t w[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    w[c] = kw[c] << (2 * t);
+    w[c] |= __shfl_xor_sync(0xffffffffu, w[c], 1);
+    w[c] |= __shfl_xor_sync(0xffffffffu, w[c], 2);
+  }
+  const uint32_t mine = t == 0 ? w[0] : t == 1 ? w[1] : t == 2 ? w[2] : w[3];
+  words[(jt * 2 + (t & 1)) * lq_pad + i_row[t >> 1]] = mine;
+}
+
+// kw of key tile jt back from the words.
+__device__ __forceinline__ void tc_get_keep(uint32_t (&kw)[4],
+                                            const uint32_t* words,
+                                            int lq_pad, int jt,
+                                            const int (&i_row)[2], int t) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    kw[c] = (words[(jt * 2 + (c & 1)) * lq_pad + i_row[c >> 1]] >> (2 * t)) &
+            0x03030303u;
+}
+
+// Sweep 1 on one key tile of the warp's rows: e (the exp(s - m) of
+// tc_row_stats) becomes p = e / l; with kDropout dp (G Vᵀ) takes its keep
+// factor, scale where kw holds the bit, else 0, rounded to float32.
+template <bool kDropout>
 __device__ __forceinline__ void tc_probs(float (&e)[kTcKeys / 8][4],
                                          float (&dp)[kTcKeys / 8][4],
-                                         const float (&l)[2], int lane,
-                                         const Dropout& drop,
-                                         const uint8_t* __restrict__ mask,
-                                         const HeadLayout<kHeadMajor, D>& lay,
-                                         int b, int h, const int (&i_row)[2],
-                                         int j0, int Lq, int Lk) {
-  const int t = lane & 3;
+                                         const float (&l)[2],
+                                         const uint32_t (&kw)[4],
+                                         float scale) {
   const float r[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
 #pragma unroll
   for (int n = 0; n < kTcKeys / 8; ++n)
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       e[n][x] = div_rn(e[n][x], l[x >> 1], r[x >> 1]);
-      if constexpr (kDropout)
-        dp[n][x] *= tc_keep(drop, mask, lay, b, h, i_row[x >> 1],
-                            j0 + n * 8 + 2 * t + (x & 1), Lq, Lk);
+      if constexpr (kDropout)  // rounded, as sweep 2's, never fused
+        dp[n][x] = __fmul_rn(dp[n][x], tc_keep_bit(kw, n, x) ? scale : 0.f);
     }
 }
 
@@ -192,8 +256,9 @@ __device__ __forceinline__ void tc_ds(const float (&p)[kTcKeys / 8][4],
       dp[n][x] = p[n][x] * (dp[n][x] - delta[x >> 1]);
 }
 
-// The block: grid B * H, kTcWarps * 32 threads, tc_bwd_smem_bytes<D>(Lq) of
-// dynamic shared memory. db_part may be null.
+// The block: grid B * H, kTcWarps * 32 threads, tc_bwd_smem_bytes<D,
+// kDropout>(Lq, Lk) of dynamic shared memory. db_part may be null; with
+// kDropout drop (row 4) or mask_in (row 6) gives the keep bits.
 template <int D, bool kHeadMajor, bool kDropout>
 __device__ __forceinline__ void attention_bwd_tc_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -213,6 +278,8 @@ __device__ __forceinline__ void attention_bwd_tc_block(
   float* row_m = bs + kTcKeys;  // [lq_pad] each: the rows' max, sum, delta
   float* row_l = row_m + lq_pad;
   float* row_d = row_l + lq_pad;
+  // [ktiles][2][lq_pad] with kDropout: the keep bits (tc_put_keep)
+  uint32_t* keep_words = reinterpret_cast<uint32_t*>(row_d + lq_pad);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -273,8 +340,12 @@ __device__ __forceinline__ void attention_bwd_tc_block(
         tc_scores<D>(qf, ks, bs, Lk, scale, lane, s);
         tc_row_stats(s, m, l, true);
         tc_abt<D>(gf, vs, lane, dp);
-        tc_probs<kDropout>(s, dp, l, lane, drop, mask_in, lay, b, h, i_row, 0,
-                           Lq, Lk);
+        uint32_t kw[4] = {0u, 0u, 0u, 0u};
+        if constexpr (kDropout) {
+          tc_draw_keep(kw, drop, mask_in, lay, b, h, i_row, 0, Lq, Lk, t4);
+          tc_put_keep(kw, keep_words, lq_pad, 0, i_row, t4);
+        }
+        tc_probs<kDropout>(s, dp, l, kw, drop.scale);
         tc_delta(s, dp, delta);
         delta[0] = quad_sum(delta[0]);
         delta[1] = quad_sum(delta[1]);
@@ -308,8 +379,18 @@ __device__ __forceinline__ void attention_bwd_tc_block(
 #pragma unroll
             for (int x = 0; x < 4; ++x) s[n][x] = expf(s[n][x] - m[x >> 1]);
           tc_abt<D>(gf, vs, lane, dp);
-          tc_probs<kDropout>(s, dp, l, lane, drop, mask_in, lay, b, h, i_row,
-                             j0, Lq, Lk);
+          // pass 2 draws the tile's keep bits, pass 3 reads them back
+          uint32_t kw[4] = {0u, 0u, 0u, 0u};
+          if constexpr (kDropout) {
+            if (pass == 2) {
+              tc_draw_keep(kw, drop, mask_in, lay, b, h, i_row, j0, Lq, Lk,
+                           t4);
+              tc_put_keep(kw, keep_words, lq_pad, j0 / kTcKeys, i_row, t4);
+            } else {
+              tc_get_keep(kw, keep_words, lq_pad, j0 / kTcKeys, i_row, t4);
+            }
+          }
+          tc_probs<kDropout>(s, dp, l, kw, drop.scale);
           if (pass == 2) {
             tc_delta(s, dp, delta);
           } else {
@@ -345,6 +426,11 @@ __device__ __forceinline__ void attention_bwd_tc_block(
     const bool active = j0 + r0 < Lk;
     const int j_row[2] = {j0 + r0 + gq, j0 + r0 + gq + 8};
     const float bj[2] = {bs[r0 + gq], bs[r0 + gq + 8]};
+    // the words of the warp's 16 keys (all in one half of the tile) and
+    // the place of key j_row[0]'s bit in them
+    const uint32_t* kwords =
+        keep_words + ((j0 / kTcKeys) * 2 + (r0 >> 5)) * lq_pad;
+    const int kbit = (r0 & 31) + gq;
     float ak[D / 8][4], av[D / 8][4];
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -373,6 +459,9 @@ __device__ __forceinline__ void attention_bwd_tc_block(
         const float2 mc = *reinterpret_cast<const float2*>(row_m + c);
         const float2 lc = *reinterpret_cast<const float2*>(row_l + c);
         const float2 dc = *reinterpret_cast<const float2*>(row_d + c);
+        uint2 kc = {0u, 0u};  // the keep words of queries c and c + 1
+        if constexpr (kDropout)
+          kc = *reinterpret_cast<const uint2*>(kwords + c);
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           const int i = c + (x & 1);
@@ -385,9 +474,13 @@ __device__ __forceinline__ void attention_bwd_tc_block(
           const float p = div_rn(e, li, __frcp_rn(li));
           float dpv = dpt[n][x], pv = p;
           if constexpr (kDropout) {
-            const float f = tc_keep(drop, mask_in, lay, b, h, i, j, Lq, Lk);
-            dpv *= f;
-            pv *= f;
+            const uint32_t w = (x & 1) ? kc.y : kc.x;
+            const float f = (w >> (kbit + 8 * (x >> 1))) & 1u ? drop.scale
+                                                              : 0.f;
+            // rounded before the subtraction below, as in sweep 1 and the
+            // recipe: a contraction into an FMA would give another dS
+            dpv = __fmul_rn(dpv, f);
+            pv = __fmul_rn(pv, f);
           }
           const float ds = valid ? p * (dpv - di) : 0.f;
           st[n][x] = valid ? pv : 0.f;
@@ -414,9 +507,12 @@ __device__ __forceinline__ void attention_bwd_tc_block(
 
 // Blocks an SM that a kernel running attention_bwd_body asks the compiler
 // to fit (its __launch_bounds__): 3 for the tensor-core body at D <= 64,
-// which holds it to 168 registers a thread with 20-280 bytes of spills
-// (chip_smoke.py's ptxas report) where the compiler alone fits fewer
-// blocks; the compiler's choice elsewhere.
+// which holds it to 168 registers a thread with up to 280 bytes of spills
+// without dropout and up to 340 with it (chip_smoke.py's ptxas report)
+// where the compiler alone fits fewer blocks; the compiler's choice
+// elsewhere.
+// The dropout flavour at 2 blocks (255 registers, no spills) ran rows 4
+// and 6 slower at the serving shape on the H100.
 template <typename T, int D>
 constexpr int kBwdMinBlocks = kTensorCore<T> && D <= 64 ? 3 : 1;
 
@@ -424,34 +520,36 @@ constexpr int kBwdMinBlocks = kTensorCore<T> && D <= 64 ? 3 : 1;
 template <typename T>
 constexpr int kBwdThreads = kTensorCore<T> ? kTcWarps * 32 : kBwdWarps * 32;
 
-// The no-dropout backward of rows 2 (natural) and 8 (head-major): the
-// tensor-core body for bf16, the CUDA-core body for float32.
-template <typename T, int D, bool kHeadMajor>
+// The backward of rows 2 (natural) and 8 (head-major) and, with kDropout,
+// of rows 4 (natural, drop replays the hash) and 6 (head-major, mask is
+// the forward's): the tensor-core body for bf16, the CUDA-core body for
+// float32.
+template <typename T, int D, bool kHeadMajor, bool kDropout>
 __device__ __forceinline__ void attention_bwd_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const T* __restrict__ g,
     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-    float* __restrict__ db_part, int Lq, int Lk, int H, float scale) {
-  const Dropout none{0u, 0u, 0.f};
+    float* __restrict__ db_part, int Lq, int Lk, int H, float scale,
+    Dropout drop, const uint8_t* __restrict__ mask) {
   if constexpr (kTensorCore<T>)
-    attention_bwd_tc_block<D, kHeadMajor, false>(q, k, v, bias, g, dq, dk, dv,
-                                                 db_part, Lq, Lk, H, scale,
-                                                 none, nullptr);
+    attention_bwd_tc_block<D, kHeadMajor, kDropout>(
+        q, k, v, bias, g, dq, dk, dv, db_part, Lq, Lk, H, scale, drop, mask);
   else
-    attention_bwd_block<T, D, false, kHeadMajor>(q, k, v, bias, g, dq, dk, dv,
-                                                 db_part, Lq, Lk, H, scale,
-                                                 none, nullptr);
+    attention_bwd_block<T, D, kDropout, kHeadMajor>(
+        q, k, v, bias, g, dq, dk, dv, db_part, Lq, Lk, H, scale, drop, mask);
 }
 
-// Launch kern, a kernel that runs attention_bwd_body<T, D, ...>, over B * H
-// blocks with the body's threads and shared memory.
-template <typename T, int D, typename Kernel>
+// Launch kern, a kernel that runs attention_bwd_body<T, D, ..., kDropout>,
+// over B * H blocks with the body's threads and shared memory; tail (the
+// dropout kernels' Dropout and mask) follows the common arguments.
+template <typename T, int D, bool kDropout, typename Kernel,
+          typename... Tail>
 cudaError_t launch_bwd_body(Kernel kern, const void* q, const void* k,
                             const void* v, const void* bias, const void* g,
                             void* dq, void* dk, void* dv, void* db_part,
                             int B, int Lq, int Lk, int H, float scale,
-                            cudaStream_t stream) {
-  const size_t smem = kTensorCore<T> ? tc_bwd_smem_bytes<D>(Lq)
+                            cudaStream_t stream, Tail... tail) {
+  const size_t smem = kTensorCore<T> ? tc_bwd_smem_bytes<D, kDropout>(Lq, Lk)
                                      : bwd_smem_bytes(Lq, Lk, D);
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -459,7 +557,8 @@ cudaError_t launch_bwd_body(Kernel kern, const void* q, const void* k,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<float*>(db_part), Lq, Lk, H, scale);
+      static_cast<T*>(dv), static_cast<float*>(db_part), Lq, Lk, H, scale,
+      tail...);
   return cudaGetLastError();
 }
 

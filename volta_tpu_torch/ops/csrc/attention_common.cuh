@@ -4,16 +4,16 @@
 // no-dropout forward in float32 (rows 1 and 7; in bf16 they run the
 // tensor-core body of attention_fwd_tc.cuh) and the dropout forwards (rows
 // 3, 5 and 9) in both dtypes; one CUDA-core backward block body
-// (attention_bwd_block) serves the no-dropout backward in float32 (rows 2
-// and 8; in bf16 they run the tensor-core body of attention_bwd_tc.cuh)
-// and the dropout backwards (rows 4 and 6) in both dtypes. The rows'
-// kernels are in attention_fwd.cu (1), attention_bwd.cu (2),
-// attention_dropout.cu (3, 4) and attention_head_major.cu (5-9). The
-// dropout flavour is a template flag, so the
-// no-dropout kernels compile without a trace of it. The layout is a template
-// flag too: the natural [B, L, H·D] operands of rows 1-4 or the head-major
-// [H, B, L, D] operands of rows 5-8 (attention_head_major.cu); only the
-// addressing differs (HeadLayout), so both layouts compute the same bits.
+// (attention_bwd_block) serves every backward in float32, without dropout
+// (rows 2 and 8) and with it (rows 4 and 6); in bf16 they all run the
+// tensor-core body of attention_bwd_tc.cuh. The rows' kernels are in
+// attention_fwd.cu (1), attention_bwd.cu (2), attention_dropout.cu (3, 4)
+// and attention_head_major.cu (5-9). The dropout flavour is a template
+// flag, so the no-dropout kernels compile without a trace of it. The
+// layout is a template flag too: the natural [B, L, H·D] operands of rows
+// 1-4 or the head-major [H, B, L, D] operands of rows 5-8
+// (attention_head_major.cu); only the addressing differs (HeadLayout), so
+// both layouts compute the same bits.
 //
 // Numerics follow the TPU kernels of volta_tpu/ops/pallas_attention.py:
 // scores in float32 from the operands, softmax in float32, the dropout keep
@@ -110,18 +110,28 @@ __device__ __forceinline__ float keep_factor(const Dropout& drop,
   return hash_keep(n, drop.seed, drop.threshold) ? drop.scale : 0.f;
 }
 
-// the backward's dropout factor of probability (b, h, i, j): the natural
-// kernel replays the hash, the head-major one reads the mask its forward
-// wrote
+// the backward's keep bit of probability (b, h, i, j): the natural kernel
+// replays the hash, the head-major one reads the mask its forward wrote
+template <bool kHeadMajor, int D>
+__device__ __forceinline__ bool bwd_keep(const Dropout& drop,
+                                         const uint8_t* __restrict__ mask,
+                                         const HeadLayout<kHeadMajor, D>& lay,
+                                         int b, int h, int i, int j, int Lq,
+                                         int Lk) {
+  if constexpr (kHeadMajor)
+    return mask[(lay.pair(b, h) * Lq + i) * Lk + j] != 0;
+  else
+    return hash_keep(prob_index(b, h, i, j, lay.H, Lq, Lk), drop.seed,
+                     drop.threshold);
+}
+
+// the backward's dropout factor of probability (b, h, i, j)
 template <bool kHeadMajor, int D>
 __device__ __forceinline__ float bwd_keep_factor(
     const Dropout& drop, const uint8_t* __restrict__ mask,
     const HeadLayout<kHeadMajor, D>& lay, int b, int h, int i, int j, int Lq,
     int Lk) {
-  if constexpr (kHeadMajor)
-    return mask[(lay.pair(b, h) * Lq + i) * Lk + j] ? drop.scale : 0.f;
-  else
-    return keep_factor(drop, prob_index(b, h, i, j, lay.H, Lq, Lk));
+  return bwd_keep(drop, mask, lay, b, h, i, j, Lq, Lk) ? drop.scale : 0.f;
 }
 
 // ---------------------------------------------------------------- forward

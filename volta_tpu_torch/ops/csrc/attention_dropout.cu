@@ -27,13 +27,25 @@
 // The forward writes the 0/1 mask it applied to mask_out only when asked
 // (tests and chip_smoke.py compare it with the plain twin's).
 //
-// The blocks are the no-dropout kernels' (attention_common.cuh) with the
-// keep factor folded in where the math above places it, so they have the
-// same bounds: both are bound by the issue of their CUDA-core loops, the
-// forward at 10x its byte floor and the backward at 15x at B = 256, L = 60
-// on the H100; the hash costs a few integer ops per probability.
+// The forward is the CUDA-core block of the float32 no-dropout forward
+// (attention_fwd_block in attention_common.cuh) with the keep factor
+// folded in, in both dtypes: bound by the issue of its loops, at 10x its
+// byte floor at B = 256, L = 60 on the H100.
+//
+// The backward runs row 2's body through its dropout flavour
+// (attention_bwd_body with kDropout): in bf16 the tensor-core body of
+// attention_bwd_tc.cuh, which replays each probability's keep bit once
+// (about 10 integer operations, 0.11 G a call at the serving shape) and
+// keeps it in shared memory for its second sweep; in float32 the
+// CUDA-core attention_bwd_block, whose tensor-core counterpart would
+// compute in TF32. It is bound by bytes: q, k, v and g read and dq, dk, dv
+// written, 165 MB at B = 256, L = 60, H = 12, D = 64 in bf16, 49 us at
+// 3.35 TB/s. In bf16 it takes 0.141 ms there, 0.35 of that floor (0.73 ms
+// on the CUDA-core body; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py
+// phase 4), 27 us more than row 2 on the same body (the suspects, not
+// measured apart: the keep bits' draw and the spills it adds).
 
-#include "attention_common.cuh"
+#include "attention_bwd_tc.cuh"
 
 namespace {
 
@@ -49,17 +61,20 @@ attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                          scale, lk_pad, drop, mask);
 }
 
+// Row 4: attention_bwd_body with kDropout (tensor cores for bf16, the
+// CUDA-core body for float32), the keep bits replayed from the hash.
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+__global__ void __launch_bounds__(kBwdThreads<T>, (kBwdMinBlocks<T, D>))
 attention_dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v,
                              const float* __restrict__ bias,
                              const T* __restrict__ g, T* __restrict__ dq,
-                             T* __restrict__ dk, T* __restrict__ dv, int Lq,
-                             int Lk, int H, float scale, Dropout drop) {
-  attention_bwd_block<T, D, true, false>(q, k, v, bias, g, dq, dk, dv,
-                                         nullptr, Lq, Lk, H, scale, drop,
-                                         nullptr);
+                             T* __restrict__ dk, T* __restrict__ dv,
+                             float* __restrict__ db_part, int Lq, int Lk,
+                             int H, float scale, Dropout drop) {
+  attention_bwd_body<T, D, false, true>(q, k, v, bias, g, dq, dk, dv,
+                                        db_part, Lq, Lk, H, scale, drop,
+                                        nullptr);
 }
 
 template <typename T, int D>
@@ -81,23 +96,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* bias, const void* g, void* dq, void* dk,
-                       void* dv, int B, int Lq, int Lk, int H, float scale,
-                       Dropout drop, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(Lq, Lk, D);
-  auto kern = attention_dropout_bwd_kernel<T, D>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<static_cast<unsigned>(B) * H, kBwdWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), Lq, Lk, H, scale, drop);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_fwd_d(const void* q, const void* k, const void* v,
                          const void* bias, void* out, void* mask, int B,
@@ -114,8 +112,9 @@ cudaError_t launch_bwd_d(const void* q, const void* k, const void* v,
                          void* dv, int B, int Lq, int Lk, int H, int D,
                          float scale, Dropout drop, cudaStream_t stream) {
   VOLTA_SWITCH_HEAD_DIM(
-      D, return launch_bwd<T, kD>(q, k, v, bias, g, dq, dk, dv, B, Lq, Lk, H,
-                                  scale, drop, stream))
+      D, return launch_bwd_body<T, kD, true>(
+             attention_dropout_bwd_kernel<T, kD>, q, k, v, bias, g, dq, dk, dv,
+             nullptr, B, Lq, Lk, H, scale, stream, drop))
 }
 
 }  // namespace

@@ -45,12 +45,16 @@
 // forward's byte floor is 28 us and the backward's 49 us; row 7 takes
 // 0.040 ms, as row 1 takes 0.038 (0.240 ms on the CUDA-core body), and row
 // 8 takes 0.117 ms, as row 2 takes 0.114 (0.501 ms on the CUDA-core body).
-// Rows 5 and 6 keep the CUDA-core bodies of attention_common.cuh, bound
-// like rows 3-4 by the instruction rate and latency of their loops, not by
-// device memory (the mask adds 3.3 us to their floors): they take 0.286
-// and 0.528 ms (all NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 5),
-// row 6 a quarter less than row 4 on the natural layout with the same
-// loops, row 5 about as row 3.
+// Row 6 runs row 4's body (attention_bwd_body with kDropout: tensor cores
+// for bf16, CUDA cores for float32), its keep bits read once from the
+// forward's mask bytes in the first sweep, so it computes row 4's bits; at
+// the serving shape in bf16 its floor is 53 us (176 MB with the mask) and
+// it takes 0.149 ms, as row 4 takes 0.141 (0.526 ms on the CUDA-core
+// body). Row 5 keeps the CUDA-core forward of attention_common.cuh, bound
+// like row 3 by the instruction rate and latency of its loops, not by
+// device memory (the mask adds 3.3 us to its floor): it takes 0.286 ms,
+// about as row 3 (all NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase
+// 5).
 
 // Row 9's hidden masks. The TPU kernel draws them from its PRNG as
 // [H, B, Lq, D] bf16 and transposes them to the [B, Lq, H·D] layout of the
@@ -93,8 +97,9 @@ attention_head_major_bwd_kernel(const T* __restrict__ q,
                                 T* __restrict__ dk, T* __restrict__ dv,
                                 float* __restrict__ db_part, int Lq, int Lk,
                                 int H, float scale) {
-  attention_bwd_body<T, D, true>(q, k, v, bias, g, dq, dk, dv, db_part, Lq,
-                                 Lk, H, scale);
+  attention_bwd_body<T, D, true, false>(q, k, v, bias, g, dq, dk, dv,
+                                        db_part, Lq, Lk, H, scale,
+                                        Dropout{0u, 0u, 0.f}, nullptr);
 }
 
 template <typename T, int D>
@@ -160,21 +165,19 @@ attention_dropout_hidden_masks_fwd_kernel(
                                         lk_pad, drop, mask);
 }
 
+// Row 6: the body of row 4 (attention_bwd_body with kDropout: tensor cores
+// for bf16, the CUDA-core body for float32) with the head-major addressing,
+// the keep bits read from the forward's mask.
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-attention_dropout_head_major_bwd_kernel(const T* __restrict__ q,
-                                        const T* __restrict__ k,
-                                        const T* __restrict__ v,
-                                        const float* __restrict__ bias,
-                                        const T* __restrict__ g,
-                                        const uint8_t* __restrict__ mask,
-                                        T* __restrict__ dq,
-                                        T* __restrict__ dk,
-                                        T* __restrict__ dv, int Lq, int Lk,
-                                        int H, float scale, Dropout drop) {
-  attention_bwd_block<T, D, true, true>(q, k, v, bias, g, dq, dk, dv,
-                                        nullptr, Lq, Lk, H, scale, drop,
-                                        mask);
+__global__ void __launch_bounds__(kBwdThreads<T>, (kBwdMinBlocks<T, D>))
+attention_dropout_head_major_bwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, const T* __restrict__ g,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ db_part, int Lq, int Lk, int H, float scale,
+    Dropout drop, const uint8_t* __restrict__ mask) {
+  attention_bwd_body<T, D, true, true>(q, k, v, bias, g, dq, dk, dv, db_part,
+                                       Lq, Lk, H, scale, drop, mask);
 }
 
 // The forwards: grid (B * H, query tiles), as rows 1 and 3: row 7 with the
@@ -216,9 +219,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The backwards: one block per (b, h), as rows 2 and 4: row 8 with the
-// threads and shared memory of its body (launch_bwd_body), row 6 with
-// kBwdWarps warps.
+// The backwards: one block per (b, h) with the threads and shared memory
+// of their body (launch_bwd_body), as rows 2 and 4.
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* bias, const void* g, const void* mask,
@@ -226,20 +228,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        int Lq, int Lk, int H, float scale, const Dropout* drop,
                        cudaStream_t stream) {
   if (drop == nullptr)
-    return launch_bwd_body<T, D>(attention_head_major_bwd_kernel<T, D>, q, k,
-                                 v, bias, g, dq, dk, dv, db_part, B, Lq, Lk,
-                                 H, scale, stream);
-  const size_t smem = bwd_smem_bytes(Lq, Lk, D);
-  auto kern = attention_dropout_head_major_bwd_kernel<T, D>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<static_cast<unsigned>(B) * H, kBwdWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const T*>(g), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), Lq, Lk,
-      H, scale, *drop);
-  return cudaGetLastError();
+    return launch_bwd_body<T, D, false>(
+        attention_head_major_bwd_kernel<T, D>, q, k, v, bias, g, dq, dk, dv,
+        db_part, B, Lq, Lk, H, scale, stream);
+  return launch_bwd_body<T, D, true>(
+      attention_dropout_head_major_bwd_kernel<T, D>, q, k, v, bias, g, dq, dk,
+      dv, nullptr, B, Lq, Lk, H, scale, stream, *drop,
+      static_cast<const uint8_t*>(mask));
 }
 
 template <typename T>
