@@ -28,7 +28,9 @@ and each of which prints its seconds:
    backward) vs their twins at the serving shape in bf16 and fp32 and at
    odd shapes (Lq != Lk, Lq < 8, D = 16 and 128), kernels 2 and 4 also in
    bf16 at the tensor-core backward's tile edges (Lq and Lk at 63, 64, 65,
-   128) with one batch row whose keys are all padded but one: dq/dk/dv/db
+   128) and kernel 3 at the forward's (phase 3's, Lk = 563 among them,
+   within 2e-2, its mask bit-equal), with one batch row whose keys are all
+   padded but one: dq/dk/dv/db
    and the dropout output within two bf16 ulps of the largest value (fp32
    1e-5 relative), kernels 2's and 4's bf16 dq/dk/dv at (a) and the tile
    edges no more than SPLIT_RATIO times as far from the float64 recipe as
@@ -62,11 +64,15 @@ and each of which prints its seconds:
    wrappers and of an eval-mode sublayer tail with and without kernel 10;
 7. kernels 9 and 14 (the dropout attention that also draws two hidden
    keep masks, and the keep-mask kernel) vs their twins: row 9 at the
-   shapes of phase 4 in bf16 and fp32, its output and probability mask
-   bit-equal to row 5's for the same seed, its hidden masks bit-equal to
-   the twin's hash; row 14 at the train shape and odd ones, bit-equal to
-   its twin and to ``hash_dropout``'s zero pattern; keep fractions 0.9 +-
-   0.005 at b256; device times (``kernel_ms``) at the train shape;
+   shapes of phase 4 in bf16 and fp32 and at phase 3's tile edges in bf16
+   (one batch row all padded but one key; within 2e-2 there), its
+   probability mask bit-equal to row 5's for the same seed, its output
+   bit-equal to row 3's on the same operands in bf16 (the tensor-core
+   body, two addressings) and to row 5's in fp32 (the CUDA-core body), its
+   hidden masks bit-equal to the twin's hash; row 14 at the train shape
+   and odd ones, bit-equal to its twin and to ``hash_dropout``'s zero
+   pattern; keep fractions 0.9 +- 0.005 at b256; device times
+   (``kernel_ms``) at the train shape;
 8. kernels 15 and 16 (the probes' wgrad and matmul + bias + gelu) vs their
    twins at the probes' shapes and ragged ones (row 15 within one float32
    rounding per 16 of the summed length, row 16 within two bf16 ulps);
@@ -130,7 +136,8 @@ and each of which prints its seconds:
     match is bit-exact; then the gradients of one b256 bf16 batch,
     dropout-free (rows 1-2 or 7-8) and with the config's dropout (rows 3-4
     or 5-6, the twins drawing the same hash masks), natural and
-    head-major, with the kernels (every backward on the tensor cores)
+    head-major, and with ``fuse_hidden_dropout`` (rows 9 and 6), with the
+    kernels (every backward on the tensor cores)
     against the twins: within twice (at least 5e-2) the twins' distance
     from the twins with the attention's sums in float64;
 14. train-step throughput at b256 bf16, inputs on the card (forward,
@@ -141,7 +148,9 @@ and each of which prints its seconds:
     ``--profile`` the device time of a step by kernel, without and with the
     LayerNorm kernels, head-major, dropout-free natural and head-major, and
     with each hidden-mask flag;
-15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+15. the kernels' JSON line (the attention rows also with ``body``, the
+    body their wrapper runs in bf16), then ``{"ok": true, "device": ...}``
+    last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -495,11 +504,11 @@ def split_ratio(got, q, k, v, bias, g, scale, h, shape, keep=None,
 
 def check_train_kernels():
     """Phase 4: kernels 2-4 against their twins, kernels 2 and 4 also at
-    the bf16 tensor-core backward's tile edges with one batch row whose
-    keys are all padded but one, and in bf16 against the float64 recipe
-    there and at (a) (``split_ratio``); their times at (a)
-    (``kernel_ms``) and shares of the bound, and SDPA's forward + backward
-    beside kernel 2."""
+    the bf16 tensor-core backward's tile edges and kernel 3 at the
+    forward's, with one batch row whose keys are all padded but one, and
+    kernels 2 and 4 in bf16 against the float64 recipe there and at (a)
+    (``split_ratio``); their times at (a) (``kernel_ms``) and shares of the
+    bound, and SDPA's forward + backward beside kernel 2."""
     import torch
     import torch.nn.functional as F
 
@@ -576,6 +585,28 @@ def check_train_kernels():
         split_ratio(got, q, k, v, bias, g, d ** -0.5, h, BWD_EDGES[i])
         split_ratio(dgot, q, k, v, bias, g, d ** -0.5, h, BWD_EDGES[i],
                     keep=keep, row="kernel 4")
+    for i, (b, lq, lk, h, d) in enumerate(EDGES):
+        q, k, v, bias = attention_inputs(b, lq, lk, h, d, torch.bfloat16,
+                                         700 + i)
+        bias[0, 1:] = -10000.0
+        seed = 1700 + i
+        out, mask = adc.attention_dropout_fwd(q, k, v, bias, d ** -0.5, h,
+                                              RATE, seed, return_mask=True)
+        torch.cuda.synchronize()
+        keep = adc.keep_mask(seed, (b, h, lq, lk), RATE, device="cuda")
+        if not torch.equal(mask, keep):
+            raise RuntimeError(f"row-3 mask differs from the twin's at "
+                               f"{EDGES[i]}")
+        ref = adc.attention_dropout_fwd_ref(q, k, v, bias, d ** -0.5, h, RATE,
+                                            keep)
+        err = float((out.float() - ref.float()).abs().max())
+        print(f"kernel 3 B={b} Lq={lq} Lk={lk} H={h} D={d} bfloat16: max "
+              f"abs diff vs twin {err:.3e} (tol {TOL['bfloat16']:g}), mask "
+              "bit-equal", flush=True)
+        if out.shape != ref.shape or out.dtype != ref.dtype \
+                or not bool(torch.isfinite(out).all()) \
+                or err > TOL["bfloat16"]:
+            raise RuntimeError(f"kernel 3 disagrees at {EDGES[i]}")
     q, k, v, bias, g, scale, h, seed = args
     b, lq, lk, d = q.shape[0], q.shape[1], k.shape[1], q.shape[2] // h
     shape = (b, h, lq, lk)
@@ -845,54 +876,82 @@ def check_head_major_kernels():
 
 def check_mask_kernels():
     """Phase 7: kernels 9 and 14 against their twins. Row 9 at the shapes
-    of phase 4, its output and probability mask bit-equal to row 5's for
-    the same seed and its hidden masks bit-equal to the twin's; row 14 at
-    the train shape and odd ones, bit-equal to its twin and to
+    of phase 4 in bf16 and fp32 and at the forward's tile edges in bf16
+    (one batch row whose keys are all padded but one): its probability
+    mask and hidden masks bit-equal to the twin's hash; its output within
+    the tolerance of the twin's and bit-equal to row 3's on the same
+    operands in the natural layout in bf16 (one tensor-core body), to row
+    5's in fp32 (one CUDA-core body), its probability mask to row 5's;
+    row 14 at the train shape and odd ones, bit-equal to its twin and to
     ``hash_dropout``'s zero pattern; keep fractions 0.9 +- 0.005 at b256;
     times of both at the train shape."""
     import torch
 
     from volta_tpu_torch.models.layers import hash_dropout
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
     from volta_tpu_torch.ops import dropout_mask as dm
 
-    report = {}
-    for i, shape in enumerate([SERVING] + ODD):
+    def row_9(shape, dt, seed, edge=False):
+        """Row 9 at one shape against its twin, row 3 (bf16) and row 5;
+        returns its max abs difference from the twin, its hidden masks'
+        keep fractions and its operands."""
         b, lq, lk, h, d = shape
-        for dt in ("bfloat16", "float32"):
-            q3, k3, v3, bias = attention_inputs(b, lq, lk, h, d,
-                                                getattr(torch, dt), 300 + i)
-            q, k, v = (head_major(x, h) for x in (q3, k3, v3))
-            scale, seeds = d ** -0.5, (3000 + i, 3100 + i, 3200 + i)
-            out, mask, hm0, hm1 = ahc.attention_dropout_hidden_masks_fwd(
-                q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:])
-            out5, mask5 = ahm.attention_dropout_head_major_fwd(
-                q, k, v, bias, scale, RATE, seeds[0])
-            torch.cuda.synchronize()
-            if not (torch.equal(out, out5) and torch.equal(mask, mask5)):
-                raise RuntimeError(f"row 9 differs from row 5 at {shape} "
-                                   f"{dt}")
-            ref, rmask, r0, r1 = ahc.attention_dropout_hidden_masks_fwd_ref(
-                q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:])
-            if not (torch.equal(mask, rmask) and torch.equal(hm0, r0)
-                    and torch.equal(hm1, r1)):
-                raise RuntimeError(f"row 9 masks differ from the twin's at "
-                                   f"{shape} {dt}")
+        q3, k3, v3, bias = attention_inputs(b, lq, lk, h, d,
+                                            getattr(torch, dt), seed)
+        if edge:
+            bias[0, 1:] = -10000.0
+        q, k, v = (head_major(x, h) for x in (q3, k3, v3))
+        scale, seeds = d ** -0.5, (10 * seed, 10 * seed + 1, 10 * seed + 2)
+        out, mask, hm0, hm1 = ahc.attention_dropout_hidden_masks_fwd(
+            q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:])
+        out5, mask5 = ahm.attention_dropout_head_major_fwd(
+            q, k, v, bias, scale, RATE, seeds[0])
+        torch.cuda.synchronize()
+        if dt == "bfloat16":
+            same = torch.equal(natural(out), adc.attention_dropout_fwd(
+                q3, k3, v3, bias, scale, h, RATE, seeds[0]))
+            other = "kernel 3's"
+        else:
+            same, other = torch.equal(out, out5), "kernel 5's"
+        if not (same and torch.equal(mask, mask5)):
+            raise RuntimeError(f"row 9 differs from {other} output or row "
+                               f"5's mask at {shape} {dt}")
+        ref, rmask, r0, r1 = ahc.attention_dropout_hidden_masks_fwd_ref(
+            q, k, v, bias, scale, RATE, seeds[0], RATE, *seeds[1:])
+        if not (torch.equal(mask, rmask) and torch.equal(hm0, r0)
+                and torch.equal(hm1, r1)):
+            raise RuntimeError(f"row 9 masks differ from the twin's at "
+                               f"{shape} {dt}")
+        if edge:
+            err = float((out.float() - ref.float()).abs().max())
+            if not (bool(torch.isfinite(out).all()) and err <= TOL[dt]):
+                raise RuntimeError(f"kernel 9 disagrees at {shape}: max "
+                                   f"abs diff {err:.3e}")
+        else:
             err = close(out, ref, dt, "kernel 9")
-            frac = [float(m.float().mean()) for m in (hm0, hm1)]
-            print(f"kernel 9 B={b} Lq={lq} Lk={lk} H={h} D={d} {dt}: out "
-                  f"and probability mask bit-equal to kernel 5's, max abs "
-                  f"diff vs twin {err:.3e}, hidden masks bit-equal to the "
-                  f"twin's, keep fractions {frac[0]:.5f} / {frac[1]:.5f}",
-                  flush=True)
+        frac = [float(m.float().mean()) for m in (hm0, hm1)]
+        print(f"kernel 9 B={b} Lq={lq} Lk={lk} H={h} D={d} {dt}: out "
+              f"bit-equal to {other}, probability mask to kernel 5's, max "
+              f"abs diff vs twin {err:.3e}, masks bit-equal to the twin's, "
+              f"hidden keep fractions {frac[0]:.5f} / {frac[1]:.5f}",
+              flush=True)
+        return err, frac, (q, k, v, bias, scale, seeds)
+
+    report = {}
+    for i, shape in enumerate(EDGES):
+        row_9(shape, "bfloat16", 380 + i, edge=True)
+    for i, shape in enumerate([SERVING] + ODD):
+        for dt in ("bfloat16", "float32"):
+            err, frac, operands = row_9(shape, dt, 300 + i)
             if shape == SERVING:
                 if max(abs(f - (1 - RATE)) for f in frac) > 0.005:
                     raise RuntimeError(f"row 9 keep fractions {frac}")
                 if dt == "bfloat16":
                     report["attention_dropout_hidden_masks_fwd"] = {
                         "max_abs_err": err}
-                    args = (q, k, v, bias, scale, seeds)
+                    args = operands
     for shape in (TRAIN_ROWS, (7, 768), (33, 100), (5,), (256, 60, 768)):
         seed = 0xD00D + shape[0]
         got = dm.keep_mask(shape, RATE, seed, "cuda")
@@ -1336,10 +1395,10 @@ def twins():
 
 @contextlib.contextmanager
 def float64_attention():
-    """Rows 1-8's functions with their sums in float64 in their wrappers'
+    """Rows 1-9's functions with their sums in float64 in their wrappers'
     places: the forward's probabilities and every output still rounded to
     the operand dtype, only the sums taken otherwise; the dropout rows
-    (3-6) drop what the kernels drop (the hash mask of the same seed).
+    (3-6, 9) drop what the kernels drop (the hash masks of the same seeds).
     Inside ``twins()`` this is the plain model with other sums, whose
     distance from the twins is the noise floor that the kernels' own
     summation order is held to."""
@@ -1348,6 +1407,8 @@ def float64_attention():
     from volta_tpu_torch.ops import attention_cuda as ac
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+    from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
+    from volta_tpu_torch.ops import dropout_mask as dm
     from volta_tpu_torch.ops.attention import attention_probs
 
     def fwd(q, k, v, bias, scale, heads, factor=None):
@@ -1405,6 +1466,14 @@ def float64_attention():
             *(x.double() for x in (q, k, v, bias, g)), mask, scale, rate)
         return tuple(x.to(q.dtype) for x in grads)
 
+    def hidden_masks_fwd(q, k, v, bias, scale, rate, seed, hidden_rate,
+                         hseed0, hseed1):
+        h, b, lq, d = q.shape
+        out, mask = dropout_fwd_head_major(q, k, v, bias, scale, rate, seed)
+        return (out, mask) + tuple(
+            dm.keep_mask_ref((b, lq, h * d), hidden_rate, s, q.device)
+            for s in (hseed0, hseed1))
+
     swaps = [(ac, "attention_fwd", fwd),
              (ahm, "attention_head_major_fwd", fwd_head_major),
              (ac, "attention_bwd", bwd),
@@ -1414,7 +1483,8 @@ def float64_attention():
              (ahm, "attention_dropout_head_major_fwd",
               dropout_fwd_head_major),
              (ahm, "attention_dropout_head_major_bwd",
-              dropout_bwd_head_major)]
+              dropout_bwd_head_major),
+             (ahc, "attention_dropout_hidden_masks_fwd", hidden_masks_fwd)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -2012,11 +2082,12 @@ def grad_distance(a, b):
                if not n.endswith("key.bias") and float(b[n].norm()) > 0)
 
 
-def compare_bf16_grads(task_cfg, batch_np, hm):
+def compare_bf16_grads(task_cfg, batch_np, hm, fuse):
     """Phase 13, bf16: the gradients of one b256 batch with the kernels
     against the twins, dropout-free (rows 1-2 natural, 7-8 head-major) and
-    with the config's dropout (rows 3-4 natural, 5-6 head-major; the twins
-    draw the same hash masks): the backwards on the tensor-core bodies,
+    with the config's dropout (rows 3-4 natural, 5-6 head-major, and with
+    ``fuse_hidden_dropout`` (``fuse``) rows 9 and 6; the twins draw the
+    same hash masks): the backwards on the tensor-core bodies,
     within NOISE_FACTOR times the twins' distance from the twins with the
     attention's sums in float64 (forward and backward), at least GRAD_TOL;
     the dropout-free head-major model's distance from the natural
@@ -2039,6 +2110,9 @@ def compare_bf16_grads(task_cfg, batch_np, hm):
              expect(attention_dropout_fwd=12, attention_dropout_bwd=12)),
             ("head-major", hm, True,
              expect(attention_dropout_head_major_fwd=12,
+                    attention_dropout_head_major_bwd=12)),
+            ("fuse_hidden_dropout", fuse, True,
+             expect(attention_dropout_hidden_masks_fwd=12,
                     attention_dropout_head_major_bwd=12))):
         what = "with dropout" if dropout else "dropout-free"
         model = build_model(task_cfg, "bfloat16", config).train(dropout)
@@ -2328,7 +2402,7 @@ def main(argv):
         with phase("13 fp32 steps, bf16 gradients"):
             compare_steps(task_cfg, batch, flagged, hm, fuse, pmask,
                           masks_ln)
-            compare_bf16_grads(task_cfg, batch, hm)
+            compare_bf16_grads(task_cfg, batch, hm, fuse)
         with phase("14 train throughput"):
             rates = train_throughput(task_cfg, batch, power,
                                      "--profile" in argv, flagged, hm,
@@ -2389,6 +2463,20 @@ def main(argv):
                   "hidden_masks"]["attention_dropout_hidden_masks_fwd"],
               "keep_mask": launches["keep_mask"]["keep_mask"],
               **probe_launches}
+    # the body each attention kernel runs in bf16, as its wrapper routes it
+    # (row 5 keeps the CUDA-core body in both dtypes)
+    fwd, bwd = attention_cuda.fwd_body, attention_cuda.bwd_body
+    bf16 = torch.bfloat16
+    bodies = {"attention_fwd": fwd(bf16)[0],
+              "attention_head_major_fwd": fwd(bf16)[0],
+              "attention_dropout_fwd": fwd(bf16, dropout=True)[0],
+              "attention_dropout_hidden_masks_fwd":
+                  fwd(bf16, dropout=True)[0],
+              "attention_dropout_head_major_fwd": "CUDA-core",
+              "attention_bwd": bwd(bf16)[0],
+              "attention_head_major_bwd": bwd(bf16)[0],
+              "attention_dropout_bwd": bwd(bf16, dropout=True)[0],
+              "attention_dropout_head_major_bwd": bwd(bf16, dropout=True)[0]}
     rows = [{"name": name, "route": "cuda", "source": CSRC + src,
              "replaces": replaces, "launches": counts[name],
              "max_abs_err": results[name]["max_abs_err"],
@@ -2399,7 +2487,8 @@ def main(argv):
              "bound_share": results[name]["bound"][0] / results[name]["ms"],
              "library_ms": results[name]["library_ms"],
              **{k: results[name][k] for k in ("shapes",)
-                if k in results[name]}}
+                if k in results[name]},
+             **({"body": bodies[name]} if name in bodies else {})}
             for name, (src, replaces) in KERNELS.items()]
     print(power, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -124,6 +124,47 @@ def test_tensor_core_forward_matches_twin(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SERVING] + ODD + EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_dropout_forward_matches_twins(cuda_device, shape):
+    """Rows 3 and 9 in bf16 run the tensor-core body's dropout flavour:
+    within 2e-2 of their twins at the serving shape, odd shapes and the
+    forward's tile edges, with one batch row whose keys are all padded but
+    one; row 3's keep mask and row 9's probability and hidden masks
+    bit-equal to the twins' hash; row 9's output equal to row 3's bit for
+    bit on the same operands and seed."""
+    from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
+
+    assert attention_cuda.fwd_body(torch.bfloat16, dropout=True)[0] \
+        == "tensor-core"
+    b, lq, lk, h, d = shape
+    q, k, v, bias, _ = _inputs(shape, "bfloat16", cuda_device, seed=13)
+    bias[0, 1:] = -10000.0
+    scale, seed = d ** -0.5, 0xFACE + lq + lk
+    names = ("attention_dropout_fwd", "attention_dropout_hidden_masks_fwd")
+    before = tuple(LAUNCHES[n] for n in names)
+    out, mask = adc.attention_dropout_fwd(q, k, v, bias, scale, h, RATE,
+                                          seed, return_mask=True)
+    hq, hk, hv = (_head_major(x, h) for x in (q, k, v))
+    hout, hmask, hm0, hm1 = ahc.attention_dropout_hidden_masks_fwd(
+        hq, hk, hv, bias, scale, RATE, seed, RATE, seed + 1, seed + 2)
+    torch.cuda.synchronize()
+    assert tuple(LAUNCHES[n] - c for n, c in zip(names, before)) == (1, 1)
+    keep = adc.keep_mask(seed, (b, h, lq, lk), RATE, device=cuda_device)
+    assert torch.equal(mask, keep)
+    ref = adc.attention_dropout_fwd_ref(q, k, v, bias, scale, h, RATE, keep)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+    rout, rmask, r0, r1 = ahc.attention_dropout_hidden_masks_fwd_ref(
+        hq, hk, hv, bias, scale, RATE, seed, RATE, seed + 1, seed + 2)
+    assert torch.equal(hmask, rmask) and torch.equal(hm0, r0) \
+        and torch.equal(hm1, r1)
+    assert float((hout.float() - rout.float()).abs().max()) <= 2e-2
+    assert torch.equal(hout.permute(1, 2, 0, 3).reshape(q.shape), out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("want_db", [False, True], ids=["no_db", "db"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [SERVING] + ODD + BWD_EDGES,
@@ -216,12 +257,13 @@ def test_bwd_products_take_float32_probabilities(cuda_device, shape, row):
                          ids=lambda s: "x".join(map(str, s)))
 def test_dropout_kernels_match_twins(cuda_device, dtype, shape):
     """Rows 3 and 4 against their twins fed the hash mask, with one batch
-    row whose keys are all padded but one: row 3 (the CUDA-core forward)
-    and its mask, row 4 on the tensor-core body in bf16 and the CUDA-core
-    body in float32, at the serving shape, odd shapes and the tensor-core
-    backward's tile edges."""
-    body = attention_cuda.bwd_body(getattr(torch, dtype), dropout=True)[0]
-    assert body == ("tensor-core" if dtype == "bfloat16" else "CUDA-core")
+    row whose keys are all padded but one: row 3 and its mask, row 4, each
+    on its tensor-core body in bf16 and its CUDA-core body in float32, at
+    the serving shape, odd shapes and the tensor-core backward's tile
+    edges."""
+    want = "tensor-core" if dtype == "bfloat16" else "CUDA-core"
+    assert attention_cuda.fwd_body(getattr(torch, dtype), True)[0] == want
+    assert attention_cuda.bwd_body(getattr(torch, dtype), True)[0] == want
     b, lq, lk, h, d = shape
     q, k, v, bias, g = _inputs(shape, dtype, cuda_device, seed=2)
     bias[0, 1:] = -10000.0
@@ -258,8 +300,10 @@ def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
     (rows 1 and 7 share the body): float32 on the CUDA-core body, the
     largest Lk its shared memory takes at Lq = 5; bf16 on the tensor-core
     body, whose shared memory does not grow with Lk, four times that Lk, and
-    the largest Lq its grid takes. The dropout forward (row 3, CUDA-core in
-    both dtypes) at its largest Lk. The backwards at Lq = 128: the dropout
+    the largest Lq its grid takes. The dropout forwards (rows 3 and 9 share
+    the body): float32 on the CUDA-core body at its largest Lk; bf16 on
+    the tensor-core body at four times that Lk and the largest Lq its grid
+    takes. The backwards at Lq = 128: the dropout
     backward (row 4) at the largest Lk of its body (CUDA-core in float32,
     tensor-core in bf16); the no-dropout backward (rows 2 and 8 share the
     body) on the CUDA-core body in float32 at the CUDA-core largest Lk, on
@@ -310,16 +354,57 @@ def test_largest_lengths_run_and_the_next_raise(cuda_device, d, dtype):
                          device=cuda_device)
         with pytest.raises(ValueError, match="grid"):
             attention_cuda.attention_fwd(q2, k, v, bias, scale, 1)
-    # the dropout forward: the largest Lk at Lq = 5
-    q, k, v, bias, g = _inputs((1, 5, core_lk, 2, d), dtype, cuda_device)
+    # the dropout forwards: the largest Lk of the CUDA-core body at Lq = 5
+    # in float32, four times it in bf16, and in bf16 the largest Lq
+    from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
+
+    dname, drows, dsmem = attention_cuda.fwd_body(getattr(torch, dtype),
+                                                  dropout=True)
+    dlk = core_lk if dname == "CUDA-core" else 4 * core_lk
+    q, k, v, bias, g = _inputs((1, 5, dlk, 2, d), dtype, cuda_device)
     out, mask = adc.attention_dropout_fwd(q, k, v, bias, scale, 2, RATE, 7,
                                           return_mask=True)
     _assert_close(out, adc.attention_dropout_fwd_ref(
-        q, k, v, bias, scale, 2, RATE, mask), dtype, "dropout fwd")
+        q, k, v, bias, scale, 2, RATE, mask), dtype,
+        f"dropout fwd ({dname}) at Lk = {dlk}")
+    hq, hk, hv = (_head_major(x, 2) for x in (q, k, v))
+    hout, hmask, _, _ = ahc.attention_dropout_hidden_masks_fwd(
+        hq, hk, hv, bias, scale, RATE, 7, RATE, 8, 9)
+    _assert_close(hout, ahc.attention_dropout_hidden_masks_fwd_ref(
+        hq, hk, hv, bias, scale, RATE, 7, RATE, 8, 9)[0], dtype,
+        f"row 9 ({dname}) at Lk = {dlk}")
+    assert torch.equal(hmask.transpose(0, 1).bool(), mask)
     _, k2, v2, bias2, _ = _inputs((1, 5, core_lk + 1, 2, d), dtype,
                                   cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        adc.attention_dropout_fwd(q, k2, v2, bias2, 0.1, 2, RATE, 7)
+    if dname == "CUDA-core":
+        assert _max_lk(dsmem, 5, d) == core_lk
+        with pytest.raises(ValueError, match="shared memory"):
+            adc.attention_dropout_fwd(q, k2, v2, bias2, 0.1, 2, RATE, 7)
+        with pytest.raises(ValueError, match="shared memory"):
+            ahc.attention_dropout_hidden_masks_fwd(
+                hq, _head_major(k2, 2), _head_major(v2, 2), bias2, 0.1, RATE,
+                7, RATE, 8, 9)
+    else:
+        assert dsmem(5, dlk, d) == dsmem(1, 1, d) <= \
+            attention_cuda.MAX_SMEM_BYTES
+        lq = 65535 * drows  # 4.2M queries: drawn on the card
+        _, k, v, bias, _ = _inputs((1, 1, 3, 1, d), dtype, cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(d + 1)
+        q = torch.randn((1, lq, d), generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+        out, mask = adc.attention_dropout_fwd(q, k, v, bias, scale, 1, RATE,
+                                              7, return_mask=True)
+        _assert_close(out, adc.attention_dropout_fwd_ref(
+            q, k, v, bias, scale, 1, RATE, mask), dtype,
+            "dropout fwd at the largest Lq")
+        assert torch.equal(mask, adc.keep_mask(7, (1, 1, lq, 3), RATE,
+                                               device=cuda_device))
+        del q, out, mask
+        q2 = torch.empty((1, lq + 1, d), dtype=torch.bfloat16,
+                         device=cuda_device)
+        with pytest.raises(ValueError, match="grid"):
+            adc.attention_dropout_fwd(q2, k, v, bias, scale, 1, RATE, 7)
+        del q2
     # the dropout backward (rows 4 and 6 share the body) at Lq = 128 at the
     # largest Lk of its body: the CUDA-core body's in float32, the
     # tensor-core body's in bf16, where the keep bits grow by Lk / 8 bytes
@@ -727,16 +812,19 @@ def test_layer_norm_module_takes_the_kernels(cuda_device, fused):
 @pytest.mark.parametrize("shape", [SERVING] + ODD,
                          ids=lambda s: "x".join(map(str, s)))
 def test_hidden_mask_attention_matches_row_5(cuda_device, dtype, shape):
-    """Row 9 against row 5's kernel for the same seed (output and
-    probability mask bit-equal) and against its twin; its hidden masks
-    [B, Lq, H·D] bit-equal to the twin's hash."""
+    """Row 9 against row 5's kernel for the same seed, its probability mask
+    bit-equal; its output bit-equal to row 5's in fp32 (one CUDA-core body)
+    and, in bf16, to row 3's on the same operands in the natural layout
+    (one tensor-core body, two addressings), where row 5 still runs the
+    CUDA-core body; against its twin; its hidden masks [B, Lq, H·D]
+    bit-equal to the twin's hash."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
     from volta_tpu_torch.ops import dropout_mask as dm
 
     b, lq, lk, h, d = shape
-    q, k, v, bias, _ = _inputs(shape, dtype, cuda_device, seed=9)
-    q, k, v = (_head_major(x, h) for x in (q, k, v))
+    q3, k3, v3, bias, _ = _inputs(shape, dtype, cuda_device, seed=9)
+    q, k, v = (_head_major(x, h) for x in (q3, k3, v3))
     seed, scale = 0xC0DE + lq, d ** -0.5
     before = LAUNCHES["attention_dropout_hidden_masks_fwd"]
     out, mask, hm0, hm1 = ahc.attention_dropout_hidden_masks_fwd(
@@ -745,7 +833,13 @@ def test_hidden_mask_attention_matches_row_5(cuda_device, dtype, shape):
     assert LAUNCHES["attention_dropout_hidden_masks_fwd"] == before + 1
     out5, mask5 = ahm.attention_dropout_head_major_fwd(q, k, v, bias, scale,
                                                        RATE, seed)
-    assert torch.equal(out, out5) and torch.equal(mask, mask5)
+    assert torch.equal(mask, mask5)
+    if dtype == "float32":
+        assert torch.equal(out, out5)
+    else:
+        out3 = adc.attention_dropout_fwd(q3, k3, v3, bias, scale, h, RATE,
+                                         seed)
+        assert torch.equal(out.permute(1, 2, 0, 3).reshape(q3.shape), out3)
     ref, rmask, r0, r1 = ahc.attention_dropout_hidden_masks_fwd_ref(
         q, k, v, bias, scale, RATE, seed, RATE, seed + 1, seed + 2)
     _assert_close(out, ref, dtype, "row 9 out")

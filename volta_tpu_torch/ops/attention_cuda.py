@@ -26,13 +26,13 @@ from . import LAUNCHES, _build
 from .attention import acc_dtype, attention_out, attention_probs
 
 HEAD_DIMS = (16, 32, 64, 128)
-# the CUDA-core bodies (csrc/attention_common.cuh): the float32 forward and
-# backward, every dropout forward
+# the CUDA-core bodies (csrc/attention_common.cuh): every float32 forward
+# and backward, and the head-major dropout forward (row 5) in both dtypes
 ROWS_PER_BLOCK = 16  # kRowsPerBlock, the forward's query tile
 KEY_CHUNK = 32  # kKeyChunk
 BWD_ROWS = 32  # kBwdRows
-# the tensor-core bodies of the bf16 no-dropout forward (rows 1 and 7,
-# csrc/attention_fwd_tc.cuh) and of every bf16 backward (rows 2, 4, 6 and
+# the tensor-core bodies of the bf16 forwards but row 5's (rows 1, 3, 7 and
+# 9, csrc/attention_fwd_tc.cuh) and of every bf16 backward (rows 2, 4, 6 and
 # 8, csrc/attention_bwd_tc.cuh)
 TC_ROWS_PER_BLOCK = 64  # kTcRows, their query tile
 TC_KEYS = 64  # kTcKeys, their key tile
@@ -109,13 +109,16 @@ def tc_smem_bytes(head_dim: int) -> int:
             + 4 * TC_KEYS)
 
 
-def fwd_body(dtype):
-    """The body the no-dropout forward kernels (rows 1 and 7) run for
-    operands of ``dtype``, as their launchers choose it: the tensor-core
-    body for bf16, the CUDA-core body otherwise (float32; ``check`` refuses
-    other dtypes), whose tensor-core counterpart would compute in TF32.
-    Returns (name, query rows per block, shared memory (lq, lk, d) ->
-    bytes)."""
+def fwd_body(dtype, dropout=False):
+    """The body the forward kernels run for operands of ``dtype``, as their
+    launchers choose it: the no-dropout rows 1 and 7 or, with ``dropout``,
+    rows 3 and 9 run the tensor-core body for bf16 (with ``dropout`` its
+    flavour that draws the keep bits and writes the keep mask, on the same
+    tile and shared memory) and the CUDA-core body otherwise (float32;
+    ``check`` refuses other dtypes), whose tensor-core counterpart would
+    compute in TF32. Row 5 keeps the CUDA-core body in both dtypes
+    (``attention_head_major_cuda._dropout_fwd_smem``). Returns (name, query
+    rows per block, shared memory (lq, lk, d) -> bytes)."""
     if dtype == torch.bfloat16:
         return ("tensor-core", TC_ROWS_PER_BLOCK,
                 lambda lq, lk, d: tc_smem_bytes(d))

@@ -27,7 +27,7 @@ from torch.autograd.function import once_differentiable
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, _heads4, attention_bwd_math,
-                             bwd_body, check, launch_error, smem_bytes)
+                             bwd_body, check, fwd_body, launch_error)
 from .hash import dropout_threshold, hash_keep
 
 
@@ -100,7 +100,9 @@ def attention_dropout_fwd(q, k, v, bias, scale, heads, rate, seed,
     the mask drawn from the uint32 ``seed``: q [B,Lq,H·D], k/v [B,Lk,H·D]
     (bf16 or fp32), bias [B,Lk] float32 -> [B,Lq,H·D] in q.dtype; with
     ``return_mask`` also the bool keep mask [B,H,Lq,Lk] that was applied.
-    CPU tensors take the plain twin with ``keep_mask(seed, ...)``."""
+    bf16 runs the tensor-core body, fp32 the CUDA-core body (``fwd_body(
+    dtype, dropout=True)``). CPU tensors take the plain twin with
+    ``keep_mask(seed, ...)``."""
     _check_rate(rate, seed)
     b, lq, hd = q.shape
     lk = k.shape[1]
@@ -110,8 +112,8 @@ def attention_dropout_fwd(q, k, v, bias, scale, heads, rate, seed,
         out = attention_dropout_fwd_ref(q, k, v, bias, scale, heads, rate,
                                         keep)
         return (out, keep) if return_mask else out
-    check("attention_dropout_fwd", q, k, v, bias, heads,
-          lambda lq, lk, d: smem_bytes(lk, d))
+    _, rows, smem = fwd_body(q.dtype, dropout=True)
+    check("attention_dropout_fwd", q, k, v, bias, heads, smem, rows=rows)
     fn, _, err_str = _kernels()
     out = torch.empty_like(q)
     mask = torch.empty(shape, dtype=torch.uint8, device=q.device) \

@@ -6,8 +6,10 @@ Port of the TPU kernel of ``fuse_hidden_dropout``, Queue 2 row 9:
 ``_attn_dropout_fwd_hm_kernel`` (volta_tpu/ops/pallas_attention.py:125,
 launched by ``_dropout_hm_fwd_impl`` :809 behind
 ``pallas_dropout_attention_hm`` :779). On head-major [H, B, L, D] operands
-it computes row 5's output and probability keep mask and writes two uint8
-0/1 hidden keep masks [B, Lq, H·D], in the layout of the out-dense output
+it computes row 5's function and probability keep mask (in bf16 on row 3's
+tensor-core body, so its output is row 3's to the bit on the same operands;
+in fp32 on row 5's CUDA-core body) and writes two uint8 0/1 hidden keep
+masks [B, Lq, H·D], in the layout of the out-dense output
 that they mask: ``hm0`` for the attention sublayer's own tail, ``hm1`` for
 the next feed-forward's. Mask m keeps element i (the linear index of
 [B, Lq, H·D]) iff ``hash_keep(i, seed_m, hidden_rate)``, so a tail that
@@ -30,7 +32,7 @@ from torch.autograd.function import once_differentiable
 from . import LAUNCHES, _build
 from . import attention_head_major_cuda as ahm
 from . import dropout_mask as dm
-from .attention_cuda import DTYPE_CODE, check, launch_error, smem_bytes
+from .attention_cuda import DTYPE_CODE, check, fwd_body, launch_error
 from .attention_dropout_cuda import _check_rate, keep_scale
 from .hash import dropout_threshold
 
@@ -71,7 +73,9 @@ def attention_dropout_hidden_masks_fwd(q, k, v, bias, scale, rate, seed,
     bias [B,Lk] float32, its mask from the uint32 ``seed``, plus the hidden
     keep masks at ``hidden_rate`` for the uint32 seeds ``hseed0`` and
     ``hseed1``: (out [H,B,Lq,D] in q.dtype, mask [H,B,Lq,Lk], hm0, hm1
-    [B,Lq,H·D]), the masks uint8 0/1. CPU tensors take the plain twin."""
+    [B,Lq,H·D]), the masks uint8 0/1. bf16 runs row 3's tensor-core body,
+    fp32 the CUDA-core body (``fwd_body(dtype, dropout=True)``). CPU
+    tensors take the plain twin."""
     _check_rate(rate, seed)
     for s in (hseed0, hseed1):
         _check_rate(hidden_rate, s)
@@ -79,8 +83,8 @@ def attention_dropout_hidden_masks_fwd(q, k, v, bias, scale, rate, seed,
         return attention_dropout_hidden_masks_fwd_ref(
             q, k, v, bias, scale, rate, seed, hidden_rate, hseed0, hseed1)
     name = "attention_dropout_hidden_masks_fwd"
-    check(name, q, k, v, bias, None, lambda lq, lk, d: smem_bytes(lk, d),
-          head_major=True)
+    _, rows, smem = fwd_body(q.dtype, dropout=True)
+    check(name, q, k, v, bias, None, smem, head_major=True, rows=rows)
     h, b, lq, d = q.shape
     lk = k.shape[2]
     out = torch.empty_like(q)

@@ -1,9 +1,10 @@
 // Device code shared by the port's attention kernels (sm_90a).
 //
-// One CUDA-core forward block body (attention_fwd_block) serves the
-// no-dropout forward in float32 (rows 1 and 7; in bf16 they run the
-// tensor-core body of attention_fwd_tc.cuh) and the dropout forwards (rows
-// 3, 5 and 9) in both dtypes; one CUDA-core backward block body
+// One CUDA-core forward block body (attention_fwd_block) serves every
+// forward in float32, without dropout (rows 1 and 7) and with it (rows 3
+// and 9), and the head-major dropout forward (row 5) in both dtypes; in
+// bf16 rows 1, 7, 3 and 9 run the tensor-core body of attention_fwd_tc.cuh.
+// One CUDA-core backward block body
 // (attention_bwd_block) serves every backward in float32, without dropout
 // (rows 2 and 8) and with it (rows 4 and 6); in bf16 they all run the
 // tensor-core body of attention_bwd_tc.cuh. The rows' kernels are in

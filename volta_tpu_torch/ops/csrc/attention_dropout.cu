@@ -27,10 +27,16 @@
 // The forward writes the 0/1 mask it applied to mask_out only when asked
 // (tests and chip_smoke.py compare it with the plain twin's).
 //
-// The forward is the CUDA-core block of the float32 no-dropout forward
-// (attention_fwd_block in attention_common.cuh) with the keep factor
-// folded in, in both dtypes: bound by the issue of its loops, at 10x its
-// byte floor at B = 256, L = 60 on the H100.
+// The forward runs row 1's body through its dropout flavour
+// (attention_dropout_fwd_body): in bf16 the tensor-core body of
+// attention_fwd_tc.cuh with kDropout, which draws each probability's keep
+// bit once where it forms p and multiplies it in before the rounding; in
+// float32 the CUDA-core attention_fwd_block with kDropout, whose
+// tensor-core counterpart would compute in TF32. Its floor is row 1's, 28
+// us at B = 256, L = 60, H = 12, D = 64 in bf16, plus 11.1 M hashes of
+// about 10 integer operations each. In bf16 it takes 0.053 ms there, 0.53
+// of that floor, where the CUDA-core body took 0.29 ms, bound by the issue
+// of its loops (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 4).
 //
 // The backward runs row 2's body through its dropout flavour
 // (attention_bwd_body with kDropout): in bf16 the tensor-core body of
@@ -49,16 +55,43 @@
 
 namespace {
 
+// Row 3: attention_dropout_fwd_body, the keep bits drawn from the hash;
+// mask (null unless asked for) receives them. bf16 runs the tensor-core
+// body in this kernel, which asks for kFwdMinBlocks blocks an SM; float32
+// runs the CUDA-core body in the next, which leaves its registers to the
+// compiler (dropout_fwd_kernel picks).
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, (kFwdMinBlocks<T, D>))
 attention_dropout_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v,
                              const float* __restrict__ bias,
-                             T* __restrict__ out, uint8_t* __restrict__ mask,
-                             int Lq, int Lk, int H, float scale, int lk_pad,
-                             Dropout drop) {
-  attention_fwd_block<T, D, true, false>(q, k, v, bias, out, Lq, Lk, H,
-                                         scale, lk_pad, drop, mask);
+                             T* __restrict__ out, int Lq, int Lk, int H,
+                             float scale, Dropout drop,
+                             uint8_t* __restrict__ mask) {
+  attention_dropout_fwd_body<T, D, false>(q, k, v, bias, out, Lq, Lk, H,
+                                          scale, drop, mask);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_dropout_fwd_core_kernel(const T* __restrict__ q,
+                                  const T* __restrict__ k,
+                                  const T* __restrict__ v,
+                                  const float* __restrict__ bias,
+                                  T* __restrict__ out, int Lq, int Lk, int H,
+                                  float scale, Dropout drop,
+                                  uint8_t* __restrict__ mask) {
+  attention_dropout_fwd_body<T, D, false>(q, k, v, bias, out, Lq, Lk, H,
+                                          scale, drop, mask);
+}
+
+// Row 3's kernel for operands T (see kFwdMinBlocks).
+template <typename T, int D>
+constexpr auto dropout_fwd_kernel() {
+  if constexpr (kTensorCore<T>)
+    return attention_dropout_fwd_kernel<T, D>;
+  else
+    return attention_dropout_fwd_core_kernel<T, D>;
 }
 
 // Row 4: attention_bwd_body with kDropout (tensor cores for bf16, the
@@ -77,33 +110,15 @@ attention_dropout_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                         nullptr);
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const void* bias, void* out, void* mask, int B, int Lq,
-                       int Lk, int H, float scale, Dropout drop,
-                       cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D>(Lk);
-  auto kern = attention_dropout_fwd_kernel<T, D>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>(B) * H,
-                  (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), static_cast<uint8_t*>(mask), Lq, Lk, H, scale,
-      (Lk + 3) & ~3, drop);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_fwd_d(const void* q, const void* k, const void* v,
                          const void* bias, void* out, void* mask, int B,
                          int Lq, int Lk, int H, int D, float scale,
                          Dropout drop, cudaStream_t stream) {
   VOLTA_SWITCH_HEAD_DIM(
-      D, return launch_fwd<T, kD>(q, k, v, bias, out, mask, B, Lq, Lk, H,
-                                  scale, drop, stream))
+      D, return launch_fwd_body<T, kD>(
+             dropout_fwd_kernel<T, kD>(), q, k, v, bias, out, B, Lq, Lk, H,
+             scale, stream, drop, static_cast<uint8_t*>(mask)))
 }
 
 template <typename T>

@@ -1,8 +1,9 @@
-// The tensor-core forward body of the no-dropout attention for bf16
-// operands (sm_90a): rows 1 (attention_fwd.cu) and 7
-// (attention_head_major.cu). float32 operands keep the CUDA-core body
-// (attention_fwd_block in attention_common.cuh): the tensor cores would
-// compute them in TF32.
+// The tensor-core forward body of the attention for bf16 operands
+// (sm_90a): without dropout rows 1 (attention_fwd.cu) and 7
+// (attention_head_major.cu), with kDropout rows 3 (attention_dropout.cu)
+// and 9 (attention_head_major.cu). float32 operands keep the CUDA-core
+// body (attention_fwd_block in attention_common.cuh): the tensor cores
+// would compute them in TF32.
 //
 // It computes what _attn_kernel_nat_bh and _attn_kernel compute
 // (volta_tpu/ops/pallas_attention.py:72-84, 676-679), per (b, h, query i):
@@ -42,8 +43,22 @@
 // ldmatrix.trans of the staged [keys, D] tile. The output goes through the
 // warp's own Q rows in shared memory to 16-byte stores.
 //
-// With kDropout the keep factor multiplies p between the division and the
-// rounding, as in attention_fwd_block; no kernel instantiates it yet.
+// With kDropout (attention_dropout_fwd_body) it computes the recipe of
+// _attn_dropout_fwd_kernel_nat_bh (:510-523, row 3) and
+// _attn_dropout_fwd_hm_kernel (:125-141, row 9): the keep factor
+// (float32(1 / (1 - rate)) or 0) multiplies p in float32 between the
+// division and the rounding to bf16, as attention_fwd_block does, by
+// __fmul_rn so that no contraction moves a bit. Each probability's keep
+// bit is drawn once, where tc_pv forms its p: from the hash of its natural
+// index (prob_index) in both layouts, so row 9 drops what row 3 drops and,
+// on the same operands, computes row 3's bits. Pass 1 draws none. Only
+// probabilities inside Lq and Lk are drawn; the others are 0 or never
+// stored. mask_out, where not null (row 9 always, row 3 when asked),
+// receives the 0/1 bytes, [B, H, Lq, Lk] natural or [H, B, Lq, Lk]
+// head-major: a pair's Lq·Lk bytes are one run, and each lane stores its
+// two keys of a row straight from the accumulator layout, as one 2-byte
+// store where Lk is even (every (i·Lk + j) is then even) and as two bytes
+// where it is odd. Row 5 keeps the CUDA-core body in both dtypes.
 
 #pragma once
 
@@ -70,9 +85,20 @@ constexpr bool kTensorCore = std::is_same_v<T, bf16>;
 // to fit (its __launch_bounds__): 4 for the tensor-core body at D <= 64,
 // which holds it to 128 registers a thread without spills and ran faster
 // at the serving shape than without the cap; the compiler's choice
-// elsewhere (at D = 128 the cap spills).
+// elsewhere (at D = 128 the cap spills). The dropout flavour (rows 3 and 9)
+// at 4 keeps 128 registers at D = 64, row 9 with 56 bytes of spills, and
+// took 0.053 and 0.076 ms at the serving shape where at 3 (164 and 162
+// registers, no spills) it took 0.062 and 0.082. Their float32 kernels,
+// on the CUDA-core body, ask for no minimum (dropout_fwd_kernel,
+// hidden_masks_fwd_kernel): asked for 1, the body took 106 and 110
+// registers at D = 64 where it takes 40, and 0.57 and 0.58 ms where it
+// takes 0.29 (ptxas' report; chip_ab.py, NVIDIA H100 80GB HBM3, 700 W).
 template <typename T, int D>
 constexpr int kFwdMinBlocks = kTensorCore<T> && D <= 64 ? 4 : 1;
+
+// Query rows a block of the forward body of operands T.
+template <typename T>
+constexpr int kFwdRows = kTensorCore<T> ? kTcRows : kRowsPerBlock;
 
 // Shared memory of one block: Q, K and V tiles of D + kTcPad bf16 a row,
 // and a key tile's bias in float32.
@@ -262,16 +288,40 @@ __device__ __forceinline__ void tc_row_stats(float (&s)[kTcKeys / 8][4],
   }
 }
 
-// o += P V for one key tile: p = e / l (times the keep factor of
-// probability (i, j) with kDropout), rounded to bf16, e[n][e'] laid out as
-// tc_scores' s; i_row[r] is the query of row g + 8 r, j0 the tile's first
-// key.
+// The 0/1 keep bytes of a lane's keys j and j + 1 (j even) of its rows
+// i_row[0] and i_row[1] (keep[x] as tc_abt's acc[n][x]) into mask, the
+// pair's [Lq, Lk] bytes: a 2-byte store a row where Lk is even, else one a
+// byte; nothing at rows past Lq or keys past Lk.
+__device__ __forceinline__ void tc_put_mask(uint8_t* __restrict__ mask,
+                                            const bool (&keep)[4],
+                                            const int (&i_row)[2], int j,
+                                            int Lq, int Lk) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (i_row[r] >= Lq || j >= Lk) continue;
+    uint8_t* at = mask + static_cast<size_t>(i_row[r]) * Lk + j;
+    if ((Lk & 1) == 0) {
+      *reinterpret_cast<uint16_t*>(at) = static_cast<uint16_t>(
+          keep[2 * r] | (keep[2 * r + 1] << 8));
+    } else {
+      at[0] = keep[2 * r];
+      if (j + 1 < Lk) at[1] = keep[2 * r + 1];
+    }
+  }
+}
+
+// o += P V for one key tile: p = e / l, rounded to bf16, e[n][e'] laid out
+// as tc_scores' s; i_row[r] is the query of row g + 8 r, j0 the tile's
+// first key. With kDropout p is first multiplied by the keep factor of
+// probability (i, j), its bit drawn here (0 outside Lq and Lk) and, where
+// mask (the pair's [Lq, Lk] bytes) is not null, stored.
 template <int D, bool kDropout>
 __device__ __forceinline__ void tc_pv(const float (&e)[kTcKeys / 8][4],
                                       const float (&l)[2], const bf16* vs,
                                       int lane, const Dropout& drop, int b,
                                       int h, const int (&i_row)[2], int j0,
                                       int H, int Lq, int Lk,
+                                      uint8_t* __restrict__ mask,
                                       float (&o)[D / 8][4]) {
   constexpr int kLd = D + kTcPad;
   const int t = lane & 3;
@@ -280,17 +330,25 @@ __device__ __forceinline__ void tc_pv(const float (&e)[kTcKeys / 8][4],
   for (int kk = 0; kk < kTcKeys / 16; ++kk) {
     float p[2][4];
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
+    for (int half = 0; half < 2; ++half) {
+      // the lane's first key, and its keep bits (kDropout)
+      [[maybe_unused]] const int j = j0 + kk * 16 + half * 8 + 2 * t;
+      [[maybe_unused]] bool keep[4];
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         float pr = div_rn(e[2 * kk + half][x], l[x >> 1], r[x >> 1]);
         if constexpr (kDropout) {
-          const int j = j0 + kk * 16 + half * 8 + 2 * t + (x & 1);
-          pr *= keep_factor(drop, prob_index(b, h, i_row[x >> 1], j, H, Lq,
-                                             Lk));
+          const int i = i_row[x >> 1], jj = j + (x & 1);
+          keep[x] = i < Lq && jj < Lk &&
+                    hash_keep(prob_index(b, h, i, jj, H, Lq, Lk), drop.seed,
+                              drop.threshold);
+          pr = __fmul_rn(pr, keep[x] ? drop.scale : 0.f);
         }
         p[half][x] = pr;
       }
+      if constexpr (kDropout)
+        if (mask != nullptr) tc_put_mask(mask, keep, i_row, j, Lq, Lk);
+    }
     // the accumulator layout of key tiles 2 kk and 2 kk + 1 is the A layout
     // of keys 16 kk .. 16 kk + 15
     const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]),
@@ -313,13 +371,15 @@ __device__ __forceinline__ void tc_pv(const float (&e)[kTcKeys / 8][4],
 }
 
 // The block: grid (B * H, query tiles of kTcRows), kTcWarps * 32 threads,
-// tc_smem_bytes<D>() of dynamic shared memory.
+// tc_smem_bytes<D>() of dynamic shared memory. With kDropout, mask_out
+// (null unless asked for) receives the keep bytes, laid out by pair as the
+// operands are (HeadLayout::pair).
 template <int D, bool kHeadMajor, bool kDropout>
 __device__ __forceinline__ void attention_fwd_tc_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ bias,
     bf16* __restrict__ out, int Lq, int Lk, int H, float scale,
-    Dropout drop) {
+    Dropout drop, uint8_t* __restrict__ mask_out) {
   constexpr int kLd = D + kTcPad;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [kTcRows][kLd], then out
@@ -344,6 +404,10 @@ __device__ __forceinline__ void attention_fwd_tc_block(
   const bool active = i0 + r0 < Lq;     // it has a query row to compute
   const int i_row[2] = {i0 + r0 + g, i0 + r0 + g + 8};
   const int ntiles = (Lk + kTcKeys - 1) / kTcKeys;
+  uint8_t* const mask =
+      mask_out == nullptr
+          ? nullptr
+          : mask_out + lay.pair(b, h) * Lq * static_cast<size_t>(Lk);
 
   tc_stage<D>(q + qoff + static_cast<size_t>(i0) * rs, rs,
               min(kTcRows, Lq - i0), kTcRows, qs, tid);
@@ -383,7 +447,8 @@ __device__ __forceinline__ void attention_fwd_tc_block(
     for (int x = 0; x < 4; ++x) o[n][x] = 0.f;
   if (ntiles == 1) {
     if (active)
-      tc_pv<D, kDropout>(s, l, vs, lane, drop, b, h, i_row, 0, H, Lq, Lk, o);
+      tc_pv<D, kDropout>(s, l, vs, lane, drop, b, h, i_row, 0, H, Lq, Lk,
+                         mask, o);
   } else {
     // pass 2: the scores again, p and P V, a K and V tile at a time
     for (int t = 0; t < ntiles; ++t) {
@@ -404,7 +469,7 @@ __device__ __forceinline__ void attention_fwd_tc_block(
 #pragma unroll
         for (int x = 0; x < 4; ++x) s[n][x] = expf(s[n][x] - m[x >> 1]);
       tc_pv<D, kDropout>(s, l, vs, lane, drop, b, h, i_row, j0, H, Lq, Lk,
-                         o);
+                         mask, o);
     }
   }
   if (!active) return;
@@ -442,29 +507,48 @@ __device__ __forceinline__ void attention_fwd_body(
   const Dropout none{0u, 0u, 0.f};
   if constexpr (kTensorCore<T>)
     attention_fwd_tc_block<D, kHeadMajor, false>(q, k, v, bias, out, Lq, Lk,
-                                                  H, scale, none);
+                                                  H, scale, none, nullptr);
   else
     attention_fwd_block<T, D, false, kHeadMajor>(
         q, k, v, bias, out, Lq, Lk, H, scale, (Lk + 3) & ~3, none, nullptr);
 }
 
-// Launch kern, a kernel that runs attention_fwd_body<T, D, ...>, over
-// (B * H, query tiles) with the body's tile and shared memory.
-template <typename T, int D, typename Kernel>
+// The dropout forward of rows 3 (natural) and 9 (head-major): the
+// tensor-core body's kDropout flavour for bf16, the CUDA-core body with
+// kDropout for float32; mask_out (null unless asked for) receives the 0/1
+// keep mask, [B, H, Lq, Lk] or, head-major, [H, B, Lq, Lk].
+template <typename T, int D, bool kHeadMajor>
+__device__ __forceinline__ void attention_dropout_fwd_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out, int Lq, int Lk,
+    int H, float scale, Dropout drop, uint8_t* __restrict__ mask_out) {
+  if constexpr (kTensorCore<T>)
+    attention_fwd_tc_block<D, kHeadMajor, true>(q, k, v, bias, out, Lq, Lk,
+                                                 H, scale, drop, mask_out);
+  else
+    attention_fwd_block<T, D, true, kHeadMajor>(
+        q, k, v, bias, out, Lq, Lk, H, scale, (Lk + 3) & ~3, drop, mask_out);
+}
+
+// Launch kern, a kernel that runs attention_fwd_body or
+// attention_dropout_fwd_body <T, D, ...>, over (B * H, query tiles of
+// kFwdRows<T>) with the body's shared memory; tail (the dropout kernels'
+// Dropout, mask and hidden masks) follows the common arguments.
+template <typename T, int D, typename Kernel, typename... Tail>
 cudaError_t launch_fwd_body(Kernel kern, const void* q, const void* k,
                             const void* v, const void* bias, void* out, int B,
                             int Lq, int Lk, int H, float scale,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, Tail... tail) {
   const size_t smem =
       kTensorCore<T> ? tc_smem_bytes<D>() : fwd_smem_bytes<D>(Lk);
-  const int rows = kTensorCore<T> ? kTcRows : kRowsPerBlock;
+  constexpr int rows = kFwdRows<T>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(B) * H, (Lq + rows - 1) / rows);
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), Lq, Lk, H, scale);
+      static_cast<T*>(out), Lq, Lk, H, scale, tail...);
   return cudaGetLastError();
 }
 

@@ -50,11 +50,19 @@
 // forward's mask bytes in the first sweep, so it computes row 4's bits; at
 // the serving shape in bf16 its floor is 53 us (176 MB with the mask) and
 // it takes 0.149 ms, as row 4 takes 0.141 (0.526 ms on the CUDA-core
-// body). Row 5 keeps the CUDA-core forward of attention_common.cuh, bound
-// like row 3 by the instruction rate and latency of its loops, not by
+// body). Row 9 runs row 3's body (attention_dropout_fwd_body: the
+// tensor-core body's kDropout flavour for bf16, the CUDA-core body with
+// kDropout for float32), which draws the keep bits from the natural index's
+// hash and writes them as the [H, B, Lq, Lk] bytes row 6 reads: in bf16
+// it computes row 3's bits on the same operands, and with the masks it
+// writes (35 MB, its floor 38 us at the serving shape) it takes 0.077 ms
+// (0.30 ms on the CUDA-core body; chip_smoke.py phase 7). Row 5 keeps the
+// CUDA-core forward of attention_common.cuh in both dtypes for now, bound
+// like row 3 was by the instruction rate and latency of its loops, not by
 // device memory (the mask adds 3.3 us to its floor): it takes 0.286 ms,
-// about as row 3 (all NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase
-// 5).
+// about as row 3 took there (all NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py phase 5); moving it onto row 9's body is a change of its
+// kernel's call.
 
 // Row 9's hidden masks. The TPU kernel draws them from its PRNG as
 // [H, B, Lq, D] bf16 and transposes them to the [B, Lq, H·D] layout of the
@@ -63,8 +71,9 @@
 // mask's tail over the natural linear index (b·Lq + i)·H·D + h·D + j, so the
 // tails drop what hash_dropout would drop with the seeds they would draw,
 // and it is written in place, as one byte: each (b, h) block of the
-// forward writes its query rows' D contiguous bytes of each mask, four
-// bytes a store, before the attention body; no transpose follows. The
+// forward writes the D contiguous bytes of each mask of the query rows of
+// its body's tile (64 rows in bf16, 16 in float32), four bytes a store,
+// before the attention body; no transpose follows. The
 // masks add 2·B·Lq·H·D bytes to row 5's writes (23.6 MB at B = 256,
 // L = 60, H = 12, D = 64: 7 us at 3.35 TB/s).
 
@@ -102,6 +111,7 @@ attention_head_major_bwd_kernel(const T* __restrict__ q,
                                         Dropout{0u, 0u, 0.f}, nullptr);
 }
 
+// Row 5: the CUDA-core body with kDropout in both dtypes.
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_dropout_head_major_fwd_kernel(const T* __restrict__ q,
@@ -122,18 +132,17 @@ struct HiddenDropout {
   uint32_t threshold;
 };
 
-// Row 9's hidden masks for the query tile of block (b·H + h, tile): rows
-// i0 .. i0 + kRowsPerBlock of [B, Lq, H·D] at columns h·D .. h·D + D, four
-// bytes (one uint32 of 0/1 bytes) a thread a store.
+// Row 9's hidden masks for block (b·H + h, tile) of the body it runs
+// beside: that body's query rows i0 .. i0 + rows of [B, Lq, H·D] at
+// columns h·D .. h·D + D, four bytes (one uint32 of 0/1 bytes) a thread a
+// store.
 template <int D>
 __device__ __forceinline__ void hidden_masks_block(
-    uint8_t* __restrict__ hm0, uint8_t* __restrict__ hm1, int Lq, int H,
-    const HiddenDropout& hd) {
+    uint8_t* __restrict__ hm0, uint8_t* __restrict__ hm1, int i0, int rows,
+    int Lq, int H, const HiddenDropout& hd) {
   constexpr int kWords = D / 4;  // uint32 words of a row's D bytes
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const int i0 = blockIdx.y * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, Lq - i0);
   for (int idx = threadIdx.x; idx < rows * kWords; idx += kWarps * 32) {
     const int i = i0 + idx / kWords;
     const size_t off =
@@ -152,17 +161,57 @@ __device__ __forceinline__ void hidden_masks_block(
   }
 }
 
+// Row 9: the hidden masks of the body's query tile, then row 3's body
+// (attention_dropout_fwd_body) with the head-major addressing, writing the
+// probability mask.
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void hidden_masks_fwd_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out, int Lq, int Lk,
+    int H, float scale, Dropout drop, uint8_t* __restrict__ mask,
+    uint8_t* __restrict__ hm0, uint8_t* __restrict__ hm1,
+    const HiddenDropout& hidden) {
+  const int i0 = blockIdx.y * kFwdRows<T>;
+  hidden_masks_block<D>(hm0, hm1, i0, min(kFwdRows<T>, Lq - i0), Lq, H,
+                        hidden);
+  attention_dropout_fwd_body<T, D, true>(q, k, v, bias, out, Lq, Lk, H,
+                                         scale, drop, mask);
+}
+
+// Row 9 in bf16 (the tensor-core body, kFwdMinBlocks blocks an SM asked
+// for) and in float32 (the CUDA-core body, its registers left to the
+// compiler), as row 3's kernels.
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32, (kFwdMinBlocks<T, D>))
 attention_dropout_hidden_masks_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, T* __restrict__ out,
-    uint8_t* __restrict__ mask, uint8_t* __restrict__ hm0,
-    uint8_t* __restrict__ hm1, int Lq, int Lk, int H, float scale, int lk_pad,
-    Dropout drop, HiddenDropout hidden) {
-  hidden_masks_block<D>(hm0, hm1, Lq, H, hidden);
-  attention_fwd_block<T, D, true, true>(q, k, v, bias, out, Lq, Lk, H, scale,
-                                        lk_pad, drop, mask);
+    const float* __restrict__ bias, T* __restrict__ out, int Lq, int Lk,
+    int H, float scale, Dropout drop, uint8_t* __restrict__ mask,
+    uint8_t* __restrict__ hm0, uint8_t* __restrict__ hm1,
+    HiddenDropout hidden) {
+  hidden_masks_fwd_block<T, D>(q, k, v, bias, out, Lq, Lk, H, scale, drop,
+                               mask, hm0, hm1, hidden);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_dropout_hidden_masks_fwd_core_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out, int Lq, int Lk,
+    int H, float scale, Dropout drop, uint8_t* __restrict__ mask,
+    uint8_t* __restrict__ hm0, uint8_t* __restrict__ hm1,
+    HiddenDropout hidden) {
+  hidden_masks_fwd_block<T, D>(q, k, v, bias, out, Lq, Lk, H, scale, drop,
+                               mask, hm0, hm1, hidden);
+}
+
+// Row 9's kernel for operands T.
+template <typename T, int D>
+constexpr auto hidden_masks_fwd_kernel() {
+  if constexpr (kTensorCore<T>)
+    return attention_dropout_hidden_masks_fwd_kernel<T, D>;
+  else
+    return attention_dropout_hidden_masks_fwd_core_kernel<T, D>;
 }
 
 // Row 6: the body of row 4 (attention_bwd_body with kDropout: tensor cores
@@ -180,9 +229,10 @@ attention_dropout_head_major_bwd_kernel(
                                        Lq, Lk, H, scale, drop, mask);
 }
 
-// The forwards: grid (B * H, query tiles), as rows 1 and 3: row 7 with the
-// tile of its body (launch_fwd_body), rows 5 and 9 with kRowsPerBlock. With
-// hidden (row 9) hm[0] and hm[1] receive the hidden masks.
+// The forwards: grid (B * H, query tiles), as rows 1 and 3: rows 7 and 9
+// with the tile and shared memory of their bodies (launch_fwd_body), row 5
+// with the CUDA-core body's kRowsPerBlock. With hidden (row 9) hm[0] and
+// hm[1] receive the hidden masks.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* out, void* mask, void* const* hm,
@@ -192,30 +242,22 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   if (hidden == nullptr && drop == nullptr)
     return launch_fwd_body<T, D>(attention_head_major_fwd_kernel<T, D>, q, k,
                                  v, bias, out, B, Lq, Lk, H, scale, stream);
+  if (hidden != nullptr)
+    return launch_fwd_body<T, D>(
+        hidden_masks_fwd_kernel<T, D>(), q, k, v, bias, out, B, Lq, Lk, H,
+        scale, stream, *drop, static_cast<uint8_t*>(mask),
+        static_cast<uint8_t*>(hm[0]), static_cast<uint8_t*>(hm[1]), *hidden);
   const size_t smem = fwd_smem_bytes<D>(Lk);
+  auto kern = attention_dropout_head_major_fwd_kernel<T, D>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(B) * H,
                   (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
-  const int lk_pad = (Lk + 3) & ~3;
-  if (hidden != nullptr) {
-    auto kern = attention_dropout_hidden_masks_fwd_kernel<T, D>;
-    const cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<T*>(out), static_cast<uint8_t*>(mask),
-        static_cast<uint8_t*>(hm[0]), static_cast<uint8_t*>(hm[1]), Lq, Lk, H,
-        scale, lk_pad, *drop, *hidden);
-  } else {
-    auto kern = attention_dropout_head_major_fwd_kernel<T, D>;
-    const cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<T*>(out), static_cast<uint8_t*>(mask), Lq, Lk, H, scale,
-        lk_pad, *drop);
-  }
+  kern<<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(out), static_cast<uint8_t*>(mask), Lq, Lk, H, scale,
+      (Lk + 3) & ~3, *drop);
   return cudaGetLastError();
 }
 
