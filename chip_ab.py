@@ -20,8 +20,9 @@ checkout's kernels, and measures with chip_smoke's functions:
 - steps: ctrl_uniter_base's b256 bf16 train step (forward, backward, clip,
   AdamW; random weights from seed 0, one batch of chip_smoke's synthetic
   VQA data) with the config's dropout, with ``fuse_hidden_dropout`` and
-  head-major: three ``cuda_ms`` readings of 10 steps each, then
-  ``profile_device``'s device time by kernel family over 3 steps.
+  head-major: three ``cuda_ms`` readings of 10 steps each and the peak
+  device memory over them, then ``profile_device``'s device time by kernel
+  family over 3 steps.
 
 Every result line starts with the turn's side (``other`` or ``this``); the
 card's name and power limit come first.
@@ -63,6 +64,7 @@ def measure_steps(cs, side):
     import tempfile
 
     import numpy as np
+    import torch
 
     from volta_tpu_torch import train_task
     from volta_tpu_torch.config import VoltaConfig
@@ -90,11 +92,14 @@ def measure_steps(cs, side):
             model = cs.build_model(task_cfg, "bfloat16", config).train()
             state, step = cs.new_step(model, task_cfg,
                                       warmup_linear_schedule(1e-4, 10, 1000))
+            torch.cuda.reset_peak_memory_stats()
             ms = [cs.cuda_ms(lambda: step(state, batch), iters=10, warmup=2)
                   for _ in range(3)]
             print(f"{side} step {name}: wall ms a step "
                   f"{', '.join(f'{m:.3f}' for m in ms)} (median "
-                  f"{float(np.median(ms)):.3f})", flush=True)
+                  f"{float(np.median(ms)):.3f}), peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+                  flush=True)
             cs.profile_device(lambda: step(state, batch),
                               float(np.median(ms)), f"{side} step {name}")
             del model, state, step

@@ -41,8 +41,9 @@ and each of which prints its seconds:
 5. kernels 5-8 (the head-major dropout forward and backward, forward and
    backward) vs their twins at the shapes and tolerances of phase 4: row
    5's [H,B,Lq,Lk] mask bit-equal to the twin's, keep fraction 0.9 +-
-   0.005 at b256, row 5 vs row 3 on the same operands and seed (the same
-   dropped set, outputs within the tolerance), rows 7, 8 and 6 bit-equal
+   0.005 at b256, row 5 vs rows 3 and 9 on the same operands and seed (the
+   same dropped set; its output and mask bit-equal to row 9's, its output
+   to row 3's), rows 7, 8 and 6 bit-equal
    to rows 1, 2 and 4 on the same operands there (both dtypes) and at
    phases 3's and 4's tile edges in bf16 (where they are also held to
    their twins, row 6 also to the float64 recipe as in phase 4, and at
@@ -62,17 +63,22 @@ and each of which prints its seconds:
    the eval shape, each in turns with the torch LayerNorm forward or
    backward as the library yardstick; the host time per call of the
    wrappers and of an eval-mode sublayer tail with and without kernel 10;
-7. kernels 9 and 14 (the dropout attention that also draws two hidden
-   keep masks, and the keep-mask kernel) vs their twins: row 9 at the
-   shapes of phase 4 in bf16 and fp32 and at phase 3's tile edges in bf16
-   (one batch row all padded but one key; within 2e-2 there), its
-   probability mask bit-equal to row 5's for the same seed, its output
-   bit-equal to row 3's on the same operands in bf16 (the tensor-core
-   body, two addressings) and to row 5's in fp32 (the CUDA-core body), its
+7. kernels 9, 14 and K10 (the dropout attention that also draws two
+   hidden keep masks, the keep-mask kernel and the hash dropout) vs their
+   twins: row 9 at the shapes of phase 4 in bf16 and fp32 and at phase 3's
+   tile edges in bf16 (one batch row all padded but one key; within 2e-2
+   there), its output and probability mask bit-equal to row 5's for the
+   same seed (one body in each dtype), its output bit-equal to row 3's on
+   the same operands in bf16 (the tensor-core body, two addressings), its
    hidden masks bit-equal to the twin's hash; row 14 at the train shape
    and odd ones, bit-equal to its twin and to ``hash_dropout``'s zero
-   pattern; keep fractions 0.9 +- 0.005 at b256; device times
-   (``kernel_ms``) at the train shape;
+   pattern; K10 forward and backward bit-equal to the CPU twin of the same
+   inputs at the step's dropout sites (a tail [15360, 768], the embeddings
+   [256, 23 | 36, 768], the pooled output [256, 1024]), at an odd size
+   with NaN, Inf and -0, and on views 1-7 elements past a 16-byte
+   boundary, bf16 and fp32; keep fractions 0.9 +- 0.005 at b256; device
+   times (``kernel_ms``) at the train shape, K10 in both dtypes with its
+   byte bound;
 8. kernels 15 and 16 (the probes' wgrad and matmul + bias + gelu) vs their
    twins at the probes' shapes and ragged ones (row 15 within one float32
    rounding per 16 of the summed length, row 16 within two bf16 ulps);
@@ -114,8 +120,12 @@ and each of which prints its seconds:
    turns;
 12. train slice: ``python -m volta_tpu_torch.train_task``'s ``main()``, 2
     epochs at b256 in bf16 with the config's dropout: kernels 3 and 4 must
-    run exactly 12 times per step and kernel 1 12 times per validation
-    batch, losses finite and falling, one VAL line per epoch; 1 epoch of
+    run exactly 12 times per step, K10 27 times forward and 27 backward
+    (24 tails, 2 embeddings, the pooled output; 3 where a LayerNorm or
+    mask flag moves the tails, 1 where the config's dropout rates are 0:
+    the pooled output's fixed 0.1) and kernel 1 12 times per
+    validation batch, losses finite and falling, one VAL line per epoch;
+    1 epoch of
     the same config with its dropout rates set to 0, which must run kernel
     2 12 times per step; 1 epoch with the LayerNorm flags on, which must
     run kernels 12 and 13 24 times and kernels 10 and 11 5 times per step
@@ -149,8 +159,8 @@ and each of which prints its seconds:
     LayerNorm kernels, head-major, dropout-free natural and head-major, and
     with each hidden-mask flag;
 15. the kernels' JSON line (the attention rows also with ``body``, the
-    body their wrapper runs in bf16), then ``{"ok": true, "device": ...}``
-    last.
+    body their wrapper runs in bf16; ``pallas`` false for K10, which
+    replaces no Pallas kernel), then ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -249,14 +259,21 @@ KERNELS = {
     "attention_dropout_hidden_masks_fwd": (
         "attention_head_major.cu", "volta_tpu/ops/pallas_attention.py:125"),
     "keep_mask": ("dropout_mask.cu", "volta_tpu/ops/dropout_mask.py:28"),
+    "hash_dropout_fwd": ("hash_dropout.cu", "volta_tpu/models/layers.py:226"),
+    "hash_dropout_bwd": ("hash_dropout.cu", "volta_tpu/models/layers.py:226"),
     "wgrad": ("matmul.cu", "tools/wgrad_probe.py:36"),
     "matmul_bias_act": ("matmul.cu", "tools/pallas_ffn_probe.py:46"),
 }
+# K10: the JAX package's hash_dropout, which XLA fuses and no Pallas kernel
+# computes; its backward is the same kernel on the cotangent
+NOT_PALLAS = ("hash_dropout_fwd", "hash_dropout_bwd")
 # the probes' shapes: the b256 train step's tokens, hidden and FFN widths
 PROBE = (15360, 768, 3072)
 PROBE_ITERS = 3
 # the profile's kernel families, first match wins: the int64 ops are the
-# hash dropout's mask draws (the only int64 arithmetic of the step)
+# plain hash dropout's mask draws, which K10 replaces wherever it runs; the
+# step's other int64 kernels (the embeddings' backward sorts its indices and
+# sums by segment, the loss gathers and scatters) are a family of their own
 KERNEL_FAMILIES = (
     ("attention kernels", ("attention_",)),
     ("LayerNorm kernels (rows 10-11)", ("layer_norm_fwd_kernel",
@@ -264,6 +281,11 @@ KERNEL_FAMILIES = (
                                         "layer_norm_bwd_sum_kernel")),
     ("fused residual-LN kernels (rows 12-13)", ("dropout_residual_ln_",)),
     ("keep-mask kernel (row 14)", ("keep_mask_kernel",)),
+    ("hash dropout kernel (K10)", ("hash_dropout_kernel",)),
+    ("index sorts, gathers, scatters (int64)", (
+        "RadixSort", "DeviceUniqueByKey", "DeviceScan", "krn_partial",
+        "partial_segments", "compute_grad_weight", "embedding_backward",
+        "gather_kernel", "scatter_gather", "FillFunctor<long>")),
     ("hash dropout (int64 ops)", ("<long", "long>", "arange")),
     ("matmuls", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("torch LayerNorm fwd+bwd", ("layer_norm", "GammaBeta")),
@@ -368,6 +390,19 @@ def row_bound(name, n, d, itemsize):
     }[name]
     nbytes = rows * n * d * itemsize + vecs * d * 4 + stats * n * 4
     return bound(nbytes, ops * n * d, "fp32")
+
+
+# K10's launches a training forward, and as many backward: the 24 sublayer
+# tails, the two embedding outputs and the pooled output; the 3 that are no
+# tail where a flag moves the tails to rows 12, 14 or 9; the pooled output's
+# alone where the config's dropout rates are 0 (its rate is the head's fixed
+# 0.1, models/model.py, as in the JAX module)
+K10_SITES, K10_FLAGGED, K10_POOLED = 27, 3, 1
+
+
+def k10(n):
+    """K10's counts for n dropouts, forward and backward."""
+    return {"hash_dropout_fwd": n, "hash_dropout_bwd": n}
 
 
 def expect(**counts):
@@ -669,8 +704,9 @@ def natural(x):
 
 def check_head_major_kernels():
     """Phase 5: kernels 5-8 against their twins at the shapes of phase 4;
-    rows 5-6 against rows 3-4 for one seed on the same operands; rows 7, 8
-    and 6 equal to rows 1, 2 and 4 bit for bit there (row 8's summed bias
+    rows 5-6 against rows 3-4 for one seed on the same operands; rows 7, 5,
+    8 and 6 equal to rows 1, 3, 2 and 4 bit for bit there, and row 5's
+    output and mask to row 9's (one body each; row 8's summed bias
     gradient within float32 rounding) and, in bf16, at the tile edges of
     phases 3 and 4, where they are also held to their twins, row 6 also to
     the float64 recipe (``split_ratio``) there and at (a); their times at
@@ -681,6 +717,7 @@ def check_head_major_kernels():
     from volta_tpu_torch.ops import attention_cuda as ac
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
+    from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
 
     def same_as_row_1(out, q3, k3, v3, bias, scale, h, what):
         if not torch.equal(natural(out),
@@ -721,6 +758,9 @@ def check_head_major_kernels():
                 q3, k3, v3, bias, scale, h, RATE, seed, return_mask=True)
             ngot = adc.attention_dropout_bwd(q3, k3, v3, bias, g3, scale, h,
                                              RATE, seed)
+            out9, mask9 = ahc.attention_dropout_hidden_masks_fwd(
+                q, k, v, bias, scale, RATE, seed, RATE, seed + 1,
+                seed + 2)[:2]
             torch.cuda.synchronize()
             same_as_row_1(out, q3, k3, v3, bias, scale, h, f"{shape} {dt}")
             same_as_row_2(got, q3, k3, v3, bias, g3, scale, h,
@@ -749,15 +789,19 @@ def check_head_major_kernels():
                         q, k, v, bias, scale, RATE, keep), dt, "kernel 5"),
                 "attention_dropout_head_major_bwd": max(
                     close(a, r, dt, "kernel 6") for a, r in zip(dgot, dref))}
-            cross = close(natural(dout), nout, dt, "kernel 5 vs 3")
+            if not (torch.equal(natural(dout), nout)
+                    and torch.equal(dout, out9)
+                    and torch.equal(mask, mask9)):
+                raise RuntimeError(f"row 5 differs from row 3's output or "
+                                   f"row 9's output or mask at {shape} {dt}")
             same_as_row_4(dgot, ngot, f"{shape} {dt}")
             frac = float(mask.float().mean())
             print(f"kernels 7/8/5/6 B={b} Lq={lq} Lk={lk} H={h} D={d} {dt}: "
                   "max abs diff vs twins "
                   + " / ".join(f"{e:.3e}" for e in errs.values())
-                  + f", mask bit-equal to the twin's and to kernel 3's, "
-                  f"kernel 5 vs 3 {cross:.3e}, kernels 7, 8 and 6 "
-                  f"bit-equal to kernels 1, 2 and 4, keep fraction "
+                  + f", mask bit-equal to the twin's and to kernels 3's and "
+                  f"9's, kernels 7, 5, 8 and 6 bit-equal to kernels 1, 3, 2 "
+                  f"and 4, kernel 5 to kernel 9, keep fraction "
                   f"{frac:.5f}", flush=True)
             if shape == SERVING:
                 if abs(frac - (1 - RATE)) > 0.005:
@@ -875,16 +919,20 @@ def check_head_major_kernels():
 
 
 def check_mask_kernels():
-    """Phase 7: kernels 9 and 14 against their twins. Row 9 at the shapes
-    of phase 4 in bf16 and fp32 and at the forward's tile edges in bf16
-    (one batch row whose keys are all padded but one): its probability
+    """Phase 7: kernels 9, 14 and K10 against their twins. Row 9 at the
+    shapes of phase 4 in bf16 and fp32 and at the forward's tile edges in
+    bf16 (one batch row whose keys are all padded but one): its probability
     mask and hidden masks bit-equal to the twin's hash; its output within
-    the tolerance of the twin's and bit-equal to row 3's on the same
-    operands in the natural layout in bf16 (one tensor-core body), to row
-    5's in fp32 (one CUDA-core body), its probability mask to row 5's;
-    row 14 at the train shape and odd ones, bit-equal to its twin and to
-    ``hash_dropout``'s zero pattern; keep fractions 0.9 +- 0.005 at b256;
-    times of both at the train shape."""
+    the tolerance of the twin's, bit-equal to row 5's on the same operands
+    (one body: tensor cores in bf16, CUDA cores in fp32) and in bf16 to row
+    3's in the natural layout, its probability mask to row 5's; row 14 at
+    the train shape and odd ones, bit-equal to its twin and to
+    ``hash_dropout``'s zero pattern; K10 forward and backward at the train
+    step's dropout sites (a tail, the two embeddings, the pooled output), at
+    an odd size and on views 1-7 elements past a 16-byte boundary, in both
+    dtypes, bit-equal to the CPU twin of the same inputs; keep fractions
+    0.9 +- 0.005 at b256; times of the three at the train shape (K10 in
+    both dtypes)."""
     import torch
 
     from volta_tpu_torch.models.layers import hash_dropout
@@ -892,6 +940,7 @@ def check_mask_kernels():
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
     from volta_tpu_torch.ops import dropout_mask as dm
+    from volta_tpu_torch.ops import hash_dropout as hd
 
     def row_9(shape, dt, seed, edge=False):
         """Row 9 at one shape against its twin, row 3 (bf16) and row 5;
@@ -909,12 +958,14 @@ def check_mask_kernels():
         out5, mask5 = ahm.attention_dropout_head_major_fwd(
             q, k, v, bias, scale, RATE, seeds[0])
         torch.cuda.synchronize()
+        same = torch.equal(out, out5)
+        other = "kernel 5's"
         if dt == "bfloat16":
-            same = torch.equal(natural(out), adc.attention_dropout_fwd(
-                q3, k3, v3, bias, scale, h, RATE, seeds[0]))
-            other = "kernel 3's"
-        else:
-            same, other = torch.equal(out, out5), "kernel 5's"
+            same = same and torch.equal(natural(out),
+                                        adc.attention_dropout_fwd(
+                                            q3, k3, v3, bias, scale, h, RATE,
+                                            seeds[0]))
+            other = "kernels 5's and 3's"
         if not (same and torch.equal(mask, mask5)):
             raise RuntimeError(f"row 9 differs from {other} output or row "
                                f"5's mask at {shape} {dt}")
@@ -968,6 +1019,7 @@ def check_mask_kernels():
         if shape == TRAIN_ROWS and abs(frac - (1 - RATE)) > 0.005:
             raise RuntimeError(f"row-14 keep fraction {frac}")
     report["keep_mask"] = {"max_abs_err": 0.0}
+    report.update(check_hash_dropout())
 
     q, k, v, bias, scale, seeds = args
     h, b, lq, d = q.shape
@@ -987,16 +1039,89 @@ def check_mask_kernels():
             # a byte written for each element; the hash's integer
             # operations are not counted
             bound(n * dd, 0, "fp32"))}
+    for dt in ("bfloat16", "float32"):
+        x = torch.randn(TRAIN_ROWS, device="cuda").to(getattr(torch, dt))
+        for name, wrapper in (("hash_dropout_fwd", hd.hash_dropout_fwd),
+                              ("hash_dropout_bwd", hd.hash_dropout_bwd)):
+            # x read and the output written once each; the hash's integer
+            # operations are not counted
+            pairs[name if dt == "bfloat16" else f"{name} float32"] = (
+                lambda x=x, wrapper=wrapper: wrapper(x, 17, RATE),
+                lambda x=x: hd.hash_dropout_ref(x, 17, RATE),
+                bound(2 * x.numel() * x.element_size(), 0, "fp32"))
     for name, (kern, plain, bnd) in pairs.items():
         ms = kernel_ms(kern)
         plain_ms = kernel_ms(plain, iters=20)
         ms2 = kernel_ms(kern)
-        report[name].update(ms=(ms + ms2) / 2, plain_ms=plain_ms,
-                            library_ms=None, bound=bnd)
+        report.setdefault(name, {"max_abs_err": 0.0}).update(
+            ms=(ms + ms2) / 2, plain_ms=plain_ms, library_ms=None, bound=bnd)
         print(f"{name} time {(ms + ms2) / 2:.4f} ms (runs {ms:.4f}, "
               f"{ms2:.4f}), plain twin {plain_ms:.4f} ms (its hash "
               f"included), bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     return report
+
+
+def check_hash_dropout():
+    """K10 (phase 7) forward and backward on the card against its twin on
+    the CPU for the same inputs, bit for bit (NaN at the same places, a
+    NaN's payload the card's): at a sublayer tail, the text and image
+    embeddings and the pooled output of the b256 train step, at an odd
+    size with NaN, Inf and -0 among its values, and on views 1-7 elements
+    past a 16-byte boundary, in bf16 and fp32; keep fraction 0.9 +- 0.005
+    at the tail."""
+    import torch
+
+    from volta_tpu_torch.ops import hash_dropout as hd
+
+    def bits(t):
+        return t.cpu().view(torch.int16 if t.dtype == torch.bfloat16
+                            else torch.int32)
+
+    def same_bits(got, ref):
+        nan = torch.isnan(ref)
+        return (torch.equal(torch.isnan(got.cpu()), nan)
+                and torch.equal(bits(got)[~nan], bits(ref)[~nan]))
+
+    shapes = [TRAIN_ROWS, (256, 23, 768), (256, 36, 768), (256, 1024),
+              (3, 5, 37)]
+    for i, shape in enumerate(shapes):
+        for dt in ("bfloat16", "float32"):
+            rng = np.random.RandomState(500 + i)
+            x, g = (torch.from_numpy((rng.randn(*shape) * 3).astype(
+                np.float32)).to(getattr(torch, dt)) for _ in range(2))
+            if shape == (3, 5, 37):
+                flat = x.view(-1)
+                flat[::5], flat[1::5], flat[2::5] = np.nan, np.inf, -0.0
+            seed = 0x5EED + i
+            out = hd.hash_dropout_fwd(x.cuda(), seed, RATE)
+            dx = hd.hash_dropout_bwd(g.cuda(), seed, RATE)
+            torch.cuda.synchronize()
+            if not (same_bits(out, hd.hash_dropout_ref(x, seed, RATE))
+                    and same_bits(dx, hd.hash_dropout_ref(g, seed, RATE))):
+                raise RuntimeError(f"K10 differs from its CPU twin at "
+                                   f"{shape} {dt}")
+            frac = float((out != 0).float().mean())
+            print(f"kernel K10 {shape} {dt}: forward and backward bit-equal "
+                  f"to the CPU twin, keep fraction {frac:.5f}", flush=True)
+            if shape == TRAIN_ROWS and abs(frac - (1 - RATE)) > 0.005:
+                raise RuntimeError(f"K10 keep fraction {frac}")
+    n = 4099
+    for dt in ("bfloat16", "float32"):
+        base = torch.randn(n + 8, device="cuda").to(getattr(torch, dt))
+        for off in range(1, 8):
+            x = base[off:off + n]
+            out = hd.hash_dropout_fwd(x, 99, RATE)
+            dx = hd.hash_dropout_bwd(x, 99, RATE)
+            ref = hd.hash_dropout_ref(x.cpu(), 99, RATE)
+            if not (same_bits(out, ref) and same_bits(dx, ref)):
+                raise RuntimeError(f"K10 differs from its CPU twin on a view "
+                                   f"{off} elements past 16 bytes, {dt}")
+        print(f"kernel K10 n={n} {dt} at element offsets 1-7: bit-equal to "
+              "the CPU twin", flush=True)
+    return {"hash_dropout_fwd": {"max_abs_err": 0.0,
+                                 "shapes": f"{list(TRAIN_ROWS)} bf16"},
+            "hash_dropout_bwd": {"max_abs_err": 0.0,
+                                 "shapes": f"{list(TRAIN_ROWS)} bf16"}}
 
 
 def matmul_inputs(shapes, seed, scale=0.5):
@@ -1317,20 +1442,19 @@ def host_us(fn, iters=200):
     return us
 
 
-@contextlib.contextmanager
-def twins():
-    """The model's fourteen kernels' plain twins in their wrappers' places:
-    the autograd Functions and the LayerNorm look their wrappers up at call
-    time, so the card runs the twins (the dropout twins with the kernels'
-    hash mask). No kernel may launch meanwhile."""
-    from volta_tpu_torch.ops import LAUNCHES
+def twin_swaps():
+    """(module, wrapper, twin) for every kernel of ``ops.LAUNCHES``: each
+    wrapper's name is its kernel's count's key, and the twin takes its
+    arguments (the dropout twins with the kernels' hash mask)."""
     from volta_tpu_torch.ops import attention_cuda as ac
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
     from volta_tpu_torch.ops import dropout_mask as dm
     from volta_tpu_torch.ops import fused_residual as fr
+    from volta_tpu_torch.ops import hash_dropout as hd
     from volta_tpu_torch.ops import layernorm as ln
+    from volta_tpu_torch.ops import matmul as mm
 
     def keep(q, k, heads, rate, seed):
         return adc.keep_mask(seed, (q.shape[0], heads, q.shape[1],
@@ -1362,24 +1486,38 @@ def twins():
         return fr.dropout_residual_ln_bwd_ref(g, od, x, w, mean, rstd, keep,
                                               rate)
 
-    swaps = [(ac, "attention_fwd", ac.attention_fwd_ref),
-             (ac, "attention_bwd", ac.attention_bwd_ref),
-             (adc, "attention_dropout_fwd", dropout_fwd),
-             (adc, "attention_dropout_bwd", dropout_bwd),
-             (ahm, "attention_head_major_fwd",
-              ahm.attention_head_major_fwd_ref),
-             (ahm, "attention_head_major_bwd",
-              ahm.attention_head_major_bwd_ref),
-             (ahm, "attention_dropout_head_major_fwd", head_major_dropout_fwd),
-             (ahm, "attention_dropout_head_major_bwd",
-              ahm.attention_dropout_head_major_bwd_ref),
-             (ln, "layer_norm_fwd", ln.layer_norm_fwd_ref),
-             (ln, "layer_norm_bwd", ln.layer_norm_bwd_ref),
-             (fr, "dropout_residual_ln_fwd", residual_fwd),
-             (fr, "dropout_residual_ln_bwd", residual_bwd),
-             (ahc, "attention_dropout_hidden_masks_fwd",
-              ahc.attention_dropout_hidden_masks_fwd_ref),
-             (dm, "keep_mask", dm.keep_mask_ref)]
+    return [(ac, "attention_fwd", ac.attention_fwd_ref),
+            (ac, "attention_bwd", ac.attention_bwd_ref),
+            (adc, "attention_dropout_fwd", dropout_fwd),
+            (adc, "attention_dropout_bwd", dropout_bwd),
+            (ahm, "attention_head_major_fwd",
+             ahm.attention_head_major_fwd_ref),
+            (ahm, "attention_head_major_bwd",
+             ahm.attention_head_major_bwd_ref),
+            (ahm, "attention_dropout_head_major_fwd", head_major_dropout_fwd),
+            (ahm, "attention_dropout_head_major_bwd",
+             ahm.attention_dropout_head_major_bwd_ref),
+            (ln, "layer_norm_fwd", ln.layer_norm_fwd_ref),
+            (ln, "layer_norm_bwd", ln.layer_norm_bwd_ref),
+            (fr, "dropout_residual_ln_fwd", residual_fwd),
+            (fr, "dropout_residual_ln_bwd", residual_bwd),
+            (ahc, "attention_dropout_hidden_masks_fwd",
+             ahc.attention_dropout_hidden_masks_fwd_ref),
+            (dm, "keep_mask", dm.keep_mask_ref),
+            (hd, "hash_dropout_fwd", hd.hash_dropout_ref),
+            (hd, "hash_dropout_bwd", hd.hash_dropout_ref),
+            (mm, "wgrad", mm.wgrad_ref),
+            (mm, "matmul_bias_act", mm.matmul_bias_act_ref)]
+
+
+@contextlib.contextmanager
+def twins():
+    """Every kernel's plain twin in its wrapper's place (``twin_swaps``):
+    the autograd Functions and the LayerNorm look their wrappers up at call
+    time, so the card runs the twins. No kernel may launch meanwhile."""
+    from volta_tpu_torch.ops import LAUNCHES
+
+    swaps = twin_swaps()
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     before = dict(LAUNCHES)
     for mod, name, twin in swaps:
@@ -1911,31 +2049,37 @@ def run_train(root, data_dir, yml, flagged, hm, fuse, pmask, free, hm_free):
         want = {
             "dropout": expect(attention_dropout_fwd=12 * steps,
                               attention_dropout_bwd=12 * steps,
-                              attention_fwd=12 * val),
+                              attention_fwd=12 * val,
+                              **k10(K10_SITES * steps)),
             "dropout_free": expect(attention_fwd=12 * steps + 12 * val,
-                                   attention_bwd=12 * steps),
+                                   attention_bwd=12 * steps,
+                                   **k10(K10_POOLED * steps)),
             "flagged": expect(attention_dropout_fwd=12 * steps,
                               attention_dropout_bwd=12 * steps,
                               attention_fwd=12 * val,
                               layer_norm_fwd=5 * steps + 29 * val,
                               layer_norm_bwd=5 * steps,
                               dropout_residual_ln_fwd=24 * steps,
-                              dropout_residual_ln_bwd=24 * steps),
+                              dropout_residual_ln_bwd=24 * steps,
+                              **k10(K10_FLAGGED * steps)),
             "head_major": expect(
                 attention_dropout_head_major_fwd=12 * steps,
                 attention_dropout_head_major_bwd=12 * steps,
-                attention_head_major_fwd=12 * val),
+                attention_head_major_fwd=12 * val,
+                **k10(K10_SITES * steps)),
             "head_major_dropout_free": expect(
                 attention_head_major_fwd=12 * steps + 12 * val,
-                attention_head_major_bwd=12 * steps),
+                attention_head_major_bwd=12 * steps,
+                **k10(K10_POOLED * steps)),
             "hidden_masks": expect(
                 attention_dropout_hidden_masks_fwd=12 * steps,
                 attention_dropout_head_major_bwd=12 * steps,
-                attention_fwd=12 * val),
+                attention_fwd=12 * val, **k10(K10_FLAGGED * steps)),
             "keep_mask": expect(attention_dropout_fwd=12 * steps,
                                 attention_dropout_bwd=12 * steps,
                                 keep_mask=24 * steps,
-                                attention_fwd=12 * val)}[tag]
+                                attention_fwd=12 * val,
+                                **k10(K10_FLAGGED * steps))}[tag]
         if launches != want:
             raise RuntimeError(f"{tag} launches {launches}, expected {want}")
         out[tag] = launches
@@ -1986,30 +2130,31 @@ def compare_steps(task_cfg, batch_np, flagged, hm, fuse, pmask, masks_ln):
                        if isinstance(v, np.ndarray)}, "cuda")
     cases = (
         ("dropout", CONFIG, expect(attention_dropout_fwd=12,
-                                   attention_dropout_bwd=12)),
+                                   attention_dropout_bwd=12,
+                                   **k10(K10_SITES))),
         ("dropout-free", CONFIG, expect(attention_fwd=12, attention_bwd=12)),
         ("LN flags, dropout", flagged, expect(
             attention_dropout_fwd=12, attention_dropout_bwd=12,
             layer_norm_fwd=5, layer_norm_bwd=5, dropout_residual_ln_fwd=24,
-            dropout_residual_ln_bwd=24)),
+            dropout_residual_ln_bwd=24, **k10(K10_FLAGGED))),
         ("LN flags, dropout-free", flagged, expect(
             attention_fwd=12, attention_bwd=12, layer_norm_fwd=29,
             layer_norm_bwd=29)),
         ("head-major, dropout", hm, expect(
             attention_dropout_head_major_fwd=12,
-            attention_dropout_head_major_bwd=12)),
+            attention_dropout_head_major_bwd=12, **k10(K10_SITES))),
         ("head-major, dropout-free", hm, expect(
             attention_head_major_fwd=12, attention_head_major_bwd=12)),
         ("hidden masks (row 9), dropout", fuse, expect(
             attention_dropout_hidden_masks_fwd=12,
-            attention_dropout_head_major_bwd=12)),
+            attention_dropout_head_major_bwd=12, **k10(K10_FLAGGED))),
         ("keep-mask kernel (row 14), dropout", pmask, expect(
             attention_dropout_fwd=12, attention_dropout_bwd=12,
-            keep_mask=24)),
+            keep_mask=24, **k10(K10_FLAGGED))),
         ("rows 9 and 14 with the LN flags, dropout", masks_ln, expect(
             attention_dropout_hidden_masks_fwd=12,
             attention_dropout_head_major_bwd=12, layer_norm_fwd=29,
-            layer_norm_bwd=29)))
+            layer_norm_bwd=29, **k10(K10_FLAGGED))))
     for mode, config, want in cases:
         model = build_model(task_cfg, "float32", config)
         init = {k: v.clone() for k, v in model.state_dict().items()}
@@ -2107,13 +2252,15 @@ def compare_bf16_grads(task_cfg, batch_np, hm, fuse):
              expect(attention_head_major_fwd=12,
                     attention_head_major_bwd=12)),
             ("natural", CONFIG, True,
-             expect(attention_dropout_fwd=12, attention_dropout_bwd=12)),
+             expect(attention_dropout_fwd=12, attention_dropout_bwd=12,
+                    **k10(K10_SITES))),
             ("head-major", hm, True,
              expect(attention_dropout_head_major_fwd=12,
-                    attention_dropout_head_major_bwd=12)),
+                    attention_dropout_head_major_bwd=12, **k10(K10_SITES))),
             ("fuse_hidden_dropout", fuse, True,
              expect(attention_dropout_hidden_masks_fwd=12,
-                    attention_dropout_head_major_bwd=12))):
+                    attention_dropout_head_major_bwd=12,
+                    **k10(K10_FLAGGED)))):
         what = "with dropout" if dropout else "dropout-free"
         model = build_model(task_cfg, "bfloat16", config).train(dropout)
         reset_launches()
@@ -2343,7 +2490,7 @@ def main(argv):
         results.update(check_head_major_kernels())
     with phase("6 kernels 10-13"):
         results.update(check_ln_kernels())
-    with phase("7 kernels 9 and 14"):
+    with phase("7 kernels 9, 14 and K10"):
         results.update(check_mask_kernels())
     with phase("8 kernels 15 and 16, probes"):
         report, probe_launches = check_matmul_kernels()
@@ -2442,9 +2589,10 @@ def main(argv):
                      ("volta_tpu", "jax", "jaxlib", "flax"))
     if foreign:
         raise RuntimeError(f"the port imported {foreign[:5]}")
-    # launches: rows 1-4 from the train runs without the LayerNorm flags,
-    # rows 5-8 from the head-major runs, rows 10-13 from the flagged run,
-    # rows 9 and 14 from the hidden-mask runs, rows 15-16 from the probes
+    # launches: rows 1-4 and K10 from the train runs without the LayerNorm
+    # flags, rows 5-8 from the head-major runs, rows 10-13 from the flagged
+    # run, rows 9 and 14 from the hidden-mask runs, rows 15-16 from the
+    # probes
     counts = {**{k: launches["dropout"][k] for k in
                  ("attention_fwd", "attention_dropout_fwd",
                   "attention_dropout_bwd")},
@@ -2462,9 +2610,9 @@ def main(argv):
               "attention_dropout_hidden_masks_fwd": launches[
                   "hidden_masks"]["attention_dropout_hidden_masks_fwd"],
               "keep_mask": launches["keep_mask"]["keep_mask"],
+              **{k: launches["dropout"][k] for k in k10(0)},
               **probe_launches}
     # the body each attention kernel runs in bf16, as its wrapper routes it
-    # (row 5 keeps the CUDA-core body in both dtypes)
     fwd, bwd = attention_cuda.fwd_body, attention_cuda.bwd_body
     bf16 = torch.bfloat16
     bodies = {"attention_fwd": fwd(bf16)[0],
@@ -2472,7 +2620,7 @@ def main(argv):
               "attention_dropout_fwd": fwd(bf16, dropout=True)[0],
               "attention_dropout_hidden_masks_fwd":
                   fwd(bf16, dropout=True)[0],
-              "attention_dropout_head_major_fwd": "CUDA-core",
+              "attention_dropout_head_major_fwd": fwd(bf16, dropout=True)[0],
               "attention_bwd": bwd(bf16)[0],
               "attention_head_major_bwd": bwd(bf16)[0],
               "attention_dropout_bwd": bwd(bf16, dropout=True)[0],
@@ -2488,6 +2636,7 @@ def main(argv):
              "library_ms": results[name]["library_ms"],
              **{k: results[name][k] for k in ("shapes",)
                 if k in results[name]},
+             "pallas": name not in NOT_PALLAS,
              **({"body": bodies[name]} if name in bodies else {})}
             for name, (src, replaces) in KERNELS.items()]
     print(power, flush=True)

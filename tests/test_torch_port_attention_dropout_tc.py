@@ -1,4 +1,4 @@
-"""The bf16 dropout forward of rows 3 and 9 on the tensor-core forward body
+"""The bf16 dropout forward of rows 3, 5 and 9 on the tensor-core forward body
 (csrc/attention_fwd_tc.cuh with kDropout) on the CPU: its tile recipe
 against the JAX package, the keep-mask bytes and the hidden masks by the
 body's own index arithmetic, and its wrappers' routing and limits.
@@ -297,11 +297,10 @@ class _Checked(Exception):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dropout_forward_wrappers_check_with_their_body(dtype, monkeypatch):
-    """Rows 3 and 9 check a card's operands against the grid and shared
+    """Rows 3, 5 and 9 check a card's operands against the grid and shared
     memory of the body their dtype routes to (``fwd_body(dtype,
     dropout=True)``), seen through a stand-in for ``check`` on tensors of
-    no device (meta), which do not take the CPU twins; row 5 keeps the
-    CUDA-core body's in both dtypes."""
+    no device (meta), which do not take the CPU twins."""
     seen = {}
 
     def check(name, *args, rows=ac.ROWS_PER_BLOCK, **kwargs):
@@ -324,11 +323,9 @@ def test_dropout_forward_wrappers_check_with_their_body(dtype, monkeypatch):
                                              5)
     _, rows, smem = ac.fwd_body(dtype, dropout=True)
     want = (rows, [smem(1, 1, 16), smem(60, 60, 64), smem(5, 563, 128)])
-    core = (ac.ROWS_PER_BLOCK, [ac.smem_bytes(1, 16), ac.smem_bytes(60, 64),
-                                ac.smem_bytes(563, 128)])
     assert seen == {"attention_dropout_fwd": want,
                     "attention_dropout_hidden_masks_fwd": want,
-                    "attention_dropout_head_major_fwd": core}
+                    "attention_dropout_head_major_fwd": want}
 
 
 @pytest.mark.parametrize("d", ac.HEAD_DIMS)

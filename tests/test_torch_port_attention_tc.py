@@ -129,10 +129,10 @@ def test_bf16_routes_to_the_tensor_core_body():
     name, rows, smem = ac.fwd_body(torch.float32)
     assert (name, rows) == ("CUDA-core", ac.ROWS_PER_BLOCK) and rows == 16
     assert smem(5, 563, 128) == ac.smem_bytes(563, 128)
-    # the head-major row 7 takes the same routing; its dropout row 5 keeps
-    # the CUDA-core body in both dtypes
+    # the head-major row 7 takes the same routing, and so does its dropout
+    # row 5 (fwd_body(dtype, dropout=True), as rows 3 and 9)
     assert ahm.fwd_body is ac.fwd_body
-    assert ahm._dropout_fwd_smem(5, 563, 128) == ac.smem_bytes(563, 128)
+    assert not hasattr(ahm, "_dropout_fwd_smem")
 
 
 @pytest.mark.parametrize("d", ac.HEAD_DIMS)

@@ -554,9 +554,9 @@ def test_head_major_kernels_match_twins(cuda_device, dtype, shape):
 def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
     """For one seed rows 5-8 and rows 1-4 drop the same probabilities and
     agree on the same operands: outputs and gradients within the twins'
-    tolerance, the same dropped set; rows 7, 8 and 6 equal to rows 1, 2 and
-    4 bit for bit (one body each, two addressings; row 6's keep bits are
-    read from the mask bytes, row 4's replayed from the hash)."""
+    tolerance, the same dropped set; rows 7, 5, 8 and 6 equal to rows 1, 3,
+    2 and 4 bit for bit (one body each, two addressings; row 6's keep bits
+    are read from the mask bytes, row 4's replayed from the hash)."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
 
     b, lq, lk, h, d = shape
@@ -581,6 +581,7 @@ def test_head_major_kernels_match_natural_kernels(cuda_device, dtype, shape):
                                             seed, return_mask=True)
     assert torch.equal(hmask.transpose(0, 1).bool(), nmask)
     _assert_close(nat(hout), nout, dtype, "row 5 vs row 3")
+    assert torch.equal(nat(hout), nout)  # one body, two addressings
     hgrads = ahm.attention_dropout_head_major_bwd(hq, hk, hv, bias, hg, hmask,
                                                   scale, RATE)
     ngrads = adc.attention_dropout_bwd(q, k, v, bias, g, scale, h, RATE, seed)
@@ -812,11 +813,11 @@ def test_layer_norm_module_takes_the_kernels(cuda_device, fused):
 @pytest.mark.parametrize("shape", [SERVING] + ODD,
                          ids=lambda s: "x".join(map(str, s)))
 def test_hidden_mask_attention_matches_row_5(cuda_device, dtype, shape):
-    """Row 9 against row 5's kernel for the same seed, its probability mask
-    bit-equal; its output bit-equal to row 5's in fp32 (one CUDA-core body)
-    and, in bf16, to row 3's on the same operands in the natural layout
-    (one tensor-core body, two addressings), where row 5 still runs the
-    CUDA-core body; against its twin; its hidden masks [B, Lq, H·D]
+    """Row 9 against row 5's kernel for the same seed: its output and
+    probability mask bit-equal in both dtypes (one body each: tensor cores
+    in bf16, CUDA cores in fp32) and, in bf16, its output also to row 3's
+    on the same operands in the natural layout (one tensor-core body, two
+    addressings); against its twin; its hidden masks [B, Lq, H·D]
     bit-equal to the twin's hash."""
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
@@ -834,9 +835,8 @@ def test_hidden_mask_attention_matches_row_5(cuda_device, dtype, shape):
     out5, mask5 = ahm.attention_dropout_head_major_fwd(q, k, v, bias, scale,
                                                        RATE, seed)
     assert torch.equal(mask, mask5)
-    if dtype == "float32":
-        assert torch.equal(out, out5)
-    else:
+    assert torch.equal(out, out5)
+    if dtype == "bfloat16":
         out3 = adc.attention_dropout_fwd(q3, k3, v3, bias, scale, h, RATE,
                                          seed)
         assert torch.equal(out.permute(1, 2, 0, 3).reshape(q3.shape), out3)
@@ -900,6 +900,145 @@ def test_keep_mask_kernel_matches_twin(cuda_device, shape):
     assert got.dtype == torch.uint8 and torch.equal(got, ref)
     if got.numel() > 10**6:
         assert abs(float(got.float().mean()) - (1 - RATE)) < 0.005
+
+
+# ------------------------------------------------- hash dropout (K10)
+# the b256 train step's dropout sites: a sublayer tail [256·60, 768], the
+# text and image embeddings [256, 23 | 36, 768] and the pooled output
+# [256, 1024]; odd sizes that leave a scalar tail
+K10_SHAPES = [(15360, 768), (256, 23, 768), (256, 36, 768), (256, 1024),
+              (7, 13), (3, 5, 37), (1,)]
+
+
+def _bits(t):
+    """The raw bits of a bf16 or float32 tensor, on the CPU."""
+    return t.detach().cpu().view(torch.int16 if t.dtype == torch.bfloat16
+                                 else torch.int32)
+
+
+def _assert_same_bits(got, ref, what):
+    """Bit for bit, +0 and -0 apart; NaN at the same places (a NaN's
+    payload is the card's)."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape, what
+    nan = torch.isnan(ref.detach().cpu())
+    assert torch.equal(torch.isnan(got.detach().cpu()), nan), what
+    differ = (_bits(got) != _bits(ref)) & ~nan
+    assert not bool(differ.any()), (what, int(differ.sum()))
+
+
+def _k10_input(shape, dtype, seed, specials=False):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * 3).astype(np.float32)
+    if specials:  # NaN, Inf and -0: a dropped one writes +0, as where()
+        flat = x.reshape(-1)
+        flat[::5] = np.nan
+        flat[1::5] = np.inf
+        flat[2::5] = -0.0
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_hash_dropout_divides_as_the_cpu(cuda_device, dtype):
+    """The card's hash dropout (K10), its plain twin and ``apply_keep_mask``
+    equal the same calls on the CPU bit for bit at a sublayer tail's shape,
+    rate 0.1: every kept value divided by 1 - rate in x's dtype, as JAX
+    divides (volta_tpu/models/layers.py:255). A Python float divisor takes
+    CUDA's reciprocal-multiply path, which moves last bits."""
+    from volta_tpu_torch.models.layers import apply_keep_mask, hash_dropout
+    from volta_tpu_torch.ops import hash_dropout as hd
+
+    x = _k10_input((15360, 768), dtype, 31)
+    keep = torch.from_numpy(np.random.RandomState(32).rand(15360, 768) > 0.1)
+    xc, kc = x.to(cuda_device), keep.to(cuda_device)
+    calls = {"hash_dropout": lambda t, k: hash_dropout(t, 0xD1CE, RATE),
+             "hash_dropout_ref": lambda t, k: hd.hash_dropout_ref(
+                 t, 0xD1CE, RATE),
+             "apply_keep_mask": lambda t, k: apply_keep_mask(t, k, RATE)}
+    counts = {name: int((_bits(fn(xc, kc)) != _bits(fn(x, keep))).sum())
+              for name, fn in calls.items()}
+    assert counts == dict.fromkeys(calls, 0), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", K10_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_hash_dropout_kernel_matches_twin(cuda_device, dtype, shape):
+    """K10 forward and backward against the CPU twin of the same inputs,
+    bit for bit (NaN, Inf and -0 among them); one launch each; keep
+    fraction 0.9 +- 0.005 at the tail's shape."""
+    from volta_tpu_torch.ops import hash_dropout as hd
+
+    seed = 0xF00D + len(shape)
+    x = _k10_input(shape, dtype, 33, specials=shape == (3, 5, 37))
+    g = _k10_input(shape, dtype, 34)
+    before = (LAUNCHES["hash_dropout_fwd"], LAUNCHES["hash_dropout_bwd"])
+    out = hd.hash_dropout_fwd(x.to(cuda_device), seed, RATE)
+    dx = hd.hash_dropout_bwd(g.to(cuda_device), seed, RATE)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["hash_dropout_fwd"], LAUNCHES["hash_dropout_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    _assert_same_bits(out, hd.hash_dropout_ref(x, seed, RATE), "forward")
+    _assert_same_bits(dx, hd.hash_dropout_ref(g, seed, RATE), "backward")
+    if out.numel() > 10**6:
+        frac = float((out != 0).float().mean())
+        assert abs(frac - (1 - RATE)) <= 0.005, frac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("offset", range(8))
+def test_hash_dropout_kernel_takes_misaligned_views(cuda_device, dtype,
+                                                    offset):
+    """K10 on a contiguous view that starts ``offset`` elements past a
+    16-byte boundary, and on a non-contiguous view (made contiguous
+    first): equal to the CPU twin of the same values bit for bit, forward
+    and backward."""
+    from volta_tpu_torch.ops import hash_dropout as hd
+
+    n = 4099  # odd: a head, vectors and a tail
+    base = _k10_input((n + 8,), dtype, 35).to(cuda_device)
+    x = base[offset:offset + n]
+    assert x.data_ptr() % 16 == offset * x.element_size() % 16
+    for t in (x, base[:2 * 2049].view(2, 2049).t()):
+        out = hd.hash_dropout_fwd(t, 77, RATE)
+        dx = hd.hash_dropout_bwd(t, 77, RATE)
+        ref = hd.hash_dropout_ref(t.cpu(), 77, RATE)
+        assert out.is_contiguous()
+        _assert_same_bits(out, ref, f"forward at offset {offset}")
+        _assert_same_bits(dx, ref, f"backward at offset {offset}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_hash_dropout_function_takes_the_kernel(cuda_device, dtype):
+    """models.layers.hash_dropout (the HashDropout Function) launches K10
+    once forward and once backward, and its output and gradient equal
+    autograd's through the twin on the CPU bit for bit; a sublayer tail of
+    the LayerNorm module without flags goes through it."""
+    from volta_tpu_torch.models.layers import LayerNorm, hash_dropout
+    from volta_tpu_torch.ops import hash_dropout as hd
+
+    x = _k10_input((4, 60, 768), dtype, 36)
+    g = _k10_input((4, 60, 768), dtype, 37)
+    xc = x.to(cuda_device).requires_grad_()
+    before = dict(LAUNCHES)
+    out = hash_dropout(xc, 1234, RATE)
+    out.backward(g.to(cuda_device))
+    launched = {k: LAUNCHES[k] - c for k, c in before.items()
+                if LAUNCHES[k] != c}
+    assert launched == {"hash_dropout_fwd": 1, "hash_dropout_bwd": 1}
+    xr = x.clone().requires_grad_()
+    ref = hd.hash_dropout_ref(xr, 1234, RATE)
+    ref.backward(g)
+    _assert_same_bits(out, ref, "output")
+    _assert_same_bits(xc.grad, xr.grad, "gradient")
+    ln = LayerNorm(768).to(cuda_device)
+    before = dict(LAUNCHES)
+    ln(xc, residual=xc.detach(), drop_rate=RATE, seed=5).sum().backward()
+    assert {k: LAUNCHES[k] - c for k, c in before.items()
+            if LAUNCHES[k] != c} == launched
 
 
 # --------------------------------------------- probe matmuls (rows 15-16)

@@ -29,8 +29,8 @@ from torch import nn
 
 from ..ops import dropout_mask
 from ..ops.fused_residual import dropout_residual_ln
-from ..ops.hash import (_M32, GOLDEN, dropout_threshold,  # noqa: F401
-                        fmix32, hash_keep)
+from ..ops.hash import _M32, GOLDEN, dropout_threshold, fmix32  # noqa: F401
+from ..ops.hash_dropout import HashDropout, apply_keep_mask
 from ..ops.layernorm import LN_EPS, fused_layer_norm
 
 
@@ -190,18 +190,11 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     .hash_dropout for the uint32 ``seed`` that its key draws: the keep bit
     of element n (x's linear index) is fmix32(n * 0x9E3779B9 + seed) <
     threshold; kept values are divided by 1 - rate in x's dtype (JAX's
-    weak-typed scalar is rounded to x's dtype first, so is this one)."""
-    n = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
-    return apply_keep_mask(x, hash_keep(n.view(x.shape), seed, rate), rate)
-
-
-def apply_keep_mask(x: torch.Tensor, keep: torch.Tensor,
-                    rate: float) -> torch.Tensor:
-    """Dropout with a given 0/1 (or bool) keep mask of x's shape: kept
-    values divided by 1 - rate rounded to x's dtype (as JAX rounds its
-    weak-typed scalar), the others 0 (volta_tpu/models/layers.py:139-145)."""
-    denom = float(torch.tensor(1.0 - rate, dtype=x.dtype))
-    return torch.where(keep.bool(), x / denom, x.new_zeros(()))
+    weak-typed scalar is rounded to x's dtype first, so is this one). On
+    the card forward and backward run the CUDA kernel K10
+    (``ops/csrc/hash_dropout.cu``, the backward replaying the hash); on the
+    CPU its plain twin (``ops.hash_dropout``)."""
+    return HashDropout.apply(x, int(seed), float(rate))
 
 
 class DropoutSeeds:

@@ -1,4 +1,4 @@
-"""Attention, LayerNorm, dropout-mask and matmul ops of the port and the
+"""Attention, LayerNorm, dropout and matmul ops of the port and the
 hand-written CUDA kernels behind them.
 
 Kernels are built from ``ops/csrc`` at first use (``ops/_build.py``);
@@ -17,7 +17,8 @@ LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
             "attention_dropout_hidden_masks_fwd": 0,
             "layer_norm_fwd": 0, "layer_norm_bwd": 0,
             "dropout_residual_ln_fwd": 0, "dropout_residual_ln_bwd": 0,
-            "keep_mask": 0, "wgrad": 0, "matmul_bias_act": 0}
+            "keep_mask": 0, "hash_dropout_fwd": 0, "hash_dropout_bwd": 0,
+            "wgrad": 0, "matmul_bias_act": 0}
 
 
 def reset_launches():

@@ -23,6 +23,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "volta_tpu_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# No --use_fast_math: it would turn every division into a reciprocal and a
+# multiply and flush denormals, and the kernels divide as the JAX package
+# and torch's CPU kernels do (hash_dropout.cu's __fdiv_rn among them).
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
                      "-v")
 

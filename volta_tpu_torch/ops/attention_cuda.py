@@ -27,12 +27,12 @@ from .attention import acc_dtype, attention_out, attention_probs
 
 HEAD_DIMS = (16, 32, 64, 128)
 # the CUDA-core bodies (csrc/attention_common.cuh): every float32 forward
-# and backward, and the head-major dropout forward (row 5) in both dtypes
+# and backward
 ROWS_PER_BLOCK = 16  # kRowsPerBlock, the forward's query tile
 KEY_CHUNK = 32  # kKeyChunk
 BWD_ROWS = 32  # kBwdRows
-# the tensor-core bodies of the bf16 forwards but row 5's (rows 1, 3, 7 and
-# 9, csrc/attention_fwd_tc.cuh) and of every bf16 backward (rows 2, 4, 6 and
+# the tensor-core bodies of every bf16 forward (rows 1, 3, 5, 7 and 9,
+# csrc/attention_fwd_tc.cuh) and of every bf16 backward (rows 2, 4, 6 and
 # 8, csrc/attention_bwd_tc.cuh)
 TC_ROWS_PER_BLOCK = 64  # kTcRows, their query tile
 TC_KEYS = 64  # kTcKeys, their key tile
@@ -116,9 +116,9 @@ def fwd_body(dtype, dropout=False):
     flavour that draws the keep bits and writes the keep mask, on the same
     tile and shared memory) and the CUDA-core body otherwise (float32;
     ``check`` refuses other dtypes), whose tensor-core counterpart would
-    compute in TF32. Row 5 keeps the CUDA-core body in both dtypes
-    (``attention_head_major_cuda._dropout_fwd_smem``). Returns (name, query
-    rows per block, shared memory (lq, lk, d) -> bytes)."""
+    compute in TF32. The head-major dropout forward, row 5, routes as rows
+    3 and 9 do. Returns (name, query rows per block, shared memory (lq, lk,
+    d) -> bytes)."""
     if dtype == torch.bfloat16:
         return ("tensor-core", TC_ROWS_PER_BLOCK,
                 lambda lq, lk, d: tc_smem_bytes(d))

@@ -37,7 +37,7 @@ from torch.autograd.function import once_differentiable
 from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_body,
-                             check, fwd_body, launch_error, smem_bytes)
+                             check, fwd_body, launch_error)
 from .attention_dropout_cuda import _check_rate, keep_mask, keep_scale
 from .hash import dropout_threshold
 
@@ -122,11 +122,6 @@ def _kernels():
     return fwd, bwd, dfwd, dbwd, lib.volta_cuda_error_string
 
 
-def _dropout_fwd_smem(lq, lk, d):
-    """Row 5 runs the CUDA-core forward body in both dtypes."""
-    return smem_bytes(lk, d)
-
-
 def _dims(q, k):
     """(H, B, Lq, Lk, D) of head-major operands."""
     h, b, lq, d = q.shape
@@ -191,16 +186,20 @@ def attention_dropout_head_major_fwd(q, k, v, bias, scale, rate, seed):
     """dropout(softmax(q·kᵀ·scale + bias))·v per head on head-major
     operands, the mask drawn from the uint32 ``seed``: q [H,B,Lq,D], k/v
     [H,B,Lk,D], bias [B,Lk] float32 -> (out [H,B,Lq,D] in q.dtype, the keep
-    mask [H,B,Lq,Lk] uint8 0/1 that was applied). CPU tensors take the plain
-    twin with ``keep_mask_head_major(seed, ...)``."""
+    mask [H,B,Lq,Lk] uint8 0/1 that was applied). The body of row 3 by
+    dtype (``fwd_body(dtype, dropout=True)``: tensor cores for bf16, CUDA
+    cores for fp32) with head-major addressing, so it computes row 3's and
+    row 9's bits. CPU tensors take the plain twin with
+    ``keep_mask_head_major(seed, ...)``."""
     _check_rate(rate, seed)
     h, b, lq, lk, d = _dims(q, k)
     if q.device.type == "cpu":
         keep = keep_mask_head_major(seed, (h, b, lq, lk), rate)
         return attention_dropout_head_major_fwd_ref(q, k, v, bias, scale,
                                                     rate, keep), keep
-    check("attention_dropout_head_major_fwd", q, k, v, bias, None,
-          _dropout_fwd_smem, head_major=True)
+    _, rows, smem = fwd_body(q.dtype, dropout=True)
+    check("attention_dropout_head_major_fwd", q, k, v, bias, None, smem,
+          head_major=True, rows=rows)
     out = torch.empty_like(q)
     mask = torch.empty((h, b, lq, lk), dtype=torch.uint8, device=q.device)
     _launch("attention_dropout_head_major_fwd", 2, q.data_ptr(),

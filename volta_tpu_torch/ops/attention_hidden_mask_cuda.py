@@ -6,11 +6,11 @@ Port of the TPU kernel of ``fuse_hidden_dropout``, Queue 2 row 9:
 ``_attn_dropout_fwd_hm_kernel`` (volta_tpu/ops/pallas_attention.py:125,
 launched by ``_dropout_hm_fwd_impl`` :809 behind
 ``pallas_dropout_attention_hm`` :779). On head-major [H, B, L, D] operands
-it computes row 5's function and probability keep mask (in bf16 on row 3's
-tensor-core body, so its output is row 3's to the bit on the same operands;
-in fp32 on row 5's CUDA-core body) and writes two uint8 0/1 hidden keep
-masks [B, Lq, H·D], in the layout of the out-dense output
-that they mask: ``hm0`` for the attention sublayer's own tail, ``hm1`` for
+it computes row 5's function and probability keep mask on row 5's body (row
+3's: tensor cores in bf16, CUDA cores in fp32), so its output and mask are
+row 5's to the bit on the same operands, and writes two uint8 0/1 hidden
+keep masks [B, Lq, H·D], in the layout of the out-dense output that they
+mask: ``hm0`` for the attention sublayer's own tail, ``hm1`` for
 the next feed-forward's. Mask m keeps element i (the linear index of
 [B, Lq, H·D]) iff ``hash_keep(i, seed_m, hidden_rate)``, so a tail that
 applies it drops what ``hash_dropout`` drops with the same seed; the TPU

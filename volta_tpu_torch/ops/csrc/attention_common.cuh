@@ -1,9 +1,9 @@
 // Device code shared by the port's attention kernels (sm_90a).
 //
 // One CUDA-core forward block body (attention_fwd_block) serves every
-// forward in float32, without dropout (rows 1 and 7) and with it (rows 3
-// and 9), and the head-major dropout forward (row 5) in both dtypes; in
-// bf16 rows 1, 7, 3 and 9 run the tensor-core body of attention_fwd_tc.cuh.
+// forward in float32, without dropout (rows 1 and 7) and with it (rows 3,
+// 5 and 9); in bf16 they all run the tensor-core body of
+// attention_fwd_tc.cuh.
 // One CUDA-core backward block body
 // (attention_bwd_block) serves every backward in float32, without dropout
 // (rows 2 and 8) and with it (rows 4 and 6); in bf16 they all run the

@@ -44,7 +44,8 @@
 // warp's own Q rows in shared memory to 16-byte stores.
 //
 // With kDropout (attention_dropout_fwd_body) it computes the recipe of
-// _attn_dropout_fwd_kernel_nat_bh (:510-523, row 3) and
+// _attn_dropout_fwd_kernel_nat_bh (:510-523, row 3),
+// _attn_dropout_fwd_kernel (:100-122, row 5) and
 // _attn_dropout_fwd_hm_kernel (:125-141, row 9): the keep factor
 // (float32(1 / (1 - rate)) or 0) multiplies p in float32 between the
 // division and the rounding to bf16, as attention_fwd_block does, by
@@ -53,12 +54,12 @@
 // index (prob_index) in both layouts, so row 9 drops what row 3 drops and,
 // on the same operands, computes row 3's bits. Pass 1 draws none. Only
 // probabilities inside Lq and Lk are drawn; the others are 0 or never
-// stored. mask_out, where not null (row 9 always, row 3 when asked),
+// stored. mask_out, where not null (rows 5 and 9 always, row 3 when asked),
 // receives the 0/1 bytes, [B, H, Lq, Lk] natural or [H, B, Lq, Lk]
 // head-major: a pair's Lq·Lk bytes are one run, and each lane stores its
 // two keys of a row straight from the accumulator layout, as one 2-byte
 // store where Lk is even (every (i·Lk + j) is then even) and as two bytes
-// where it is odd. Row 5 keeps the CUDA-core body in both dtypes.
+// where it is odd.
 
 #pragma once
 

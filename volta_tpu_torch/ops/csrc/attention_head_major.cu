@@ -56,13 +56,15 @@
 // hash and writes them as the [H, B, Lq, Lk] bytes row 6 reads: in bf16
 // it computes row 3's bits on the same operands, and with the masks it
 // writes (35 MB, its floor 38 us at the serving shape) it takes 0.077 ms
-// (0.30 ms on the CUDA-core body; chip_smoke.py phase 7). Row 5 keeps the
-// CUDA-core forward of attention_common.cuh in both dtypes for now, bound
-// like row 3 was by the instruction rate and latency of its loops, not by
-// device memory (the mask adds 3.3 us to its floor): it takes 0.286 ms,
-// about as row 3 took there (all NVIDIA H100 80GB HBM3, 700 W,
-// chip_smoke.py phase 5); moving it onto row 9's body is a change of its
-// kernel's call.
+// (0.30 ms on the CUDA-core body; chip_smoke.py phase 7). Row 5 runs the
+// same body without the hidden masks: in bf16 its output and mask equal
+// row 9's to the bit on the same operands and seed, and its output equals
+// row 3's after the layout copy; in float32 it is the CUDA-core body with
+// kDropout it always ran. Its floor is row 3's plus the 11.1 MB mask, 31
+// us at the serving shape; in bf16 it takes 0.061 ms there, where the
+// CUDA-core body, bound by the instruction rate of its loops, took 0.287
+// (all NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 5 and
+// chip_ab.py).
 
 // Row 9's hidden masks. The TPU kernel draws them from its PRNG as
 // [H, B, Lq, D] bf16 and transposes them to the [B, Lq, H·D] layout of the
@@ -111,19 +113,45 @@ attention_head_major_bwd_kernel(const T* __restrict__ q,
                                         Dropout{0u, 0u, 0.f}, nullptr);
 }
 
-// Row 5: the CUDA-core body with kDropout in both dtypes.
+// Row 5: row 3's body (attention_dropout_fwd_body) with the head-major
+// addressing, writing the keep mask. bf16 runs the tensor-core body in this
+// kernel, which asks for kFwdMinBlocks blocks an SM; float32 runs the
+// CUDA-core body in the next, which leaves its registers to the compiler
+// (dropout_head_major_fwd_kernel picks), as row 3's and row 9's kernels.
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, (kFwdMinBlocks<T, D>))
 attention_dropout_head_major_fwd_kernel(const T* __restrict__ q,
                                         const T* __restrict__ k,
                                         const T* __restrict__ v,
                                         const float* __restrict__ bias,
-                                        T* __restrict__ out,
-                                        uint8_t* __restrict__ mask, int Lq,
-                                        int Lk, int H, float scale,
-                                        int lk_pad, Dropout drop) {
-  attention_fwd_block<T, D, true, true>(q, k, v, bias, out, Lq, Lk, H, scale,
-                                        lk_pad, drop, mask);
+                                        T* __restrict__ out, int Lq, int Lk,
+                                        int H, float scale, Dropout drop,
+                                        uint8_t* __restrict__ mask) {
+  attention_dropout_fwd_body<T, D, true>(q, k, v, bias, out, Lq, Lk, H,
+                                         scale, drop, mask);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_dropout_head_major_fwd_core_kernel(const T* __restrict__ q,
+                                             const T* __restrict__ k,
+                                             const T* __restrict__ v,
+                                             const float* __restrict__ bias,
+                                             T* __restrict__ out, int Lq,
+                                             int Lk, int H, float scale,
+                                             Dropout drop,
+                                             uint8_t* __restrict__ mask) {
+  attention_dropout_fwd_body<T, D, true>(q, k, v, bias, out, Lq, Lk, H,
+                                         scale, drop, mask);
+}
+
+// Row 5's kernel for operands T.
+template <typename T, int D>
+constexpr auto dropout_head_major_fwd_kernel() {
+  if constexpr (kTensorCore<T>)
+    return attention_dropout_head_major_fwd_kernel<T, D>;
+  else
+    return attention_dropout_head_major_fwd_core_kernel<T, D>;
 }
 
 // The two hidden dropouts' seeds and their keep threshold (row 9).
@@ -229,10 +257,10 @@ attention_dropout_head_major_bwd_kernel(
                                        Lq, Lk, H, scale, drop, mask);
 }
 
-// The forwards: grid (B * H, query tiles), as rows 1 and 3: rows 7 and 9
-// with the tile and shared memory of their bodies (launch_fwd_body), row 5
-// with the CUDA-core body's kRowsPerBlock. With hidden (row 9) hm[0] and
-// hm[1] receive the hidden masks.
+// The forwards: grid (B * H, query tiles), as rows 1 and 3, with the tile
+// and shared memory of their bodies (launch_fwd_body): row 7 without
+// dropout, row 5 with it (drop; mask receives the keep mask), row 9 with
+// hidden too (hm[0] and hm[1] receive the hidden masks).
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* out, void* mask, void* const* hm,
@@ -247,18 +275,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
         hidden_masks_fwd_kernel<T, D>(), q, k, v, bias, out, B, Lq, Lk, H,
         scale, stream, *drop, static_cast<uint8_t*>(mask),
         static_cast<uint8_t*>(hm[0]), static_cast<uint8_t*>(hm[1]), *hidden);
-  const size_t smem = fwd_smem_bytes<D>(Lk);
-  auto kern = attention_dropout_head_major_fwd_kernel<T, D>;
-  const cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>(B) * H,
-                  (Lq + kRowsPerBlock - 1) / kRowsPerBlock);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), static_cast<uint8_t*>(mask), Lq, Lk, H, scale,
-      (Lk + 3) & ~3, *drop);
-  return cudaGetLastError();
+  return launch_fwd_body<T, D>(dropout_head_major_fwd_kernel<T, D>(), q, k, v,
+                               bias, out, B, Lq, Lk, H, scale, stream, *drop,
+                               static_cast<uint8_t*>(mask));
 }
 
 // The backwards: one block per (b, h) with the threads and shared memory
