@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the repo on one NVIDIA GPU, in turns: the
-dropout attention forwards of the port (Queue 2 rows 3, 5 and 9) by device
-time, and the b256 bf16 train step by wall time and by device time per
-kernel family.
+dropout attention forwards of the port (Queue 2 rows 3, 5 and 9) and the
+probes' matmul kernels (rows 15 and 16) by device time, and the b256 bf16
+train step by wall time and by device time per kernel family.
 
     python3 chip_ab.py --other DIR [--what kernels|steps|both]
 
@@ -16,7 +16,10 @@ checkout's kernels, and measures with chip_smoke's functions:
 
 - kernels: rows 3, 9 and 5 at B=256, L=60, H=12, D=64 in bf16 and fp32 by
   ``kernel_ms`` (the card held busy while the host enqueues, 100 calls),
-  and row 3 also with its keep mask written (``return_mask``);
+  and row 3 also with its keep mask written (``return_mask``); rows 15
+  and 16 at the probes' shapes (n=15360, h=768, f=3072: row 15, row 16's
+  first leg with the gelu and its bias-only second leg) by ``kernel_ms``
+  over 20 calls;
 - steps: ctrl_uniter_base's b256 bf16 train step (forward, backward, clip,
   AdamW; random weights from seed 0, one batch of chip_smoke's synthetic
   VQA data) with the config's dropout, with ``fuse_hidden_dropout`` and
@@ -38,6 +41,7 @@ def measure_kernels(cs, side):
     import torch
 
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
+    from volta_tpu_torch.ops import matmul as mm
     from volta_tpu_torch.ops import attention_head_major_cuda as ahm
     from volta_tpu_torch.ops import attention_hidden_mask_cuda as ahc
 
@@ -58,6 +62,16 @@ def measure_kernels(cs, side):
         for name, fn in calls.items():
             print(f"{side} kernel {name} {str(dt)[6:]}: "
                   f"{cs.kernel_ms(fn):.4f} ms", flush=True)
+    n, h, f = cs.PROBE
+    g, a = cs.matmul_inputs([(n, h), (n, f)], seed=1)
+    x, w, b = cs.matmul_inputs([(n, h), (h, f), (1, f)], seed=2)
+    x2, w2, b2 = cs.matmul_inputs([(n, f), (f, h), (1, h)], seed=3)
+    calls = {"row 15": lambda: mm.wgrad(g, a),
+             "row 16 gelu": lambda: mm.matmul_bias_act(x, w, b, True),
+             "row 16 leg 2": lambda: mm.matmul_bias_act(x2, w2, b2, False)}
+    for name, fn in calls.items():
+        print(f"{side} kernel {name} n={n} h={h} f={f}: "
+              f"{cs.kernel_ms(fn, iters=20):.4f} ms", flush=True)
 
 
 def measure_steps(cs, side):

@@ -81,8 +81,13 @@ and each of which prints its seconds:
    byte bound;
 8. kernels 15 and 16 (the probes' wgrad and matmul + bias + gelu) vs their
    twins at the probes' shapes and ragged ones (row 15 within one float32
-   rounding per 16 of the summed length, row 16 within two bf16 ulps);
-   times beside cuBLAS; then ``python -m volta_tpu_torch.tools
+   rounding per 16 of the summed length, row 16 within two bf16 ulps),
+   each shape with the body that ``ops.matmul.matmul_body`` gives it (the
+   Hopper body, required at the probes' shapes, or ``mma.sync``); row 15
+   bit-equal over two calls; times of row 15, row 16 with the gelu and
+   its bias-only second leg beside their twins, one library call each
+   (``torch.mm`` with a float32 output where this torch has it, ``addmm`` +
+   gelu, ``addmm``) and the bound; then ``python -m volta_tpu_torch.tools
    .wgrad_probe`` and ``.ffn_probe``'s ``main()`` at their default shapes
    with 3 timed calls, whose launches are counted;
 9. eval slice: a synthetic VQA dataroot at full feature width (2048 dims,
@@ -1134,9 +1139,11 @@ def matmul_inputs(shapes, seed, scale=0.5):
 
 def check_matmul_kernels():
     """Phase 8: kernels 15 and 16 against their twins at the probes' shapes
-    and at ragged ones; times at the probes' shapes beside cuBLAS; then
-    both ported probes' ``main()`` at their default shapes with
-    PROBE_ITERS timed calls, whose launches are the kernels' path."""
+    and at ragged ones, on the body the rule gives each (the Hopper body
+    at the probes' shapes, or this raises); times at the probes' shapes,
+    row 16's bias-only second leg too, beside their twins, the library and
+    the bound; then both ported probes' ``main()`` at their default shapes
+    with PROBE_ITERS timed calls, whose launches are the kernels' path."""
     import torch
     import torch.nn.functional as F
 
@@ -1146,8 +1153,13 @@ def check_matmul_kernels():
 
     n, h, f = PROBE
     report = {}
-    for tn, th, tf in (PROBE, (1000, 100, 300), (17, 5, 9)):
+    # the shapes of the card tests: the probes', ragged ones that the
+    # Hopper body takes (rows of 16-byte multiples) and ones that the
+    # mma.sync body takes
+    for tn, th, tf in (PROBE, (1000, 104, 296), (1000, 100, 300),
+                       (17, 5, 9)):
         g, a = matmul_inputs([(tn, th), (tn, tf)], seed=tn)
+        body = mm.matmul_body(g, a)
         got = mm.wgrad(g, a)
         torch.cuda.synchronize()
         ref = mm.wgrad_ref(g, a)
@@ -1156,58 +1168,106 @@ def check_matmul_kernels():
         # rounding (2^-22 of the largest value) per 16 of the tn-long sum
         tol = max(1e-5, 2.0 ** -22 * -(-tn // 16)) * top
         err = float((got - ref).abs().max())
-        print(f"kernel 15 n={tn} h={th} f={tf}: max abs diff vs twin "
-              f"{err:.3e} (tol {tol:.3e}, |ref| max {top:.3f})", flush=True)
+        print(f"kernel 15 n={tn} h={th} f={tf} ({body}): max abs diff vs "
+              f"twin {err:.3e} (tol {tol:.3e}, |ref| max {top:.3f})",
+              flush=True)
         if not (got.shape == ref.shape and err <= tol):
             raise RuntimeError(f"kernel 15 disagrees at {(tn, th, tf)}")
         if tn == n:
-            report["wgrad"] = {"max_abs_err": err}
+            if not torch.equal(got, mm.wgrad(g, a)):
+                raise RuntimeError("kernel 15's split sums differ between "
+                                   "two calls")
+            report["wgrad"] = {"max_abs_err": err, "body": body}
             wargs = (g, a)
     for (tn, tk, tm), act in (((n, h, f), True), ((n, f, h), False),
+                              ((1000, 40, 200), True),
+                              ((1000, 40, 200), False),
                               ((1000, 100, 300), True),
                               ((1000, 100, 300), False), ((17, 40, 9), True)):
         x, w, b = matmul_inputs([(tn, tk), (tk, tm), (1, tm)], seed=tk)
         w = w * tk ** -0.5
+        body = mm.matmul_body(x, w, b)
         got = mm.matmul_bias_act(x, w, b, act)
         torch.cuda.synchronize()
         err = close(got, mm.matmul_bias_act_ref(x, w, b, act), "bfloat16",
                     f"kernel 16 {(tn, tk, tm)} act={act}")
-        print(f"kernel 16 n={tn} k={tk} m={tm} act={act}: max abs diff vs "
-              f"twin {err:.3e}", flush=True)
+        print(f"kernel 16 n={tn} k={tk} m={tm} act={act} ({body}): max abs "
+              f"diff vs twin {err:.3e}", flush=True)
         if (tn, tk, tm, act) == (n, h, f, True):
-            report["matmul_bias_act"] = {"max_abs_err": err}
+            report["matmul_bias_act"] = {"max_abs_err": err, "body": body}
             margs = (x, w, b)
         if (tn, tk, tm) == (n, f, h):
             leg2 = (x, w, b)
+            leg2_body, leg2_err = body, err
+    if {report["wgrad"]["body"], report["matmul_bias_act"]["body"],
+            leg2_body} != {"wgmma"}:
+        raise RuntimeError("kernels 15 and 16 must run the Hopper body at "
+                           "the probes' shapes")
     g, a = wargs
     x, w, b = margs
+    x2, w2, b2 = leg2
     ops = 2 * n * h * f
+    try:  # the float32 output of the kernel; torch.matmul writes bf16
+        torch.mm(g.t(), a, out_dtype=torch.float32)
+        wgrad_lib = lambda: torch.mm(g.t(), a, out_dtype=torch.float32)
+        print("row 15's yardstick: torch.mm(g.t(), a, out_dtype=float32)",
+              flush=True)
+    except (TypeError, RuntimeError):
+        wgrad_lib = lambda: torch.matmul(g.t(), a)
+        print("row 15's yardstick: torch.matmul(g.t(), a) (bf16 out; this "
+              "torch's mm takes no out_dtype)", flush=True)
     pairs = {
         "wgrad": (lambda: mm.wgrad(g, a), lambda: mm.wgrad_ref(g, a),
-                  lambda: torch.matmul(g.t(), a),
+                  wgrad_lib,
                   bound(2 * n * (h + f) + 4 * h * f, ops, "bf16 tensor")),
         "matmul_bias_act": (
             lambda: mm.matmul_bias_act(x, w, b, True),
             lambda: mm.matmul_bias_act_ref(x, w, b, True),
             lambda: F.gelu(torch.addmm(b, x, w), approximate="tanh"),
-            bound(2 * (n * h + h * f + f + n * f), ops, "bf16 tensor"))}
+            bound(2 * (n * h + h * f + f + n * f), ops, "bf16 tensor")),
+        "leg 2": (
+            lambda: mm.matmul_bias_act(x2, w2, b2, False),
+            lambda: mm.matmul_bias_act_ref(x2, w2, b2, False),
+            lambda: torch.addmm(b2, x2, w2),
+            bound(2 * (n * f + f * h + h + n * h), ops, "bf16 tensor"))}
+    times = {}
     for name, (kern, plain, lib, bnd) in pairs.items():
         ms = cuda_ms(kern, iters=20)
         plain_ms = cuda_ms(plain, iters=10)
         ms2 = cuda_ms(kern, iters=20)
         lib_ms = cuda_ms(lib, iters=20)
-        report[name].update(ms=(ms + ms2) / 2, plain_ms=plain_ms,
-                            library_ms=lib_ms, bound=bnd)
+        times[name] = dict(ms=(ms + ms2) / 2, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound=bnd)
         print(f"{name} n={n} h={h} f={f} time {(ms + ms2) / 2:.4f} ms "
               f"(runs {ms:.4f}, {ms2:.4f}; {ops / (ms + ms2) * 2e-9:.1f} "
-              f"TFLOP/s), plain twin {plain_ms:.4f} ms, cuBLAS "
-              f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})",
-              flush=True)
-    x2, w2, b2 = leg2
-    ms = cuda_ms(lambda: mm.matmul_bias_act(x2, w2, b2, False), iters=20)
-    lib_ms = cuda_ms(lambda: torch.addmm(b2, x2, w2), iters=20)
-    print(f"matmul_bias_act leg 2 n={n} k={f} m={h} (no gelu): {ms:.4f} ms, "
-          f"cuBLAS addmm {lib_ms:.4f} ms", flush=True)
+              f"TFLOP/s, {bnd[0] / (ms + ms2) * 2:.3f} of the bound), "
+              f"plain twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    # what holds them: row 15 on 36 clusters (72 SMs), where its plan gives
+    # each cluster one whole 256 x 256 tile, against the full grid's time a
+    # 64-deep step of a block's 128 x 256 tile; the first leg without its
+    # gelu, against the leg with it
+    steps = -(-h // 256) * -(-f // 256) * -(-n // 64)
+    clusters = mm._clusters(torch.cuda.current_device())
+    part = kernel_ms(lambda: mm.wgrad(g, a, clusters=36), iters=20)
+    print(f"wgrad on 36 of {clusters} clusters: {part:.4f} ms, "
+          f"{part / (steps / 36) * 1e3:.3f} us a step; on all: "
+          f"{times['wgrad']['ms'] / (steps / clusters) * 1e3:.3f} us a "
+          f"step (partials' sum included)", flush=True)
+    plain_leg = kernel_ms(lambda: mm.matmul_bias_act(x, w, b, False),
+                          iters=20)
+    print(f"matmul_bias_act n={n} k={h} m={f} without the gelu: "
+          f"{plain_leg:.4f} ms, with it {times['matmul_bias_act']['ms']:.4f}",
+          flush=True)
+    report["wgrad"].update(times["wgrad"])
+    report["matmul_bias_act"].update(times["matmul_bias_act"])
+    report["matmul_bias_act"]["leg2"] = {
+        "shape": [n, f, h], "act": False, "body": leg2_body,
+        "max_abs_err": leg2_err, "ms": times["leg 2"]["ms"],
+        "plain_ms": times["leg 2"]["plain_ms"],
+        "library_ms": times["leg 2"]["library_ms"],
+        "bound_ms": times["leg 2"]["bound"][0],
+        "bound_by": times["leg 2"]["bound"][1]}
 
     # the probes, at their default shapes: their kernel launches are the
     # path's counts (12 layers or calls, a warm call and PROBE_ITERS timed;
@@ -2634,7 +2694,7 @@ def main(argv):
              "bound_by": results[name]["bound"][1],
              "bound_share": results[name]["bound"][0] / results[name]["ms"],
              "library_ms": results[name]["library_ms"],
-             **{k: results[name][k] for k in ("shapes",)
+             **{k: results[name][k] for k in ("shapes", "body", "leg2")
                 if k in results[name]},
              "pallas": name not in NOT_PALLAS,
              **({"body": bodies[name]} if name in bodies else {})}

@@ -1050,7 +1050,8 @@ def _mm_inputs(shape, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,f", [(15360, 768, 3072), (1000, 100, 300),
-                                   (17, 5, 9), (64, 128, 256)])
+                                   (17, 5, 9), (64, 128, 256),
+                                   (1000, 104, 296)])
 def test_wgrad_kernel_matches_twin(cuda_device, n, h, f):
     """Row 15 against its twin (float32 products of the same bf16 values):
     the tensor cores round each 16-deep partial sum in float32, so the
@@ -1073,7 +1074,8 @@ def test_wgrad_kernel_matches_twin(cuda_device, n, h, f):
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", [True, False], ids=["gelu", "bias_only"])
 @pytest.mark.parametrize("n,k,m", [(15360, 768, 3072), (15360, 3072, 768),
-                                   (1000, 100, 300), (17, 40, 9)])
+                                   (1000, 100, 300), (17, 40, 9),
+                                   (1000, 40, 200)])
 def test_matmul_bias_act_kernel_matches_twin(cuda_device, n, k, m, act):
     """Row 16 against its twin: bf16 outputs within two bf16 ulps of the
     largest value."""
@@ -1087,3 +1089,60 @@ def test_matmul_bias_act_kernel_matches_twin(cuda_device, n, k, m, act):
     assert LAUNCHES["matmul_bias_act"] == before + 1
     _assert_close(got, mm.matmul_bias_act_ref(x, w, b, act), "bfloat16",
                   "row 16")
+
+
+# (row, shape, body): the Hopper body where TMA can read every operand
+# (rows of 16-byte multiples), ragged against its tiles or not; the mma.sync
+# body at the other ragged shapes
+BODIES = [("wgrad", (15360, 768, 3072), "wgmma"),
+          ("wgrad", (1000, 104, 296), "wgmma"),
+          ("wgrad", (64, 128, 256), "wgmma"),
+          ("wgrad", (1000, 100, 300), "mma.sync"),
+          ("wgrad", (17, 5, 9), "mma.sync"),
+          ("matmul_bias_act", (15360, 768, 3072), "wgmma"),
+          ("matmul_bias_act", (15360, 3072, 768), "wgmma"),
+          ("matmul_bias_act", (1000, 40, 200), "wgmma"),
+          ("matmul_bias_act", (1000, 100, 300), "mma.sync"),
+          ("matmul_bias_act", (17, 40, 9), "mma.sync")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row,shape,body", BODIES)
+def test_matmul_runs_the_body_its_rule_gives(cuda_device, row, shape, body):
+    """``matmul_body`` names the body, and the profiler shows that body's
+    kernel and not the other's: no operand set that the rule gives to the
+    Hopper body runs the mma.sync body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volta_tpu_torch.ops import matmul as mm
+
+    n, k, m = shape
+    if row == "wgrad":
+        ops = _mm_inputs([(n, k), (n, m)], cuda_device, seed=n)
+        call = lambda: mm.wgrad(*ops)  # noqa: E731
+    else:
+        ops = _mm_inputs([(n, k), (k, m), (1, m)], cuda_device, seed=k)
+        call = lambda: mm.matmul_bias_act(*ops, True)  # noqa: E731
+    assert mm.matmul_body(*ops) == body
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    assert ("wgmma_kernel" in names) == (body == "wgmma"), names
+    assert ("matmul_kernel" in names) == (body == "mma.sync"), names
+
+
+@pytest.mark.cuda
+def test_wgrad_split_sums_are_deterministic(cuda_device):
+    """Row 15 at the probes' shape sums its partial tiles in a fixed order
+    without float atomics: two calls equal to the bit."""
+    from volta_tpu_torch.ops import matmul as mm
+
+    g, a = _mm_inputs([(15360, 768), (15360, 3072)], cuda_device, seed=5)
+    assert mm.matmul_body(g, a) == "wgmma"
+    first = mm.wgrad(g, a)
+    second = mm.wgrad(g, a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

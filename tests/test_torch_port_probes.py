@@ -16,6 +16,12 @@ made with numpy from a seed:
 
 The probe CLIs run with ``--device cpu`` at tiny sizes and print one JSON
 line a variant and a verdict.
+
+The Hopper body of both rows (``csrc/matmul_wgmma.cuh``) runs only on the
+card; here its routing rule (``matmul_body``) on CPU-made tensors, its work
+plan (``wgmma_plan``: every (tile, k block) once, row 15's token ranges
+partitioning each tile's reduction in slot order, equal shares) and row
+15's partial tiles and their ordered sum replayed in float64 against gᵀa.
 """
 
 import importlib.util
@@ -105,6 +111,18 @@ def test_matmul_wrappers_refuse_what_the_kernels_do_not_take():
         mm.matmul_bias_act(meta, meta, meta[0], True)
 
 
+@pytest.mark.parametrize("rc,message", [
+    (mm.NO_ENCODE, "cuTensorMapEncodeTiled failed (no driver entry point)"),
+    (-1, "cuTensorMapEncodeTiled failed (CUresult 1)"),
+    (1, "kernel launch failed: bad (cudaError 1)")])
+def test_matmul_launch_codes_become_errors(rc, message):
+    """The Hopper body's host side returns a negated CUresult where a
+    tensor map does not encode, and the launch's cudaError_t otherwise; the
+    wrappers raise on either."""
+    err = mm._raise("wgrad", rc, lambda code: b"bad")
+    assert isinstance(err, RuntimeError) and message in str(err)
+
+
 def _lines(capsys):
     return [json.loads(line) for line in
             capsys.readouterr().out.strip().splitlines()]
@@ -150,3 +168,117 @@ def test_probes_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         wgrad_probe.main(["--tokens", "8", "--hidden", "4", "--ffn", "4"])
+
+
+# ------------------------ the Hopper body: which operands take it, its plan
+def _zeros(*shape, dtype=torch.bfloat16):
+    return torch.zeros(*shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("shapes,body", [
+    ([(15360, 768), (15360, 3072)], "wgmma"),  # row 15 at the probes' shape
+    ([(1000, 104), (1000, 296)], "wgmma"),  # ragged against the tiles
+    ([(64, 128), (64, 256)], "wgmma"),
+    ([(1000, 100), (1000, 300)], "mma.sync"),  # 200-byte rows of g
+    ([(17, 5), (17, 9)], "mma.sync"),
+    ([(15360, 768), (768, 3072), (1, 3072)], "wgmma"),  # row 16, leg 1
+    ([(15360, 3072), (3072, 768), (1, 768)], "wgmma"),  # leg 2
+    ([(1000, 40), (40, 200), (1, 200)], "wgmma"),
+    ([(1000, 100), (100, 300), (1, 300)], "mma.sync"),  # 200-byte rows of x
+    ([(17, 40), (40, 9), (1, 9)], "mma.sync"),  # 18-byte rows of w
+])
+def test_matmul_body_by_shape(shapes, body):
+    assert mm.matmul_body(*[_zeros(*s) for s in shapes]) == body
+
+
+def test_matmul_body_by_layout():
+    ok = _zeros(64, 64)
+    assert mm.matmul_body(ok) == "wgmma"
+    assert mm.matmul_body(ok.float()) == "mma.sync"
+    assert mm.matmul_body(ok.t()) == "mma.sync"  # not contiguous
+    flat = _zeros(64 * 64 + 8)
+    assert flat.data_ptr() % 16 == 0
+    assert mm.matmul_body(flat[8:].view(64, 64)) == "wgmma"  # 16 bytes on
+    assert mm.matmul_body(flat[1:4097].view(64, 64)) == "mma.sync"  # 2 on
+    assert mm.matmul_body(_zeros(0, 64)) == "mma.sync"  # empty
+    assert mm.matmul_body(ok, _zeros(64, 4)) == "mma.sync"  # 8-byte rows
+
+
+# (m, n, k, split): rows 15 (split) and 16 at the probes' shapes and at
+# shapes ragged against the 256 x 256 tiles and 64-deep k blocks
+PLAN_SHAPES = [(768, 3072, 15360, True), (104, 296, 1000, True),
+               (264, 520, 200, True), (128, 256, 64, True),
+               (15360, 3072, 768, False), (15360, 768, 3072, False),
+               (1000, 200, 40, False), (264, 520, 200, False)]
+
+
+@pytest.mark.parametrize("clusters", [66, 5])
+@pytest.mark.parametrize("m,n,k,split", PLAN_SHAPES)
+def test_wgmma_plan_covers_every_tile_and_k_block_once(m, n, k, split,
+                                                       clusters):
+    units, first, tile_slots = mm.wgmma_plan(m, n, k, clusters, split)
+    tiles = -(-m // mm.TILE_M) * -(-n // mm.TILE_N)
+    kb = -(-k // mm.TILE_K)
+    grid = len(first) - 1
+    assert grid == min(clusters, tiles * kb if split else tiles)
+    assert first[0] == 0 and first[-1] == len(units)
+    assert all(first[c] < first[c + 1] for c in range(grid))
+    steps = sorted((t, b) for t, b0, b1, _ in units for b in range(b0, b1))
+    assert steps == [(t, b) for t in range(tiles) for b in range(kb)]
+    work = [sum(b1 - b0 for _, b0, b1, _ in units[first[c]:first[c + 1]])
+            for c in range(grid)]
+    if split:  # stream-K: equal shares, each a run of the (tile, k) order
+        assert max(work) - min(work) <= 1
+        assert [u[3] for u in units] == list(range(len(units)))
+        order = [(t, b0, b1) for t, b0, b1, _ in units]
+        assert order == sorted(order)
+        assert len(tile_slots) == 2 * tiles
+        for t in range(tiles):  # each tile's token ranges partition [0, kb)
+            s0, s1 = tile_slots[2 * t], tile_slots[2 * t + 1]
+            assert all(units[s][0] == t for s in range(s0, s1))
+            bounds = [0] + [units[s][2] for s in range(s0, s1)]
+            assert [units[s][1] for s in range(s0, s1)] == bounds[:-1]
+            assert bounds[-1] == kb
+    else:  # whole tiles, dealt round robin
+        assert all(u[1:] == (0, kb, -1) for u in units) and not tile_slots
+        assert max(work) - min(work) <= kb
+
+
+@pytest.mark.parametrize("n,h,f,clusters", [(200, 264, 520, 5),
+                                            (1000, 104, 296, 66),
+                                            (130, 128, 256, 3)])
+def test_wgrad_partials_sum_to_the_product(n, h, f, clusters):
+    """Row 15's Hopper body replayed in float64: each unit's partial tiles
+    (block r of the cluster on rows [128 r, 128 r + 128) of its pair tile,
+    zeros past the edges) into workspace slot 2 s + r, then the second
+    kernel's sum of each tile's slots in order, against gᵀa."""
+    rng = np.random.RandomState(32)
+    g = torch.from_numpy(rng.randn(n, h))
+    a = torch.from_numpy(rng.randn(n, f))
+    units, _, tile_slots = mm.wgmma_plan(h, f, n, clusters, True)
+    tiles_n = -(-f // 256)
+    kb = -(-n // 64)
+    rows = -(-h // 256) * 256
+    gp = torch.zeros(kb * 64, rows, dtype=torch.float64)
+    ap = torch.zeros(kb * 64, tiles_n * 256, dtype=torch.float64)
+    gp[:n, :h], ap[:n, :f] = g, a
+    ws = torch.full((2 * len(units), 128, 256), float("nan"),
+                    dtype=torch.float64)
+    for t, b0, b1, s in units:
+        n0 = t % tiles_n * 256
+        for r in (0, 1):
+            m0 = (2 * (t // tiles_n) + r) * 128
+            ws[2 * s + r] = (gp[b0 * 64:b1 * 64, m0:m0 + 128].t()
+                             @ ap[b0 * 64:b1 * 64, n0:n0 + 256])
+    out = torch.full((rows, tiles_n * 256), float("nan"),
+                     dtype=torch.float64)
+    for p in range(len(tile_slots) // 2):
+        m0, n0 = p // tiles_n * 256, p % tiles_n * 256
+        for r in (0, 1):
+            slots = range(tile_slots[2 * p], tile_slots[2 * p + 1])
+            acc = ws[2 * slots[0] + r].clone()
+            for s in slots[1:]:
+                acc += ws[2 * s + r]
+            out[m0 + 128 * r:m0 + 128 * r + 128, n0:n0 + 256] = acc
+    np.testing.assert_allclose(out[:h, :f].numpy(), (g.t() @ a).numpy(),
+                               rtol=1e-12, atol=1e-10)

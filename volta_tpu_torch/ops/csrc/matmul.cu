@@ -15,28 +15,39 @@
 //           finished in float32 (bias add, gelu with the probe's constants,
 //           :38-43) and stored bf16.
 //
-// Design. On the card blocks run in parallel and nothing carries over
-// between them, so the TPU's sequential token grid becomes a loop inside the
-// block: each block owns one 128 x 128 tile of the output and walks the
-// whole reduction axis in steps of 32, so no sum crosses blocks and no
-// second pass or atomic is needed. A step stages both operands' [128, 32]
-// slices in shared memory, reduction axis contiguous (row stride 40 bf16,
-// which leaves the fragment loads free of bank conflicts); operands whose
-// reduction axis is not contiguous in memory (both of row 15, w of row 16)
-// are transposed on the way in, element by element. Eight warps each own
-// a 64 x 32 sub-tile and run mma.sync m16n8k16 (bf16 in, float32
-// accumulate) on it: 16 products per 16-deep slice. Loads are 16 bytes a thread where the row
-// stride allows it; ragged edges (any n, h, f, k, m) are zero-filled on the
-// way in and masked on the way out.
+// Two bodies; ops/matmul.py's matmul_body chooses.
+//
+// The Hopper body (matmul_wgmma.cuh) takes every operand set that TMA can
+// read: bf16 rows of a multiple of 16 bytes from a 16-byte aligned base.
+// TMA loads with the 128-byte swizzle fill a ring of 4 shared-memory
+// stages, 64 deep; one producer thread issues them; two consumer
+// warpgroups run wgmma m64n256k16, bf16 in and float32 accumulators in
+// registers, reading the MN-major operands (both of row 15, w of row 16) in
+// their storage layout through the transpose bit, so no thread transposes.
+// Two blocks form a cluster on a 256 x 256 output tile and multicast the
+// shared B, and a persistent grid of one block an SM walks the work plan
+// that the wrapper makes: row 16's units are whole tiles, whose bias and
+// gelu epilogue in registers overlaps the next tile's loads; row 15 cuts
+// the token axis so that each cluster gets an equal share of (tile, k
+// block) steps (stream-K), writes float32 partial tiles (25.2 MB at the
+// probes' shapes, written once and read once) and sums them in slot order
+// in a second kernel: no float atomics, a call equals itself to the bit.
+//
+// The mma.sync body (below) takes the rest: each block owns one 128 x 128
+// tile and walks the whole reduction axis in steps of 32, staging both
+// operands' [128, 32] slices in shared memory, reduction axis contiguous;
+// operands whose reduction axis is not contiguous are transposed on the
+// way in, element by element. Eight warps run mma.sync m16n8k16 on 64 x 32
+// sub-tiles. Ragged edges are zero-filled on the way in and masked on the
+// way out.
 //
 // Bound: operations. At the probes' shapes (n = 15360, h = 768, f = 3072;
 // k = 768 or 3072) each product is 72.5 GFLOP, 0.0733 ms at the H100's
 // 989 TFLOP/s dense bf16, against 0.038 ms for its bytes (row 15: 118 MB
-// read, 9.4 MB written). This first kernel has a single shared-memory
-// stage and no TMA, wgmma or warp specialisation, so it runs well under
-// that rate; those are the next step.
+// read, 9.4 MB written).
 
 #include "common.cuh"
+#include "matmul_wgmma.cuh"
 
 namespace {
 
@@ -233,4 +244,70 @@ extern "C" int volta_matmul_bias_act(const void* x, const void* w,
     return launch<kBiasGelu, true>(x, k, w, m, bias, out, n, m, k, device,
                                    stream);
   return launch<kBias, true>(x, k, w, m, bias, out, n, m, k, device, stream);
+}
+
+// The Hopper body's persistent grid: how many clusters of two blocks the
+// card runs at once, into *clusters. Returns a cudaError_t.
+extern "C" int volta_matmul_clusters(int device, int* clusters) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  return wg::max_clusters(clusters);
+}
+
+// Row 15 on the Hopper body (matmul_wgmma.cuh): the partial tiles of the
+// work plan (units, cluster_first: `clusters` lists; tile_slots: each pair
+// tile's first and end slot) into ws [2 slots, 128, 256] float32, then
+// their sums in slot order into out [h, f]. g, a 16-byte aligned, h and f
+// multiples of 8. Returns 0, a cudaError_t, or a negative code where a
+// tensor map does not encode (-CUresult, or wg::kNoEncode without the
+// driver's entry point).
+extern "C" int volta_wgrad_wgmma(const void* g, const void* a, void* ws,
+                                 void* out, const void* units,
+                                 const void* cluster_first,
+                                 const void* tile_slots, int clusters, int n,
+                                 int h, int f, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  CUtensorMap ma, mb;
+  int rc = wg::make_map(&ma, g, n, h, 64);
+  if (rc == 0) rc = wg::make_map(&mb, a, n, f, 64);
+  if (rc != 0) return rc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rc = wg::launch<wg::kPartial, 1>(
+      ma, mb, static_cast<const int*>(units),
+      static_cast<const int*>(cluster_first), clusters, nullptr, ws, h, f, s);
+  if (rc != 0) return rc;
+  const long long quads = static_cast<long long>(h) * (f / 4);
+  wg::partial_sum_kernel<<<static_cast<unsigned>((quads + 255) / 256), 256,
+                           0, s>>>(static_cast<const float*>(ws),
+                                   static_cast<const int*>(tile_slots),
+                                   static_cast<float*>(out), h, f);
+  return cudaGetLastError();
+}
+
+// Row 16 on the Hopper body: out[n, m] (bf16) = x[n, k] . w[k, m] + bias,
+// tanh-gelu with act != 0, over the work plan's whole pair tiles. x, w,
+// bias 16-byte aligned, k and m multiples of 8. Returns as
+// volta_wgrad_wgmma.
+extern "C" int volta_matmul_bias_act_wgmma(const void* x, const void* w,
+                                           const void* bias, void* out,
+                                           const void* units,
+                                           const void* cluster_first,
+                                           int clusters, int n, int k, int m,
+                                           int act, int device,
+                                           void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mx, mw;
+  int rc = wg::make_map(&mx, x, n, k, 128);
+  if (rc == 0) rc = wg::make_map(&mw, w, k, m, 64);
+  if (rc != 0) return rc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* u = static_cast<const int*>(units);
+  const int* bf = static_cast<const int*>(cluster_first);
+  if (act)
+    return wg::launch<wg::kBiasGelu, 0>(mx, mw, u, bf, clusters, bias, out,
+                                        n, m, s);
+  return wg::launch<wg::kBias, 0>(mx, mw, u, bf, clusters, bias, out, n, m,
+                                  s);
 }
