@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the repo on one NVIDIA GPU, in turns: the
-dropout attention forwards of the port (Queue 2 rows 3, 5 and 9) and the
-probes' matmul kernels (rows 15 and 16) by device time, and the b256 bf16
-train step by wall time and by device time per kernel family.
+dropout attention forwards of the port (Queue 2 rows 3, 5 and 9), the fused
+dropout + residual + LayerNorm kernels (rows 12 and 13), the keep-mask
+kernel (row 14) and the probes' matmul kernels (rows 15 and 16) by device
+time, and the b256 bf16 train step by wall time and by device time per
+kernel family.
 
     python3 chip_ab.py --other DIR [--what kernels|steps|both]
 
@@ -16,16 +18,18 @@ checkout's kernels, and measures with chip_smoke's functions:
 
 - kernels: rows 3, 9 and 5 at B=256, L=60, H=12, D=64 in bf16 and fp32 by
   ``kernel_ms`` (the card held busy while the host enqueues, 100 calls),
-  and row 3 also with its keep mask written (``return_mask``); rows 15
-  and 16 at the probes' shapes (n=15360, h=768, f=3072: row 15, row 16's
-  first leg with the gelu and its bias-only second leg) by ``kernel_ms``
-  over 20 calls;
+  and row 3 also with its keep mask written (``return_mask``); rows 12
+  and 13 at n=15360, d=768 in bf16 and fp32 and row 14 at that shape by
+  ``kernel_ms``; rows 15 and 16 at the probes' shapes (n=15360, h=768,
+  f=3072: row 15, row 16's first leg with the gelu and its bias-only
+  second leg) by ``kernel_ms`` over 20 calls;
 - steps: ctrl_uniter_base's b256 bf16 train step (forward, backward, clip,
   AdamW; random weights from seed 0, one batch of chip_smoke's synthetic
-  VQA data) with the config's dropout, with ``fuse_hidden_dropout`` and
-  head-major: three ``cuda_ms`` readings of 10 steps each and the peak
-  device memory over them, then ``profile_device``'s device time by kernel
-  family over 3 steps.
+  VQA data) with the config's dropout, with ``fuse_hidden_dropout``,
+  head-major and with the LayerNorm kernels (``use_pallas_layernorm`` and
+  ``use_fused_residual_ln``): three ``cuda_ms`` readings of 10 steps each
+  and the peak device memory over them, then ``profile_device``'s device
+  time by kernel family over 3 steps.
 
 Every result line starts with the turn's side (``other`` or ``this``); the
 card's name and power limit come first.
@@ -62,6 +66,24 @@ def measure_kernels(cs, side):
         for name, fn in calls.items():
             print(f"{side} kernel {name} {str(dt)[6:]}: "
                   f"{cs.kernel_ms(fn):.4f} ms", flush=True)
+    from volta_tpu_torch.ops import dropout_mask as dm
+    from volta_tpu_torch.ops import fused_residual as fr
+
+    n, d = cs.TRAIN_ROWS
+    for dt in ("bfloat16", "float32"):
+        x, o, g, w, b = cs.ln_inputs(n, d, dt, seed=n + d)
+        _, od, mean, rstd = fr.dropout_residual_ln_fwd(o, x, w, b, 7,
+                                                       cs.RATE, cs.EPS)
+        calls = {"row 12": lambda: fr.dropout_residual_ln_fwd(
+                     o, x, w, b, 7, cs.RATE, cs.EPS),
+                 "row 13": lambda: fr.dropout_residual_ln_bwd(
+                     g, od, x, w, mean, rstd, 7, cs.RATE)}
+        for name, fn in calls.items():
+            print(f"{side} kernel {name} n={n} d={d} {dt}: "
+                  f"{cs.kernel_ms(fn):.4f} ms", flush=True)
+        del x, o, g, od
+    ms = cs.kernel_ms(lambda: dm.keep_mask((n, d), cs.RATE, 17, "cuda"))
+    print(f"{side} kernel row 14 n={n} d={d}: {ms:.4f} ms", flush=True)
     n, h, f = cs.PROBE
     g, a = cs.matmul_inputs([(n, h), (n, f)], seed=1)
     x, w, b = cs.matmul_inputs([(n, h), (h, f), (1, f)], seed=2)
@@ -93,7 +115,10 @@ def measure_steps(cs, side):
             "fuse_hidden_dropout": cs.write_config(
                 root, "fuse.json", fuse_hidden_dropout=True),
             "head-major": cs.write_config(root, "hm.json",
-                                          attn_natural_layout=False)}
+                                          attn_natural_layout=False),
+            "LN flags": cs.write_config(root, "ln.json",
+                                        use_pallas_layernorm=True,
+                                        use_fused_residual_ln=True)}
         task_cfg = load_task_config(yml)
         argv = cs.train_argv(root, data_dir, yml, cs.CONFIG, 1, "ab")
         data = load_dataset(train_task.parse_args(argv),

@@ -13,7 +13,14 @@ and each of which prints its seconds:
 
 1. card: its name and power limit as nvidia-smi gives them; TF32 off;
 2. build: the CUDA kernels of ``volta_tpu_torch/ops/csrc`` through first
-   use, with ptxas' register report;
+   use; each band and Hopper-body kernel's registers, stack (spills) and
+   shared memory by name, from ``cuobjdump --dump-resource-usage`` of the
+   built library; the hash's 32-bit integer instructions an element,
+   counted in the SASS of the keep-mask kernel's vector loop
+   (``cuobjdump -sass``: those that compute its stores' data, the hash and
+   the byte pack, and not its addressing, counter or compare), and the
+   card's integer rate (64 INT32 lanes an SM x the SMs x the SM clock
+   ``nvidia-smi`` reports), which the bounds of rows 12-14 and K10 use;
 3. kernel 1 (attention forward) vs its plain twin on the card, numpy inputs
    with a random padding mask: (a) B=256, L=60, H=12, D=64 bf16 (the
    serving shape), (b) the same in fp32, (c) B=3, Lq=5, Lk=563 bf16 (the
@@ -53,11 +60,13 @@ and each of which prints its seconds:
    + LayerNorm forward and backward) vs their twins at the b256 train shape
    (15360 rows of 768) in bf16 and fp32, at 7 and 1000 rows, at the
    classifier width 1536, at the b1024 eval shape (61440 rows) and one row
-   past a full wave of row 10's band grid in bf16:
+   past a full wave of row 10's band grid in bf16, one row past a full
+   wave of row 13's band grid and at a width where 16-byte access does not
+   apply (1000 x 100) in bf16 and fp32:
    y/dx/do within two bf16 ulps of the largest value (fp32 1e-5 relative),
    mean/rstd and dscale/dbias within 1e-5 relative (float32 sums in
-   another order), kernel 11's dx, dscale and dbias bit-equal over two
-   calls, the row-12 mask and od bit-equal to the twin's and the mask to
+   another order), kernel 11's dx, dscale and dbias and kernel 13's do,
+   dx, dscale and dbias bit-equal over two calls, the row-12 mask and od bit-equal to the twin's and the mask to
    ``hash_dropout``'s zero pattern, keep fraction 0.9 +- 0.005; device
    times (``kernel_ms``) in bf16 at the train shape, rows 10-11 also at
    the eval shape, each in turns with the torch LayerNorm forward or
@@ -165,7 +174,9 @@ and each of which prints its seconds:
     with each hidden-mask flag;
 15. the kernels' JSON line (the attention rows also with ``body``, the
     body their wrapper runs in bf16; ``pallas`` false for K10, which
-    replaces no Pallas kernel), then ``{"ok": true, "device": ...}`` last.
+    replaces no Pallas kernel; ``bound_by`` "operations" also where the
+    hash's integer operations bound a kernel, which phases 6 and 7 name),
+    then ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -174,6 +185,7 @@ package is missing beside it.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -237,6 +249,34 @@ CONFIG = os.path.join(REPO, "configs", "ctrl_uniter_base.json")
 CSRC = "volta_tpu_torch/ops/csrc/"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bf16 tensor": 989e12, "fp32": 67e12}  # H100 SXM, dense
+# 32-bit integer lanes of an H100 SM (NVIDIA's Hopper architecture white
+# paper: 64 INT32 units an SM; its int32 "TOPS" count a multiply-add as
+# two). The integer bound counts the hash's integer instructions that issue
+# on these lanes (the ALU pipe: shifts, logic ops, adds, compares,
+# selects, byte permutes) at this rate times the SMs times the SM clock
+# nvidia-smi reports. IMAD (and IDP) issue on the FMA pipe instead
+# (Nsight Compute's pipe names: fmaheavy), beside the ALU: counted at the
+# 64 lanes too, row 14 ran faster than that bound (1.007 of it, NVIDIA H100
+# 80GB HBM3, 700 W), so they are left out of it.
+INT32_LANES_PER_SM = 64
+# the per-thread 32-bit integer instructions of the SASS (the uniform
+# datapath's U* instructions run once a warp and are not counted), and
+# those of them that issue on the FMA pipe
+INT_OPCODES = {"IMAD", "IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL",
+               "SHR", "ISETP", "SEL", "PRMT", "LEA", "IMNMX", "VIMNMX",
+               "IABS", "POPC", "FLO", "BMSK", "BREV", "SGXT", "ICMP", "IDP",
+               "BFE", "BFI"}
+FMA_PIPE_OPCODES = {"IMAD", "IDP"}
+# the card's integer rate, per second, and the hash's 32-bit integer
+# instructions an element on the ALU pipe; phase 2 fills both
+# (hash_int_count)
+HASH = {"int_per_s": None, "per_element": None}
+# the kernels whose registers and stack phase 2 reports by name: the band
+# kernels of rows 10, 11 and 13, their column sums, the Hopper body of rows
+# 15 and 16, and row 14, whose SASS phase 2 reads
+RESOURCE_KERNELS = ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel",
+                    "dropout_residual_ln_bwd_kernel", "band_sum_kernel",
+                    "wg::", "keep_mask_kernel")
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
     "attention_fwd": ("attention_fwd.cu",
@@ -282,9 +322,9 @@ PROBE_ITERS = 3
 KERNEL_FAMILIES = (
     ("attention kernels", ("attention_",)),
     ("LayerNorm kernels (rows 10-11)", ("layer_norm_fwd_kernel",
-                                        "layer_norm_bwd_kernel",
-                                        "layer_norm_bwd_sum_kernel")),
+                                        "layer_norm_bwd_kernel")),
     ("fused residual-LN kernels (rows 12-13)", ("dropout_residual_ln_",)),
+    ("band column sums (rows 11, 13)", ("band_sum_kernel",)),
     ("keep-mask kernel (row 14)", ("keep_mask_kernel",)),
     ("hash dropout kernel (K10)", ("hash_dropout_kernel",)),
     ("index sorts, gathers, scatters (int64)", (
@@ -360,13 +400,202 @@ def kernel_ms(fn, iters=100, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, ops, peak):
-    """The least time of a function on the card, ms: the larger of its
-    bytes over the memory rate and its operations over the peak rate of
-    their type, and which of the two it is."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[peak] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes, ops, peak, hashed=0):
+    """The least time of a function on the card, ms: the largest of its
+    bytes over the memory rate, its operations over the peak rate of their
+    type and, for ``hashed`` elements whose keep bit it draws, the hash's
+    32-bit integer instructions on the ALU pipe over the card's integer
+    rate (``HASH``, phase 2); and which of them it is: "bytes", "operations" or "integer
+    operations"."""
+    terms = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+             (ops / PEAK_OPS[peak] * 1e3, "operations")]
+    if hashed:
+        terms.append((hashed * HASH["per_element"] / HASH["int_per_s"] * 1e3,
+                      "integer operations"))
+    return max(terms, key=lambda t: t[0])
+
+
+def short_name(mangled):
+    """A kernel's name and template arguments, from its mangled symbol
+    (``c++filt`` where the host has it)."""
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True,
+                              text=True, check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return mangled
+    name = name.strip().replace("(anonymous namespace)::", "")
+    return name.split("(", 1)[0].removeprefix("void ")
+
+
+def cuobjdump():
+    """The toolkit's cuobjdump, beside nvcc: phase 2 reads the built
+    library with it."""
+    from volta_tpu_torch.ops import _build
+
+    tool = _build.toolkit_program("cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"phase 2 needs cuobjdump beside nvcc: no {tool}")
+    return tool
+
+
+def resource_report(lib):
+    """Registers, stack frame and static shared memory of every kernel of
+    RESOURCE_KERNELS, by name, from ``cuobjdump --dump-resource-usage`` of
+    the built library, with ptxas' spill stores and loads for the same
+    symbol from the build log; prints one line each and returns {name:
+    (registers, stack, spills, symbol)}."""
+    from volta_tpu_torch.ops import _build
+
+    out = subprocess.run([cuobjdump(), "--dump-resource-usage", lib],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    spills = dict(re.findall(
+        r"Function properties for (\S+)\n\s+\d+ bytes stack frame, "
+        r"(\d+ bytes spill stores, \d+ bytes spill loads)",
+        _build.build_log()))
+    report = {}
+    for sym, regs, stack, shared in re.findall(
+            r"Function (\S+):\n\s+REG:(\d+) STACK:(\d+) SHARED:(\d+)", out):
+        name = short_name(sym)
+        if not any(k in name for k in RESOURCE_KERNELS):
+            continue
+        spill = spills.get(sym, "spills not in the build log")
+        report[name] = (int(regs), int(stack), spill, sym)
+        print(f"resources {name}: {regs} registers, {stack} bytes stack, "
+              f"{shared} bytes static shared memory; {spill}", flush=True)
+    return report
+
+
+def sass_operands(args):
+    """The registers and predicates each operand of a SASS instruction
+    names, as sets ("R12.64" names R12 and R13)."""
+    out = []
+    for arg in args.split(","):
+        names = set()
+        for kind, num, wide in re.findall(
+                r"(?<![A-Z])(UR|UP|R|P)(\d+)(\.64)?", arg):
+            names.add(f"{kind}{num}")
+            if wide:
+                names.add(f"{kind}{int(num) + 1}")
+        out.append((arg.strip(), names))
+    return out
+
+
+def sass_defs_uses(op, args, guard):
+    """What a SASS instruction writes and what it reads: its first operand
+    and up to two predicates after it (carry or second compare outputs)
+    are written, with a ".WIDE" result a register pair and a ".128" load a
+    quad; a store writes nothing; the rest and the guard are read."""
+    ops = sass_operands(args)
+    wide = lambda names, width: {
+        f"{kind}{int(num) + k}" for kind, num in
+        (re.fullmatch(r"(\D+)(\d+)", n).groups() for n in names)
+        for k in range(width)}
+    defs = set()
+    if ops and not op.startswith(("ST", "BRA", "EXIT", "BSYNC", "BSSY")):
+        defs = wide(ops.pop(0)[1],
+                    4 if ".128" in op else 2 if ".WIDE" in op else 1)
+        for _ in range(2):
+            if ops and re.fullmatch(r"!?(P\d|PT)", ops[0][0]):
+                defs |= ops.pop(0)[1]
+    if ".WIDE" in op and ops:  # its addend is a pair too
+        ops[-1] = (ops[-1][0], wide(ops[-1][1], 2))
+    uses = set().union(*(names for _, names in ops))
+    if guard:
+        uses |= sass_operands(guard.strip().lstrip("@!"))[0][1]
+    return defs, uses
+
+
+def vector_loop(sass, kernel):
+    """In the SASS of the kernel whose symbol holds ``kernel``: the loop
+    that a backward branch closes and that holds 16-byte global stores
+    (the largest, where several do), as a list of (opcode, operands,
+    guard)."""
+    fn = next(part for part in sass.split("Function : ")[1:]
+              if kernel in part.split("\n", 1)[0])
+    ins = [(int(a, 16), op, args, guard) for a, guard, op, args in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", fn)]
+    best = None
+    for addr, op, args, _ in ins:
+        target = re.match(r"\s*0x([0-9a-f]+)", args) if op == "BRA" else None
+        if target is None or int(target.group(1), 16) > addr:
+            continue
+        start = int(target.group(1), 16)
+        body = [(o, g, u) for a, o, g, u in ins if start <= a <= addr]
+        if (any(o.startswith("STG") and ".128" in o for o, _, _ in body)
+                and (best is None or len(body) > len(best))):
+            best = body
+    if best is None:
+        raise RuntimeError(f"no vector loop in {kernel}'s SASS")
+    return best
+
+
+def store_data_slice(body):
+    """The instructions of a loop body (``vector_loop``) that compute the
+    data of its 16-byte stores in one pass: followed back from each
+    store's data registers through what writes them, and not through the
+    store's address, the loop counter's update and compare or the branch.
+    Returns their indices in ``body``."""
+    taken = set()
+    for k, (op, args, _) in enumerate(body):
+        if not (op.startswith("STG") and ".128" in op):
+            continue
+        data = sass_operands(args)[-1][1]
+        need = {f"R{int(r[1:]) + i}" for r in data for i in range(4)}
+        for j in range(k - 1, -1, -1):
+            defs, uses = sass_defs_uses(*body[j])
+            if defs & need:
+                taken.add(j)
+                if not body[j][2]:
+                    need -= defs
+                need |= uses
+    return sorted(taken)
+
+
+def int_counts(ops):
+    """Of SASS opcodes: the 32-bit integer instructions, and those of them
+    on the ALU pipe (all but FMA_PIPE_OPCODES)."""
+    ints = [o.split(".")[0] for o in ops if o.split(".")[0] in INT_OPCODES]
+    return len(ints), sum(o not in FMA_PIPE_OPCODES for o in ints)
+
+
+def hash_int_count(lib, symbol):
+    """Fill ``HASH``: the card's integer rate (INT32_LANES_PER_SM x the SM
+    count x the SM clock nvidia-smi reports) and the hash's 32-bit integer
+    instructions an element on the ALU pipe, counted in the SASS of the
+    keep-mask kernel (row 14, ``cuobjdump -sass -fun symbol``, its mangled
+    name): the integer instructions but IMAD and IDP that compute the data
+    of its vector loop's 16-byte stores (the hash and the byte pack;
+    ``store_data_slice``), over the 16 elements of each store. The whole
+    loop's count, its addressing, counter and compare included, is printed
+    beside it."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    HASH["int_per_s"] = INT32_LANES_PER_SM * sms * mhz * 1e6
+    sass = subprocess.run([cuobjdump(), "-sass", "-fun", symbol, lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    body = vector_loop(sass, "keep_mask_kernel")
+    elems = 16 * sum(o.startswith("STG") and ".128" in o for o, _, _ in body)
+    loop_ints, loop_alu = int_counts([o for o, _, _ in body])
+    hash_ints, hash_alu = int_counts([body[j][0]
+                                      for j in store_data_slice(body)])
+    HASH["per_element"] = hash_alu / elems
+    print(f"hash: the keep-mask kernel's vector loop, {len(body)} "
+          f"instructions for {elems} elements: {loop_ints} integer "
+          f"instructions, {loop_alu} on the ALU pipe "
+          f"({loop_alu / elems:.4f} an element); of them the hash and the "
+          f"byte pack {hash_ints}, {hash_alu} on the ALU pipe "
+          f"({HASH['per_element']:.4f} an element, the bound's count); "
+          f"the card's integer rate {INT32_LANES_PER_SM} lanes x {sms} SMs "
+          f"x {mhz:.0f} MHz = {HASH['int_per_s'] / 1e12:.4f} T "
+          f"instructions/s", flush=True)
 
 
 def attention_bound(b, lq, lk, h, d, itemsize, backward, mask=False,
@@ -386,7 +615,9 @@ def attention_bound(b, lq, lk, h, d, itemsize, backward, mask=False,
 def row_bound(name, n, d, itemsize):
     """Rows 10-13 over [n, d]: each [n, d] operand read or written once, the
     [d] float32 vectors and [n] float32 statistics once; float32 operations
-    per element (statistics, normalisation, VJP) on the CUDA cores."""
+    per element (statistics, normalisation, VJP) on the CUDA cores; rows 12
+    and 13 also the hash of every element's keep bit (chip_smoke times them
+    with dropout)."""
     rows, vecs, stats, ops = {
         "layer_norm_fwd": (2, 2, 2, 8),            # x -> y; w, b; mean, rstd
         "layer_norm_bwd": (3, 3, 2, 13),           # g, x -> dx; w, dw, db
@@ -394,7 +625,8 @@ def row_bound(name, n, d, itemsize):
         "dropout_residual_ln_bwd": (5, 3, 2, 15),  # g, od, x -> do, dx
     }[name]
     nbytes = rows * n * d * itemsize + vecs * d * 4 + stats * n * 4
-    return bound(nbytes, ops * n * d, "fp32")
+    return bound(nbytes, ops * n * d, "fp32",
+                 hashed=n * d if name.startswith("dropout_") else 0)
 
 
 # K10's launches a training forward, and as many backward: the 24 sublayer
@@ -1041,19 +1273,19 @@ def check_mask_kernels():
         "keep_mask": (
             lambda: dm.keep_mask(TRAIN_ROWS, RATE, 17, "cuda"),
             lambda: dm.keep_mask_ref(TRAIN_ROWS, RATE, 17, "cuda"),
-            # a byte written for each element; the hash's integer
-            # operations are not counted
-            bound(n * dd, 0, "fp32"))}
+            # a byte written and a hash drawn for each element
+            bound(n * dd, 0, "fp32", hashed=n * dd))}
     for dt in ("bfloat16", "float32"):
         x = torch.randn(TRAIN_ROWS, device="cuda").to(getattr(torch, dt))
         for name, wrapper in (("hash_dropout_fwd", hd.hash_dropout_fwd),
                               ("hash_dropout_bwd", hd.hash_dropout_bwd)):
-            # x read and the output written once each; the hash's integer
-            # operations are not counted
+            # x read and the output written once each, a hash drawn for
+            # each element
             pairs[name if dt == "bfloat16" else f"{name} float32"] = (
                 lambda x=x, wrapper=wrapper: wrapper(x, 17, RATE),
                 lambda x=x: hd.hash_dropout_ref(x, 17, RATE),
-                bound(2 * x.numel() * x.element_size(), 0, "fp32"))
+                bound(2 * x.numel() * x.element_size(), 0, "fp32",
+                      hashed=x.numel()))
     for name, (kern, plain, bnd) in pairs.items():
         ms = kernel_ms(kern)
         plain_ms = kernel_ms(plain, iters=20)
@@ -1301,8 +1533,9 @@ def ln_inputs(n, d, dtype, seed):
 
 
 def check_ln_kernels():
-    """Phase 6: kernels 10-13 against their twins, dx, dscale and dbias
-    bit-equal over two calls; their times at the train shape in bf16 and
+    """Phase 6: kernels 10-13 against their twins, kernel 11's dx, dscale
+    and dbias and kernel 13's do, dx, dscale and dbias bit-equal over two
+    calls; their times at the train shape in bf16 and
     rows 10-11's also at the b1024 eval shape, beside the torch LayerNorm
     (``time_ln_kernels``); the host time of a call through each path."""
     import torch
@@ -1316,11 +1549,16 @@ def check_ln_kernels():
     # float32 (1e-5 of the largest value): sums in another order
     f32 = "float32"
     report = {}
-    # the b1024 eval shape, and one row past a full wave of row 10's band
-    # grid (every warp one row, then one warp two)
+    # the b1024 eval shape, one row past a full wave of row 10's band grid
+    # (every warp one row, then one warp two), the same for row 13's band
+    # grid in both dtypes, and a width where 16-byte access does not apply
     edge = ln.full_wave_rows(0, 768, torch.bfloat16) + 1
-    for (n, d), dt in LN_SHAPES + [((EVAL_ROWS, 768), "bfloat16"),
-                                   ((edge, 768), "bfloat16")]:
+    bwd_edges = [((fr.bwd_full_wave_rows(0, 768, getattr(torch, dt)) + 1,
+                   768), dt) for dt in ("bfloat16", "float32")]
+    for (n, d), dt in dict.fromkeys(
+            LN_SHAPES + [((EVAL_ROWS, 768), "bfloat16"),
+                         ((edge, 768), "bfloat16")] + bwd_edges
+            + [((1000, 100), "bfloat16"), ((1000, 100), "float32")]):
         x, o, g, w, b = ln_inputs(n, d, dt, seed=n + d)
         seed = 0xBEEF + n
         y, mean, rstd = ln.layer_norm_fwd(x, w, b, EPS)
@@ -1330,9 +1568,15 @@ def check_ln_kernels():
                                                           RATE, EPS)
         fdo, fdx, fdw, fdb = fr.dropout_residual_ln_bwd(g, od, x, w, fmean,
                                                         frstd, seed, RATE)
+        fagain = fr.dropout_residual_ln_bwd(g, od, x, w, fmean, frstd, seed,
+                                            RATE)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b2) for a, b2 in zip((dx, dw, db), again)):
             raise RuntimeError(f"kernel 11 differs from call to call at "
+                               f"{(n, d)} {dt}")
+        if not all(torch.equal(a, b2) for a, b2 in
+                   zip((fdo, fdx, fdw, fdb), fagain)):
+            raise RuntimeError(f"kernel 13 differs from call to call at "
                                f"{(n, d)} {dt}")
         keep = adc.keep_mask(seed, (n, d), RATE, device="cuda")
         if not torch.equal(od != 0, keep) or not torch.equal(
@@ -1366,14 +1610,14 @@ def check_ln_kernels():
         frac = float(keep.float().mean())
         print(f"kernels 10-13 n={n} d={d} {dt}: max abs diff vs twins "
               + " / ".join(f"{e:.3e}" for e in errs.values())
-              + ", kernel 11 bit-equal over two calls, row-12 mask and od "
-              f"bit-equal, keep fraction {frac:.5f}", flush=True)
+              + ", kernels 11 and 13 bit-equal over two calls, row-12 mask "
+              f"and od bit-equal, keep fraction {frac:.5f}", flush=True)
         if (n, d) == TRAIN_ROWS:
             if abs(frac - (1 - RATE)) > 0.005:
                 raise RuntimeError(f"row-12 keep fraction {frac}")
             if dt == "bfloat16":
                 report = {k: {"max_abs_err": e} for k, e in errs.items()}
-        del x, o, g, w, b, y, od, keep
+        del x, o, g, w, b, y, od, keep, fagain
         torch.cuda.empty_cache()
 
     for k, v in time_ln_kernels().items():
@@ -2536,10 +2780,13 @@ def main(argv):
     t_start = time.time()
     with phase("2 build"):
         _build.load()
+        lib = str(_build.library_path())
         print(f"kernels built ({_build.library_path().name})", flush=True)
-        for line in _build.build_log().splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip(), flush=True)
+        keep = [v[3] for k, v in resource_report(lib).items()
+                if "keep_mask_kernel" in k]
+        if not keep:
+            raise RuntimeError("no keep_mask_kernel in the built library")
+        hash_int_count(lib, keep[0])
 
     results = {}
     with phase("3 kernel 1"):
@@ -2691,7 +2938,10 @@ def main(argv):
              "ms": results[name]["ms"],
              "plain_ms": results[name]["plain_ms"],
              "bound_ms": results[name]["bound"][0],
-             "bound_by": results[name]["bound"][1],
+             # the hash's integer term counts as "operations" here; the
+             # phases' lines name it
+             "bound_by": ("bytes" if results[name]["bound"][1] == "bytes"
+                          else "operations"),
              "bound_share": results[name]["bound"][0] / results[name]["ms"],
              "library_ms": results[name]["library_ms"],
              **{k: results[name][k] for k in ("shapes", "body", "leg2")

@@ -650,17 +650,26 @@ def _assert_sums_close(got, ref, what):
 
 def _ln_rows(shape, dtype):
     """(n, d) of a LayerNorm case: WAVE_EDGE is one row past a full wave of
-    the forward's band grid on this card (every warp one row), 768 wide."""
+    the forward's band grid on this card (every warp one row), 768 wide;
+    BWD_WAVE_EDGE the same for row 13's backward band grid."""
+    from volta_tpu_torch.ops import fused_residual as fr
     from volta_tpu_torch.ops import layernorm as ln
 
     if shape == WAVE_EDGE:
         return ln.full_wave_rows(0, 768, getattr(torch, dtype)) + 1, 768
+    if shape == BWD_WAVE_EDGE:
+        return fr.bwd_full_wave_rows(0, 768, getattr(torch, dtype)) + 1, 768
     return shape
 
 
 # the b1024 eval shape and one row past a full wave of the band grid
 WAVE_EDGE = "wave_edge"
+BWD_WAVE_EDGE = "bwd_wave_edge"
 LN_BAND_SHAPES = LN_SHAPES + [(61440, 768), WAVE_EDGE]
+
+
+def _shape_id(s):
+    return s if isinstance(s, str) else "x".join(map(str, s))
 
 
 @pytest.mark.cuda
@@ -712,13 +721,15 @@ def test_layer_norm_backward_is_the_same_from_call_to_call(cuda_device,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape", LN_SHAPES,
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", LN_SHAPES + [BWD_WAVE_EDGE], ids=_shape_id)
 def test_fused_residual_kernels_match_twins(cuda_device, dtype, shape):
+    """Rows 12-13 against their twins; the cases include a width where
+    16-byte access does not apply (33 x 100) and one row past a full wave
+    of row 13's band grid."""
     from volta_tpu_torch.models.layers import hash_dropout
     from volta_tpu_torch.ops import fused_residual as fr
 
-    n, d = shape
+    n, d = _ln_rows(shape, dtype)
     o, x, g, w, b = _ln_inputs(n, d, dtype, cuda_device, seed=2 * n + d)
     seed = 0xBEEF + n
     names = ("dropout_residual_ln_fwd", "dropout_residual_ln_bwd")
@@ -752,6 +763,63 @@ def test_fused_residual_kernels_match_twins(cuda_device, dtype, shape):
     y0, od0, _, _ = fr.dropout_residual_ln_fwd(o, x, w, b, seed, 0.0, 1e-12)
     assert torch.equal(od0, o)
     _assert_close(y0, ln_ref_of_sum(o, x, w, b), dtype, "y at rate 0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(15360, 768), (33, 100), BWD_WAVE_EDGE],
+                         ids=_shape_id)
+def test_fused_residual_backward_is_the_same_from_call_to_call(cuda_device,
+                                                               dtype, shape):
+    """No atomics: row 13's do, dx, dscale and dbias are bit-equal over two
+    calls."""
+    from volta_tpu_torch.ops import fused_residual as fr
+
+    n, d = _ln_rows(shape, dtype)
+    o, x, g, w, b = _ln_inputs(n, d, dtype, cuda_device, seed=5 * n + d)
+    _, od, mean, rstd = fr.dropout_residual_ln_fwd(o, x, w, b, 99, RATE,
+                                                   1e-12)
+    first = fr.dropout_residual_ln_bwd(g, od, x, w, mean, rstd, 99, RATE)
+    second = fr.dropout_residual_ln_bwd(g, od, x, w, mean, rstd, 99, RATE)
+    torch.cuda.synchronize()
+    for name, a, b2 in zip(("do", "dx", "dscale", "dbias"), first, second):
+        assert torch.equal(a, b2), name
+
+
+@pytest.mark.cuda
+def test_kept_zero_activation_keeps_its_gradient(cuda_device):
+    """tests/test_torch_port_fused_residual.py's case on the card: an
+    element of o that is exactly 0 but kept gets ds / (1 - rate) from row
+    13, which replays the hash instead of reading od != 0; every dropped
+    element gets 0; and the card's gradients agree with the CPU twins'."""
+    from volta_tpu_torch.ops import fused_residual as fr
+
+    n, d, rate, seed = 16, 128, 0.25, 12345
+    rng = np.random.RandomState(3)
+    o, x, g = (rng.randn(n, d).astype(np.float32) for _ in range(3))
+    w = (1 + 0.1 * rng.randn(d)).astype(np.float32)
+    b = (0.1 * rng.randn(d)).astype(np.float32)
+    o[0, :8] = 0.0
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in (o, x, w, b)]
+        before = LAUNCHES["dropout_residual_ln_bwd"]
+        y = fr.dropout_residual_ln(*leaves, seed=seed, rate=rate, eps=1e-12)
+        y.backward(torch.from_numpy(g).to(dev))
+        assert LAUNCHES["dropout_residual_ln_bwd"] - before == \
+            (dev == "cuda")
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    kept = fr.keep_mask(seed, (n, d), rate)
+    zero_kept = kept & (torch.from_numpy(o) == 0)
+    assert int(zero_kept.sum()) >= 4
+    grad_o, grad_x = grads["cuda"][:2]
+    assert bool((grad_o[zero_kept] != 0).all())
+    torch.testing.assert_close(grad_o, torch.where(
+        kept, grad_x * fr.keep_scale(rate), 0.0), rtol=0, atol=0)
+    for name, a, r in zip(("do", "dx", "dscale", "dbias"), grads["cuda"],
+                          grads["cpu"]):
+        _assert_close(a, r, "float32", name)
 
 
 def ln_ref_of_sum(o, x, w, b):

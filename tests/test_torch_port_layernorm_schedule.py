@@ -14,7 +14,7 @@ CPU reaches: ``band_blocks`` sizes the grid from the card's capacity,
 - the backward's reduction recipe in plain PyTorch: each warp adds its
   band's rows in order, the block's 8 warps are summed as a tree, and the
   blocks' partials in 32 strands of block order and a tree over the strands
-  (``layer_norm_bwd_sum_kernel``). It is held against the JAX package's
+  (``band_sum_kernel``, rowband.cuh). It is held against the JAX package's
   ``_bwd_kernel`` (through ``_pallas_layer_norm``'s VJP under
   ``pltpu.force_tpu_interpret_mode()``) and against the twin
   ``layer_norm_bwd_ref``.

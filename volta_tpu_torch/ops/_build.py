@@ -53,6 +53,12 @@ def _nvcc() -> str:
     return path
 
 
+def toolkit_program(name: str) -> str:
+    """The path of one of the CUDA toolkit's programs (``cuobjdump``, ...)
+    beside the ``nvcc`` that builds the kernels."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
+
+
 def _compile(path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()

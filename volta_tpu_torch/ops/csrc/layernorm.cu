@@ -27,10 +27,11 @@
 // g over its band in registers; at the end the block's warps go through
 // shared memory, 8 to a column, summed as a tree (tree_sum), and the block
 // writes one [d] partial of each. A second kernel of the same call sums
-// the partials over blocks: strands of blocks k, k + 32, ... in block
-// order, then a tree over the 32 strands. No atomics: dscale and dbias are
-// the same from run to run. The host sizes the partials (band_blocks and
-// bwd_workspace in layernorm.py) and passes the block count to the launch.
+// the partials over blocks (band_sum_kernel, rowband.cuh): strands of
+// blocks k, k + 32, ... in block order, then a tree over the 32 strands.
+// No atomics: dscale and dbias are the same from run to run. The host
+// sizes the partials (band_blocks and bwd_workspace in layernorm.py) and
+// passes the block count to the launch.
 
 #include "rowband.cuh"
 
@@ -214,37 +215,6 @@ layer_norm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-constexpr int kSumWarps = 32;
-
-// out[c] for the 2 * d columns c of the blocks' partials part [2, blocks,
-// d] (out is [2, d]: dscale, then dbias): warp k sums blocks k, k + 32,
-// ... in order, then a tree over the 32 warps. A warp's loads are
-// independent, so each thread has few round trips to memory.
-__global__ void __launch_bounds__(kSumWarps * 32)
-layer_norm_bwd_sum_kernel(const float* __restrict__ part,
-                          float* __restrict__ out, int blocks, int d) {
-  __shared__ float t[kSumWarps][33];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (c < 2 * d) {
-    const float* p =
-        part + static_cast<size_t>(c / d) * blocks * d + c % d;
-#pragma unroll 8
-    for (int k = warp; k < blocks; k += kSumWarps)
-      s += p[static_cast<size_t>(k) * d];
-  }
-  t[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && c < 2 * d) {
-    float v[kSumWarps];
-#pragma unroll
-    for (int k = 0; k < kSumWarps; ++k) v[k] = t[k][lane];
-    out[c] = tree_sum(v);
-  }
-}
-
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y,
                        void* mean, void* rstd, int n, int d, float eps,
@@ -275,9 +245,7 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* w,
           vec);
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
-      layer_norm_bwd_sum_kernel<<<(2 * d + 31) / 32, kSumWarps * 32, 0,
-                                  stream>>>(part, out, blocks, d);
-      return cudaGetLastError())
+      return launch_band_sum(part, out, blocks, d, stream))
 }
 
 template <typename T>

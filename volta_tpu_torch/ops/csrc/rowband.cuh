@@ -1,5 +1,6 @@
 // The band layout of the port's redesigned row kernels (sm_90a): the
-// LayerNorm forward and backward of layernorm.cu. It keeps rownorm.cuh's
+// LayerNorm forward and backward of layernorm.cu and the fused dropout +
+// residual + LayerNorm backward of fused_residual.cu. It keeps rownorm.cuh's
 // row layout (a warp owns a row, lane l holds the row's 16-byte vectors l,
 // l + 32, ... as kPer float32 slots, slot_elem) and changes what a warp
 // does over its life:
@@ -214,6 +215,48 @@ __device__ __forceinline__ float tree_sum(float (&t)[K]) {
     for (int i = 0; i < stride; ++i) t[i] += t[i + stride];
   }
   return t[0];
+}
+
+constexpr int kSumWarps = 32;
+
+// The second kernel of a band backward's call: out[c] for the 2 * d
+// columns c of the blocks' partials part [2, blocks, d] (out is [2, d]:
+// dscale, then dbias). Warp k sums blocks k, k + 32, ... in order, then a
+// tree over the 32 warps, so the sums are the same from run to run. A
+// warp's loads are independent, so each thread has few round trips to
+// memory.
+__global__ void __launch_bounds__(kSumWarps * 32)
+band_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                int blocks, int d) {
+  __shared__ float t[kSumWarps][33];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < 2 * d) {
+    const float* p =
+        part + static_cast<size_t>(c / d) * blocks * d + c % d;
+#pragma unroll 8
+    for (int k = warp; k < blocks; k += kSumWarps)
+      s += p[static_cast<size_t>(k) * d];
+  }
+  t[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < 2 * d) {
+    float v[kSumWarps];
+#pragma unroll
+    for (int k = 0; k < kSumWarps; ++k) v[k] = t[k][lane];
+    out[c] = tree_sum(v);
+  }
+}
+
+// Launches band_sum_kernel over the partials of a band backward's grid of
+// `blocks` blocks.
+inline cudaError_t launch_band_sum(const float* part, float* out, int blocks,
+                                   int d, cudaStream_t stream) {
+  band_sum_kernel<<<(2 * d + 31) / 32, kSumWarps * 32, 0, stream>>>(
+      part, out, blocks, d);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // Device code of the port's row kernels (sm_90a): the row layout and
 // helpers that every LayerNorm kernel uses (slot_elem, load_row,
-// store_row, row_stats, norm_per_lane), and the bodies of the fused
-// dropout + residual + LayerNorm forward and backward (fused_residual.cu).
-// The plain LayerNorm of layernorm.cu walks bands of rows instead
-// (rowband.cuh); these bodies keep one row per warp.
+// store_row, row_stats, norm_per_lane), and the body of the fused
+// dropout + residual + LayerNorm forward (fused_residual.cu), which keeps
+// one row per warp. The plain LayerNorm of layernorm.cu and the fused
+// backward walk bands of rows instead (rowband.cuh).
 //
 // Numerics follow the TPU kernels (volta_tpu/ops/layernorm.py:27-54,
 // volta_tpu/ops/fused_residual.py:40-91): rows of d elements normalised
@@ -23,21 +23,10 @@
 // multiple of N, or a pointer is not 16-byte aligned, the same layout is
 // read and written one element at a time (vec = false).
 //
-// The cross-row sums of the backward. The TPU grid runs in order and each
-// tile writes its own partial dscale / dbias; on the card blocks run in no
-// order. Each backward block walks kBwdRows rows (kBwdRowsPerWarp a warp),
-// its lanes accumulate their columns in registers, the warps add their
-// sums into shared memory one after another, in warp order, and the block
-// writes one [d] partial of each to dscale_part / dbias_part
-// [nblocks, d] float32. The wrapper sums the partials over blocks, as XLA
-// sums the TPU kernel's tiles (layernorm.py:118-119). No atomics, so the
-// result is the same from run to run.
-//
 // Bound: every kernel here moves a few bytes per element and does a few
 // FLOPs per element, far below the ~20 FLOP/byte the card can feed from
 // device memory in float32, so the floor is bytes (each input read once,
-// each output written once). Rows are independent, so the kernels need no
-// shared memory except the backward's [2, d] partial sums.
+// each output written once).
 
 #pragma once
 
@@ -45,10 +34,7 @@
 
 namespace {
 
-constexpr int kFwdWarps = 8;         // forward: one row per warp
-constexpr int kBwdWarps = 8;         // backward: warps per block
-constexpr int kBwdRowsPerWarp = 8;   // rows one backward warp walks
-constexpr int kBwdRows = kBwdWarps * kBwdRowsPerWarp;  // rows per block
+constexpr int kFwdWarps = 8;  // forward: one row per warp
 
 // The dropout of the fused residual kernels: keep = hash_keep(index, seed,
 // threshold) over o's linear index, kept values times scale (float32(1 /
@@ -169,84 +155,6 @@ __device__ __forceinline__ void norm_fwd_row(
   if (lane == 0) {
     mean_out[row] = mean;
     rstd_out[row] = rstd;
-  }
-}
-
-// --------------------------------------------------------------- backward
-// kBwdRows rows a block, kBwdRowsPerWarp a warp: s = od + x recomputed
-// from the saved od, the LN VJP ds of s for the output cotangent g, dx =
-// ds and do = ds * keep * scale with the keep bit replayed from the hash
-// (never from od != 0: a kept element that was exactly 0 keeps its
-// gradient). Every block writes its [d] partial sums of g * xhat and g to
-// dw_part and db_part (row blockIdx.x).
-template <typename T, int kPer>
-__device__ __forceinline__ void norm_bwd_rows(
-    const T* __restrict__ g, const T* __restrict__ od,
-    const T* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ mean, const float* __restrict__ rstd,
-    T* __restrict__ d_o, T* __restrict__ dx, float* __restrict__ dw_part,
-    float* __restrict__ db_part, int n, int d, bool vec, RowDropout drop) {
-  extern __shared__ float part[];  // [2][d]: block sums of g * xhat, g
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float aw[kPer], ab[kPer];
-#pragma unroll
-  for (int s = 0; s < kPer; ++s) aw[s] = ab[s] = 0.f;
-
-  for (int r = warp; r < kBwdRows; r += kBwdWarps) {
-    const int row = blockIdx.x * kBwdRows + r;
-    if (row >= n) break;
-    const size_t base = static_cast<size_t>(row) * d;
-    float gv[kPer], xh[kPer];
-    load_row<T, kPer>(g + base, d, lane, vec, gv);
-    load_row<T, kPer>(x + base, d, lane, vec, xh);
-    load_row<T, kPer, true>(od + base, d, lane, vec, xh);
-    const float mu = mean[row];
-    const float rs = rstd[row];
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int s = 0; s < kPer; ++s) {
-      const int e = slot_elem<T>(s, lane);
-      xh[s] = (xh[s] - mu) * rs;
-      aw[s] += gv[s] * xh[s];
-      ab[s] += gv[s];
-      gv[s] *= e < d ? __ldg(w + e) : 0.f;  // gs
-      m1 += gv[s];
-      m2 += gv[s] * xh[s];
-    }
-    m1 = warp_sum(m1) / static_cast<float>(d);
-    m2 = warp_sum(m2) / static_cast<float>(d);
-#pragma unroll
-    for (int s = 0; s < kPer; ++s) gv[s] = rs * (gv[s] - m1 - xh[s] * m2);
-    store_row<T, kPer>(dx + base, d, lane, vec, gv);
-#pragma unroll
-    for (int s = 0; s < kPer; ++s) {
-      const uint32_t idx = static_cast<uint32_t>(base + slot_elem<T>(s, lane));
-      const bool keep =
-          !drop.drop || hash_keep(idx, drop.seed, drop.threshold);
-      gv[s] = keep ? gv[s] * drop.scale : 0.f;
-    }
-    store_row<T, kPer>(d_o + base, d, lane, vec, gv);
-  }
-
-  // the warps' column sums into shared memory, one warp after another
-  for (int wi = 0; wi < kBwdWarps; ++wi) {
-    if (warp == wi) {
-#pragma unroll
-      for (int s = 0; s < kPer; ++s) {
-        const int e = slot_elem<T>(s, lane);
-        if (e < d) {
-          part[e] = wi == 0 ? aw[s] : part[e] + aw[s];
-          part[d + e] = wi == 0 ? ab[s] : part[d + e] + ab[s];
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const size_t out = static_cast<size_t>(blockIdx.x) * d;
-  for (int e = threadIdx.x; e < d; e += blockDim.x) {
-    dw_part[out + e] = part[e];
-    db_part[out + e] = part[d + e];
   }
 }
 

@@ -10,6 +10,11 @@ dropped there (od = keep ? o·float32(1/(1 − rate)) : 0), s = od + x in
 float32 gives the statistics, y is stored in o's dtype and od is saved
 rounded to it; the backward recomputes s from the saved od.
 
+The backward kernel walks bands of rows on a grid of one wave, as the
+LayerNorm backward does (``layernorm.band_blocks``), and sums dscale and
+dbias on the card in a fixed order into one workspace
+(``layernorm.bwd_workspace``): no host-launched reduction follows it.
+
 The TPU draws the mask from the Mosaic PRNG and saves it. Here it is the
 counter hash of ``hash_dropout`` over o's linear index with the site's
 uint32 seed, so the fused tail drops exactly the elements
@@ -32,9 +37,8 @@ from . import LAUNCHES, _build
 from .attention_cuda import DTYPE_CODE, launch_error
 from .attention_dropout_cuda import keep_mask, keep_scale
 from .hash import dropout_threshold
-from .layernorm import LN_EPS, check_rows, ln_rows, ln_rows_vjp
-
-BWD_ROWS = 64  # kBwdRows in csrc/rownorm.cuh: rows per backward block
+from .layernorm import (BAND_WARPS, LN_EPS, band_blocks, band_capacity,
+                        bwd_workspace, check_rows, ln_rows, ln_rows_vjp)
 
 
 def dropout_residual_ln_fwd_ref(o, x, weight, bias, keep, rate, eps):
@@ -88,11 +92,27 @@ def _kernels():
     fwd.argtypes = [P] * 8 + [I, I, F, U, U, F, I, I, I, I, P]
     fwd.restype = I
     bwd = lib.volta_dropout_residual_ln_bwd
-    bwd.argtypes = [P] * 10 + [I, I, U, U, F, I, I, I, I, P]
+    bwd.argtypes = [P] * 9 + [I, I, U, U, F, I, I, I, I, I, P]
     bwd.restype = I
     lib.volta_cuda_error_string.argtypes = [I]
     lib.volta_cuda_error_string.restype = ctypes.c_char_p
     return fwd, bwd, lib.volta_cuda_error_string
+
+
+@functools.cache
+def _per_card(device, d, code):
+    """Blocks of the backward band kernel that CUDA device ``device`` holds
+    at once for width d and dtype code, read once."""
+    return band_capacity(
+        _build.load().volta_dropout_residual_ln_blocks_per_sm, device, d,
+        code)
+
+
+def bwd_full_wave_rows(device, d, dtype):
+    """The rows at which every warp of the backward's full band grid on
+    CUDA device ``device`` (an index) walks exactly one row, for width d
+    and dtype."""
+    return _per_card(device, d, DTYPE_CODE[dtype]) * BAND_WARPS
 
 
 def dropout_residual_ln_fwd(o, x, weight, bias, seed, rate, eps):
@@ -125,8 +145,9 @@ def dropout_residual_ln_fwd(o, x, weight, bias, seed, rate, eps):
 def dropout_residual_ln_bwd(g, od, x, weight, mean, rstd, seed, rate):
     """The backward of ``dropout_residual_ln_fwd`` for the same ``seed``
     and the output cotangent g [n, d]: do and dx [n, d] in g.dtype, dscale
-    and dbias [d] float32. The kernel replays the mask's hash; CPU tensors
-    take the plain twin."""
+    and dbias [d] float32 (per-block partials summed over blocks in a fixed
+    order, by a second kernel of the same launch). The kernel replays the
+    mask's hash; CPU tensors take the plain twin."""
     _check_rate(rate, seed)
     if x.device.type == "cpu":
         return dropout_residual_ln_bwd_ref(
@@ -136,20 +157,27 @@ def dropout_residual_ln_bwd(g, od, x, weight, mean, rstd, seed, rate):
                            [("g", g), ("od", od), ("x", x)],
                            [("weight", weight)],
                            [("mean", mean), ("rstd", rstd)])
+    return _launch_bwd(g, od, x, weight, mean, rstd, seed, rate, n, d, vec)
+
+
+def _launch_bwd(g, od, x, weight, mean, rstd, seed, rate, n, d, vec):
+    """Row 13's launch on operands that ``check_rows`` took: the workspace
+    for the grid's partials and the summed dscale and dbias is sized from
+    the block count the launch is given."""
     _, fn, err_str = _kernels()
+    dev, code = x.get_device(), DTYPE_CODE[x.dtype]
+    blocks = band_blocks(n, _per_card(dev, d, code))
     do, dx = torch.empty_like(g), torch.empty_like(g)
-    parts = torch.empty((2, -(-n // BWD_ROWS), d), dtype=torch.float32,
-                        device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = torch.empty(bwd_workspace(d, blocks), dtype=torch.float32,
+                     device=x.device)
     rc = fn(g.data_ptr(), od.data_ptr(), x.data_ptr(), weight.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), do.data_ptr(), dx.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), n, d,
-            *_dropout_args(seed, rate), vec, DTYPE_CODE[x.dtype],
-            x.device.index, stream)
+            ws.data_ptr(), n, d, *_dropout_args(seed, rate), vec, blocks,
+            code, dev, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise launch_error("dropout_residual_ln_bwd", rc, err_str)
     LAUNCHES["dropout_residual_ln_bwd"] += 1
-    dw, db = parts.sum(dim=1)
+    dw, db = ws[2 * blocks * d:].view(2, d)
     return do, dx, dw, db
 
 

@@ -134,11 +134,11 @@ def _refuse(name, rows, vectors, stats):
 
 
 def band_blocks(n, per_card):
-    """Blocks of the band kernels (rows 10-11, csrc/rowband.cuh) for n
-    rows: as many as the card holds at once (``per_card``, the SM count
-    times the blocks an SM holds), but no more than give each of a block's
-    BAND_WARPS warps a row where there are more rows than one block's
-    warps."""
+    """Blocks of the band kernels (rows 10, 11 and 13, csrc/rowband.cuh)
+    for n rows: as many as the card holds at once (``per_card``, the SM
+    count times the blocks an SM holds), but no more than give each of a
+    block's BAND_WARPS warps a row where there are more rows than one
+    block's warps."""
     return max(1, min(per_card, n // BAND_WARPS))
 
 
@@ -181,19 +181,28 @@ def _kernels():
     return fwd, bwd, lib.volta_cuda_error_string
 
 
+def band_capacity(query, device, *args):
+    """Blocks of a band kernel that CUDA device ``device`` holds at once:
+    its SM count times the blocks an SM holds, as ``query`` (the library's
+    occupancy export for that kernel, ``*_blocks_per_sm``) reports for
+    ``args``."""
+    per_sm = ctypes.c_int(0)
+    rc = query(*args, device, ctypes.byref(per_sm))
+    if rc != 0:
+        raise launch_error(query.__name__, rc, _kernels()[2])
+    if per_sm.value < 1:
+        raise RuntimeError(f"{query.__name__}{args}: no block fits on an SM "
+                           f"of CUDA device {device}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * per_sm.value
+
+
 @functools.cache
 def _per_card(device, d, code, backward):
     """Blocks of the forward or backward band kernel that CUDA device
-    ``device`` holds at once for width d and dtype code: its SM count times
-    the blocks an SM holds (the occupancy API), read once."""
-    lib = _build.load()
-    per_sm = ctypes.c_int(0)
-    rc = lib.volta_layer_norm_blocks_per_sm(d, code, int(backward), device,
-                                            ctypes.byref(per_sm))
-    if rc != 0 or per_sm.value < 1:
-        raise launch_error("layer_norm occupancy", rc, _kernels()[2])
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * per_sm.value
+    ``device`` holds at once for width d and dtype code, read once."""
+    return band_capacity(_build.load().volta_layer_norm_blocks_per_sm,
+                         device, d, code, int(backward))
 
 
 def layer_norm_fwd(x, weight, bias, eps):
