@@ -3,7 +3,10 @@
 NVIDIA GPU: the natural-layout attention without and with the LayerNorm
 kernels, the head-major attention (``attn_natural_layout: false``), the
 kernel-drawn hidden-dropout masks (``fuse_hidden_dropout``,
-``use_pallas_dropout_mask``), and the two matmul decision probes.
+``use_pallas_dropout_mask``), the recomputed feed-forwards (``remat_ff``),
+the int-threshold dropout (``use_hash_dropout: false``), the checkpoints
+(reference ``.bin`` export and import, native and reference-tar resume),
+and the two matmul decision probes.
 
     python3 chip_smoke.py [--profile]
 
@@ -172,7 +175,32 @@ and each of which prints its seconds:
     ``--profile`` the device time of a step by kernel, without and with the
     LayerNorm kernels, head-major, dropout-free natural and head-major, and
     with each hidden-mask flag;
-15. the kernels' JSON line (the attention rows also with ``body``, the
+15. ``remat_ff``, the int threshold and the checkpoints at b256 bf16:
+    (a) the ``remat_ff`` config against the plain one, the same weights and
+    seed, by default and with the LayerNorm flags, under torch's
+    deterministic algorithms: the loss and every gradient of one batch and
+    two train steps bit-equal (outside them the embeddings' backward sums
+    the token-type table's gradient in a run-dependent order: two runs of
+    the plain step differ there, and the phase prints which gradients
+    differ), the exact
+    launches a step (the recomputation replays each feed-forward tail: K10,
+    or row 12 with the LayerNorm flags, 12 more forward launches); with
+    ``use_pallas_dropout_mask`` under ``remat_ff`` row 14 launches none
+    (the JAX gate) and the step equals the row-14 step; ms/step and peak
+    memory of each in turns, and with ``--profile`` the device time by
+    kernel; (b) ``use_hash_dropout: false``: each of the 24 tails' keep
+    fraction 0.9 +- 0.005, the same seed twice bit-equal (deterministic
+    algorithms), no K10 at the
+    tails, and with ``use_fused_residual_ln`` the tails on row 12; its
+    ms/step against the same weights with hash tails; (c) a model exported
+    as a reference ``.bin`` read through the eval CLI's loader into other
+    weights, its b1024 logits bit-equal; under the deterministic
+    algorithms, 4 steps uninterrupted, twice, against 2 steps, the train
+    state saved, fresh objects, restored and 2 more, and the same through
+    a reference tar: parameters, moments, losses, counts and generator
+    bit-equal (or, where the two uninterrupted runs differ, no further
+    apart);
+16. the kernels' JSON line (the attention rows also with ``body``, the
     body their wrapper runs in bf16; ``pallas`` false for K10, which
     replaces no Pallas kernel; ``bound_by`` "operations" also where the
     hash's integer operations bound a kernel, which phases 6 and 7 name),
@@ -2719,6 +2747,407 @@ def dropout_free_rates(task_cfg, batch, power, profile, hm_free):
     return rates
 
 
+@contextlib.contextmanager
+def remat_on(model):
+    """The model's feed-forward sublayers recomputed in the backward, as
+    ``remat_ff`` builds them; the same weights. Used where the config's
+    ``remat_ff`` changes nothing else (no ``use_pallas_dropout_mask``)."""
+    enc = model.bert.encoder
+    saved, enc.remat = enc.remat, True
+    try:
+        yield
+    finally:
+        enc.remat = saved
+
+
+@contextlib.contextmanager
+def hash_tails(model):
+    """The sublayer tails on the hash dropout, whatever
+    ``use_hash_dropout`` built: the same weights."""
+    from volta_tpu_torch.models.layers import LayerNorm
+
+    lns = [m for m in model.modules() if isinstance(m, LayerNorm)]
+    saved = [m.hash_mask for m in lns]
+    for m in lns:
+        m.hash_mask = True
+    try:
+        yield
+    finally:
+        for m, s in zip(lns, saved):
+            m.hash_mask = s
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warnings printed, not raised):
+    outside them the embeddings' backward sums the token-type table's
+    gradient in an order that changes from run to run on the card
+    (``run_to_run``), so two runs of one step differ there."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for msg in sorted({str(w.message).split(".")[0] for w in caught}):
+        print(f"  deterministic mode: {msg[:160]}", flush=True)
+
+
+def run_to_run(task_cfg, batch):
+    """The parameters whose gradient differs between two runs of the same
+    b256 step outside the deterministic algorithms, with their modules'
+    types: the ops that sum in a run-dependent order."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        model = build_model(task_cfg, "bfloat16").train()
+        runs.append(grads(model, task_cfg, batch))
+        kinds = {n: type(m).__name__ for n, m in model.named_modules()}
+        del model
+        torch.cuda.empty_cache()
+    (la, ga), (lb, gb) = runs
+    differ = [(n, kinds[n.rsplit(".", 1)[0]], f"{float((ga[n] - gb[n]).abs().max()):.3e}")
+              for n in ga if not torch.equal(ga[n], gb[n])]
+    print(f"two runs of one b256 bf16 step, default algorithms: loss "
+          f"{la!r} vs {lb!r}, gradients that differ (name, module, max abs "
+          f"diff): {differ}", flush=True)
+    return differ
+
+
+def params_of(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def max_diff(a, b):
+    """The largest absolute difference over the tensors of two name ->
+    tensor dicts, and its name."""
+    return max((float((a[n].float() - b[n].float()).abs().max()), n)
+               for n in a)
+
+
+def remat_steps(task_cfg, batch, plain, remat, counts, what):
+    """Phase 15 (a): the same weights and seed through ``plain`` and its
+    ``remat_ff`` copy: the loss and every gradient of one batch, then two
+    train steps, bit-equal; ``counts`` the exact launches a step of each."""
+    import torch
+
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+
+    res = {}
+    for tag, config in (("plain", plain), ("remat_ff", remat)):
+        model = build_model(task_cfg, "bfloat16", config).train()
+        if model.bert.encoder.remat != (tag == "remat_ff"):
+            raise RuntimeError(f"{config} built remat="
+                               f"{model.bert.encoder.remat}")
+        with deterministic():
+            loss, g = grads(model, task_cfg, batch)
+            state, step = new_step(model, task_cfg, 1e-4)
+            reset_launches()
+            losses = torch.stack([step(state, batch)["loss"]
+                                  for _ in range(2)])
+        launches = dict(LAUNCHES)
+        want = expect(**{k: 2 * c for k, c in counts[tag].items()})
+        if launches != want:
+            raise RuntimeError(f"{what} {tag}: two steps launched {launches}, "
+                               f"expected {want}")
+        res[tag] = (loss, g, losses.cpu(), params_of(model))
+        del model, state, step
+        torch.cuda.empty_cache()
+    (l0, g0, s0, p0), (l1, g1, s1, p1) = res["plain"], res["remat_ff"]
+    gd, pd = max_diff(g0, g1), max_diff(p0, p1)
+    print(f"remat_ff vs plain ({what}), b256 bf16, same weights and seed, "
+          "deterministic algorithms: "
+          f"loss {l0!r} vs {l1!r}, gradients max abs diff {gd[0]:.3e} "
+          f"({gd[1]}), two steps' losses {s0.tolist()} vs {s1.tolist()}, "
+          f"params max abs diff {pd[0]:.3e}; launches a step "
+          f"{counts['remat_ff']}", flush=True)
+    if not (l0 == l1 and gd[0] == 0.0 and torch.equal(s0, s1)
+            and pd[0] == 0.0 and np.isfinite(l0)):
+        raise RuntimeError(f"remat_ff ({what}) is not bit-equal to the plain "
+                           "step")
+
+
+def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
+    """Phase 15 (b): ``use_hash_dropout: false``: each of the 24 tails'
+    keep fraction 0.9 +- 0.005, the same seed twice bit-equal, no K10 at
+    the tails; with ``use_fused_residual_ln`` the tails take row 12."""
+    import torch
+
+    from volta_tpu_torch.models import layers
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+
+    fractions = []
+    keep_fn = layers.int_threshold_keep
+
+    def counted(bits, rate):
+        keep = keep_fn(bits, rate)
+        fractions.append(keep.float().mean())
+        return keep
+
+    layers.int_threshold_keep = counted
+    try:
+        model = build_model(task_cfg, "bfloat16", int_thr).train()
+        with deterministic():
+            runs = [grads(model, task_cfg, batch) for _ in range(2)]
+        (la, ga), (lb, gb) = runs
+        per_forward = len(fractions) // 2
+        state, step = new_step(model, task_cfg, 1e-4)
+        reset_launches()
+        del fractions[:]
+        loss = float(step(state, batch)["loss"])
+        launches = dict(LAUNCHES)
+        fr = torch.stack(fractions).cpu().tolist()
+    finally:
+        layers.int_threshold_keep = keep_fn
+    want = expect(attention_dropout_fwd=12, attention_dropout_bwd=12,
+                  **k10(K10_FLAGGED))
+    print(f"int threshold (use_hash_dropout false), b256 bf16: {len(fr)} "
+          f"tails a step, keep fractions {min(fr):.5f}-{max(fr):.5f}; the "
+          f"same seed twice (deterministic algorithms): loss {la!r} vs {lb!r}, gradients max abs diff "
+          f"{max_diff(ga, gb)[0]:.3e}; step loss {loss:.4f}, launches "
+          f"{launches}", flush=True)
+    if per_forward != 24 or len(fr) != 24 or \
+            not all(abs(f - 0.9) <= 0.005 for f in fr):
+        raise RuntimeError(f"int threshold tails: {per_forward} a forward, "
+                           f"keep fractions {fr}")
+    if la != lb or max_diff(ga, gb)[0] != 0.0 or not np.isfinite(loss):
+        raise RuntimeError("the int threshold step is not repeatable")
+    if launches != want:
+        raise RuntimeError(f"int threshold step launched {launches}, "
+                           f"expected {want}")
+    del model, state, step, runs
+    model = build_model(task_cfg, "bfloat16", int_thr_ln).train()
+    state, step = new_step(model, task_cfg, 1e-4)
+    reset_launches()
+    loss = float(step(state, batch)["loss"])
+    want = expect(attention_dropout_fwd=12, attention_dropout_bwd=12,
+                  dropout_residual_ln_fwd=24, dropout_residual_ln_bwd=24,
+                  **k10(K10_FLAGGED))
+    print(f"int threshold with use_fused_residual_ln: loss {loss:.4f}, "
+          f"launches {dict(LAUNCHES)}", flush=True)
+    if dict(LAUNCHES) != want or not np.isfinite(loss):
+        raise RuntimeError(f"int threshold + fused residual launched "
+                           f"{dict(LAUNCHES)}, expected {want}")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def export_reload(root, data_dir, yml):
+    """Phase 15 (c): a model exported as a reference ``.bin`` and read by
+    the eval CLI's loader into a model of other random weights: its b1024
+    logits bit-equal to the source's."""
+    import torch
+
+    from volta_tpu_torch import eval_task
+    from volta_tpu_torch.checkpoint import save_reference_checkpoint
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+
+    argv = ["--config_file", CONFIG, "--tasks_config_file", yml, "--task",
+            "1", "--vocab_file", os.path.join(data_dir, "vocab.txt"),
+            "--output_dir", os.path.join(root, "results_export"),
+            "--num_workers", "4", "--compute_dtype", "bfloat16",
+            "--device", "cuda", "--seed", "0"]
+    src, task_cfg, task, data = eval_task.setup(eval_task.parse_args(argv))
+    path = os.path.join(root, "pytorch_model.bin")
+    t0 = time.time()
+    save_reference_checkpoint(path, src.cfg, src)
+    saved = time.time() - t0
+    t0 = time.time()
+    loaded = eval_task.setup(eval_task.parse_args(
+        argv + ["--seed", "7", "--from_pretrained", path]))[0]
+    load_s = time.time() - t0
+    batch = to_device(concat_batches(list(data["loader"])[:4]), "cuda")
+    with torch.no_grad():
+        a = make_task_eval_step(src, task_cfg, task)(batch)["prediction"]
+        b = make_task_eval_step(loaded, task_cfg, task)(batch)["prediction"]
+    print(f"export -> {os.path.getsize(path) / 2**20:.1f} MiB .bin "
+          f"({saved:.1f} s) -> eval_task loader ({load_s:.1f} s incl. data): "
+          f"b{a.shape[0]} logits max abs diff "
+          f"{float((a.float() - b.float()).abs().max()):.3e}", flush=True)
+    if a.shape[0] != 1024 or not torch.equal(a, b):
+        raise RuntimeError("the exported .bin does not reload bit-equal")
+    os.unlink(path)
+
+
+def resume_runs(root, task_cfg, batch, k=2):
+    """Phase 15 (c): 2k steps uninterrupted, twice, against k steps, the
+    port's train state saved, fresh objects, restored and k more; and a
+    reference tar of the same state resumed the same way (the generator,
+    which the tar does not hold, given alike); under the deterministic
+    algorithms (``run_to_run`` names what differs outside them):
+    parameters, moments, losses, counts and generator bit-equal, or, where
+    the two uninterrupted runs differ, no further apart than they are."""
+    import torch
+
+    from volta_tpu_torch import checkpoint as ck
+
+    def snapshot(state, losses):
+        opt = state.optimizer.state_dict()
+        return {"losses": torch.stack(losses).cpu(),
+                "params": params_of(state.model),
+                "mu": {n: t.clone() for n, t in opt["mu"].items()},
+                "nu": {n: t.clone() for n, t in opt["nu"].items()},
+                "counts": (state.step, opt["count"], opt["adam_count"]),
+                "generator": state.generator.get_state()}
+
+    def fresh(seed=0):
+        model = build_model(task_cfg, "bfloat16", seed=seed).train()
+        return new_step(model, task_cfg, 1e-4)
+
+    def run(state, step, n):
+        return [step(state, batch)["loss"] for _ in range(n)]
+
+    with deterministic():
+        whole = []
+        for _ in range(2):
+            state, step = fresh()
+            whole.append(snapshot(state, run(state, step, 2 * k)))
+            del state, step
+        state, step = fresh()
+        first = run(state, step, k)
+        t0 = time.time()
+        ck.save_train_state(os.path.join(root, "resume"), state, 0, 0.0)
+        native_s = time.time() - t0
+        t0 = time.time()
+        ck.save_reference_tar(os.path.join(root, "latest.tar"),
+                              state.model.cfg, state, epoch_id=0)
+        tar_s = time.time() - t0
+        gen = state.generator.get_state()
+        del state, step
+        torch.cuda.empty_cache()
+        resumed = {}
+        state, step = fresh(seed=5)  # other weights, another generator
+        state.generator.manual_seed(99)
+        ck.restore_train_state(os.path.join(root, "resume"), state)
+        resumed["native"] = snapshot(state, first + run(state, step, k))
+        del state, step
+        state, step = fresh(seed=5)
+        ck.resume_from_reference_tar(state.model.cfg, state,
+                                     os.path.join(root, "latest.tar"))
+        state.generator.set_state(gen)
+        resumed["reference tar"] = snapshot(state,
+                                            first + run(state, step, k))
+        del state, step
+        torch.cuda.empty_cache()
+
+    def diff(a, b):
+        d = max(max_diff(a[key], b[key])[0] for key in ("params", "mu", "nu"))
+        return max(d, float((a["losses"] - b["losses"]).abs().max()))
+
+    def same_meta(a, b):
+        return a["counts"] == b["counts"] and torch.equal(a["generator"],
+                                                          b["generator"])
+
+    noise = diff(whole[0], whole[1])
+    sizes = {what: os.path.getsize(os.path.join(root, f)) / 2**30
+             for what, f in (("train state", "resume/train_state.pt"),
+                             ("reference tar", "latest.tar"))}
+    print(f"resume after {k} of {2 * k} steps, b256 bf16 with dropout, "
+          f"deterministic algorithms: train state {sizes['train state']:.2f} "
+          f"GiB written in {native_s:.1f} s, reference tar "
+          f"{sizes['reference tar']:.2f} GiB in {tar_s:.1f} s; two "
+          f"uninterrupted runs differ by {noise:.3e}", flush=True)
+    for what, snap in resumed.items():
+        d = diff(snap, whole[0])
+        print(f"  {what} resume vs uninterrupted: max abs diff {d:.3e}, "
+              f"losses {snap['losses'].tolist()} vs "
+              f"{whole[0]['losses'].tolist()}, counts {snap['counts']}, "
+              "generator "
+              f"{'equal' if same_meta(snap, whole[0]) else 'differs'}",
+              flush=True)
+        if not same_meta(snap, whole[0]) or d > noise:
+            raise RuntimeError(f"the {what} resume differs from the "
+                               "uninterrupted run")
+    if not all(same_meta(w, whole[0]) for w in whole):
+        raise RuntimeError("two uninterrupted runs end at other counts")
+    os.unlink(os.path.join(root, "latest.tar"))
+
+
+def check_remat_int_checkpoints(root, data_dir, yml, task_cfg, batch_np,
+                                power, profile, flagged, pmask):
+    """Phase 15: ``remat_ff``, ``use_hash_dropout: false`` and the
+    checkpoint slice at full width (ctrl_uniter_base, b256, bf16)."""
+    from volta_tpu_torch.eval_step import to_device
+    from volta_tpu_torch.optimization import warmup_linear_schedule
+
+    remat = write_config(root, "ctrl_uniter_base_remat.json", remat_ff=True)
+    remat_ln = write_config(root, "ctrl_uniter_base_remat_ln_kernels.json",
+                            remat_ff=True, use_pallas_layernorm=True,
+                            use_fused_residual_ln=True)
+    remat_pmask = write_config(root, "ctrl_uniter_base_remat_keep_mask.json",
+                               remat_ff=True, use_pallas_dropout_mask=True)
+    int_thr = write_config(root, "ctrl_uniter_base_int_threshold.json",
+                           use_hash_dropout=False)
+    int_thr_ln = write_config(
+        root, "ctrl_uniter_base_int_threshold_fused_residual.json",
+        use_hash_dropout=False, use_fused_residual_ln=True)
+    batch = to_device({k: v for k, v in batch_np.items()
+                       if isinstance(v, np.ndarray)}, "cuda")
+    attn = dict(attention_dropout_fwd=12, attention_dropout_bwd=12)
+    ln = dict(layer_norm_fwd=5, layer_norm_bwd=5,
+              dropout_residual_ln_bwd=24)
+    # the recomputation replays each feed-forward tail's forward: K10, or
+    # row 12 with the LayerNorm flags, 12 more launches a step
+    remat_steps(task_cfg, batch, CONFIG, remat, {
+        "plain": dict(attn, **k10(K10_SITES)),
+        "remat_ff": dict(attn, hash_dropout_fwd=K10_SITES + 12,
+                         hash_dropout_bwd=K10_SITES)}, "default")
+    remat_steps(task_cfg, batch, flagged, remat_ln, {
+        "plain": dict(attn, dropout_residual_ln_fwd=24, **ln,
+                      **k10(K10_FLAGGED)),
+        "remat_ff": dict(attn, dropout_residual_ln_fwd=36, **ln,
+                         **k10(K10_FLAGGED))}, "LN flags")
+    # row 14 is gated off by remat_ff: its tails take K10, which draws the
+    # mask row 14 draws for the same seed
+    remat_steps(task_cfg, batch, pmask, remat_pmask, {
+        "plain": dict(attn, keep_mask=24, **k10(K10_FLAGGED)),
+        "remat_ff": dict(attn, hash_dropout_fwd=K10_SITES + 12,
+                         hash_dropout_bwd=K10_SITES)},
+        "use_pallas_dropout_mask")
+    int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln)
+    run_to_run(task_cfg, batch)
+
+    rates = {}
+    for config, what, on, off in (
+            (CONFIG, "default,", "remat_ff", "plain"),
+            (flagged, "LN flags,", "remat_ff LN flags", "plain LN flags")):
+        model = build_model(task_cfg, "bfloat16", config).train()
+        state, step = new_step(model, task_cfg,
+                               warmup_linear_schedule(1e-4, 10, 1000))
+        rates.update(step_rates(step, state, batch,
+                                ((on, lambda: remat_on(model)),
+                                 (off, contextlib.nullcontext)),
+                                power, what))
+        if profile:
+            with remat_on(model):
+                profile_device(lambda: step(state, batch), rates[on][1], on)
+            profile_device(lambda: step(state, batch), rates[off][1], off)
+        del model, state, step
+    model = build_model(task_cfg, "bfloat16", int_thr).train()
+    state, step = new_step(model, task_cfg,
+                           warmup_linear_schedule(1e-4, 10, 1000))
+    rates.update(step_rates(step, state, batch,
+                            (("int threshold", contextlib.nullcontext),
+                             ("hash tails", lambda: hash_tails(model))),
+                            power, "default,"))
+    if profile:
+        profile_device(lambda: step(state, batch), rates["int threshold"][1],
+                       "int threshold")
+        with hash_tails(model):
+            profile_device(lambda: step(state, batch),
+                           rates["hash tails"][1], "hash tails")
+    del model, state, step
+    export_reload(root, data_dir, yml)
+    resume_runs(root, task_cfg, batch)
+    return rates
+
+
 def profile_device(fn, call_ms, what, calls=3):
     """Device time of ``fn()`` (a train step or an eval forward) by kernel
     (torch.profiler) over ``calls`` calls after the timing runs, and the
@@ -2861,6 +3290,10 @@ def main(argv):
             rates = train_throughput(task_cfg, batch, power,
                                      "--profile" in argv, flagged, hm,
                                      hm_free, fuse, pmask)
+        with phase("15 remat_ff, int threshold, checkpoints"):
+            rates.update(check_remat_int_checkpoints(
+                root, data_dir, yml, task_cfg, batch, power,
+                "--profile" in argv, flagged, pmask))
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -2889,6 +3322,12 @@ def main(argv):
         print(f"{flag} on vs off [{power}]: train b256 "
               f"{rates[flag][0]:.1f} vs {rates[flag + ' off'][0]:.1f} "
               "pairs/s", flush=True)
+    print(f"remat_ff vs plain [{power}]: train b256 default "
+          f"{rates['remat_ff'][1]:.2f} vs {rates['plain'][1]:.2f} ms/step, "
+          f"LN flags {rates['remat_ff LN flags'][1]:.2f} vs "
+          f"{rates['plain LN flags'][1]:.2f} ms/step; int threshold vs hash "
+          f"tails {rates['int threshold'][1]:.2f} vs "
+          f"{rates['hash tails'][1]:.2f} ms/step", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
           flush=True)
 

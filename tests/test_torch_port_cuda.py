@@ -1214,3 +1214,137 @@ def test_wgrad_split_sums_are_deterministic(cuda_device):
     second = mm.wgrad(g, a)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ---------------------------------------- remat_ff and the int threshold
+SMALL_TASK = {"TASK1": {"type": "VL-classifier", "num_labels": 9,
+                        "process": "normal", "loss": "BCEWithLogitLoss"}}
+
+
+def _small_model(device, **fields):
+    """ctrl_uniter_base's plan (12 layers) at hidden 128 (2 heads of 64),
+    FFN 256, in bf16, random weights from a seed."""
+    import dataclasses
+    import os
+
+    from volta_tpu_torch import VoltaForVLTasks
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.models.layers import init_weights
+
+    cfg = VoltaConfig.from_json_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", "ctrl_uniter_base.json"))
+    cfg = dataclasses.replace(
+        cfg, hidden_size=128, v_hidden_size=128, num_attention_heads=2,
+        v_num_attention_heads=2, intermediate_size=256,
+        v_intermediate_size=256, pooler_size=128, v_pooler_size=128,
+        clf_hidden_size=96, compute_dtype="bfloat16", **fields)
+    model = VoltaForVLTasks(cfg, SMALL_TASK, ("TASK1",))
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to(device).train()
+
+
+def _small_batch(device, b=8, lt=23, lv=36, feat=2048):
+    rng = np.random.RandomState(4)
+    t_mask = np.ones((b, lt), np.int64)
+    t_mask[1, 9:] = 0
+    target = np.zeros((b, 9), np.float32)
+    target[np.arange(b), rng.randint(0, 9, b)] = 1.0
+    arrays = {"question": rng.randint(1, 1000, (b, lt)) * t_mask,
+              "features": rng.randn(b, lv, feat).astype(np.float32),
+              "spatials": rng.rand(b, lv, 5).astype(np.float32),
+              "segment_ids": np.zeros((b, lt), np.int64),
+              "input_mask": t_mask, "image_mask": np.ones((b, lv), np.int64),
+              "target": target}
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _loss_and_grads(model, batch, seed):
+    """Under torch's deterministic algorithms: by default the embeddings'
+    backward may sum a table row's gradient in a run-dependent order."""
+    import warnings
+
+    from volta_tpu_torch.task_utils import process_batch, \
+        task_loss_and_score
+
+    tc = SMALL_TASK["TASK1"]
+    inputs, info = process_batch(tc, batch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            pred = model(inputs["input_ids"], inputs["image_feat"],
+                         inputs["image_loc"], "TASK1",
+                         inputs["token_type_ids"], inputs["attention_mask"],
+                         inputs["image_attention_mask"], dropout_seed=seed)
+            loss, _ = task_loss_and_score(tc["type"], pred, batch, info,
+                                          tc["loss"])
+            loss.backward()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    {}, {"use_pallas_layernorm": True, "use_fused_residual_ln": True},
+    {"use_pallas_dropout_mask": True}], ids=["default", "ln", "keep_mask"])
+def test_remat_step_is_bit_equal_on_the_card(cuda_device, flags):
+    """remat_ff recomputes the 12 feed-forwards: the loss and every
+    gradient bit-equal to the plain step's; the recomputation replays each
+    tail's K10 or row 12 forward; row 14 is gated off under remat_ff."""
+    from volta_tpu_torch.ops import reset_launches
+
+    batch = _small_batch(cuda_device)
+    runs = {}
+    for remat in (False, True):
+        model = _small_model(cuda_device, remat_ff=remat, **flags)
+        reset_launches()
+        runs[remat] = _loss_and_grads(model, batch, seed=21) + (
+            dict(LAUNCHES),)
+    (l0, g0, c0), (l1, g1, c1) = runs[False], runs[True]
+    assert torch.isfinite(l0) and torch.equal(l0, l1)
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
+    if "use_fused_residual_ln" in flags:
+        moved = "dropout_residual_ln_fwd"
+        assert c0[moved] == 24 and c0["hash_dropout_fwd"] == 3
+    elif "use_pallas_dropout_mask" in flags:
+        assert c0["keep_mask"] == 24 and c1["keep_mask"] == 0
+        moved = "hash_dropout_fwd"
+        assert c0[moved] == 3
+        assert c1[moved] == 27 + 12 and c1["hash_dropout_bwd"] == 27
+        return
+    else:
+        moved = "hash_dropout_fwd"
+        assert c0[moved] == 27
+    assert c1 == dict(c0, **{moved: c0[moved] + 12})
+
+
+@pytest.mark.cuda
+def test_int_threshold_on_the_card(cuda_device):
+    """The draws come from a generator on the card, seeded by the site's
+    seed: the same seed the same output; keep fraction 0.9; the tails of a
+    ``use_hash_dropout: false`` step launch no K10 and it repeats to the
+    bit."""
+    from volta_tpu_torch.models import layers
+    from volta_tpu_torch.ops import reset_launches
+
+    x = torch.ones(15360, 768, device=cuda_device, dtype=torch.bfloat16)
+    a = layers.int_threshold_dropout(x, 7, 0.1)
+    assert torch.equal(a, layers.int_threshold_dropout(x, 7, 0.1))
+    keep = float((a != 0).float().mean())
+    assert abs(keep - 0.9) <= 0.005, keep
+    assert torch.equal(a[a != 0], torch.full_like(a[a != 0], 1 / 0.8984375))
+
+    batch = _small_batch(cuda_device)
+    model = _small_model(cuda_device, use_hash_dropout=False)
+    reset_launches()
+    first = _loss_and_grads(model, batch, seed=5)
+    assert LAUNCHES["hash_dropout_fwd"] == LAUNCHES["hash_dropout_bwd"] == 3
+    second = _loss_and_grads(model, batch, seed=5)
+    assert torch.equal(first[0], second[0])
+    for n in first[1]:
+        assert torch.equal(first[1][n], second[1][n]), n

@@ -26,7 +26,6 @@ main path's numbers.
   fused-tail wrappers 4 + 4 times and the LayerNorm wrappers 5 + 5 times.
 """
 
-import dataclasses
 
 import flax.linen as fnn
 import jax
@@ -220,12 +219,3 @@ def test_flagged_train_step_matches_jax(flax_params, wrapper_calls,
     eval_loss = float(make_task_train_step(model, opt, TASK_CFG, "TASK1")(
         state, batch)["loss"])
     assert abs(eval_loss - loss) > 1e-3 * abs(loss)
-
-
-def test_unported_dropout_flags_raise():
-    for flag, value, item in (("use_hash_dropout", False,
-                               "int_threshold_dropout.*item 2"),
-                              ("remat_ff", True, "remat_ff.*item 2")):
-        cfg = dataclasses.replace(port_cfg(flagged_cfg()), **{flag: value})
-        with pytest.raises(NotImplementedError, match=item):
-            VoltaForVLTasks(cfg, TASK_CFG, ("TASK1",))

@@ -90,7 +90,6 @@ def test_two_epochs_validate_and_checkpoint(workdir):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--from_pretrained", "w.pt"], ["--resume_file", "r.tar"],
     ["--device_store"], ["--gradient_accumulation_steps", "2"],
     ["--optim", "RAdam"], ["--optimizer_state_dtype", "bfloat16"],
     ["--skip_disconnected_params"], ["--profile_steps", "3"],

@@ -8,10 +8,17 @@ Counterpart of the root ``eval_task.py`` for the VL-classifier path:
 
 It logs ``eval loss … score …`` and writes ``<split>_result.json`` as the
 JAX CLI does. ``--device`` defaults to ``cuda`` and never falls back to the
-CPU; ``--from_pretrained`` takes a ``torch.save``d state dict of the port
+CPU. ``--from_pretrained`` goes through ``checkpoint.from_pretrained``,
+which detects the format: a published VOLTA ``.bin`` (reference key
+names), an HF BERT ``.bin``, a reference ``pytorch_ckpt_latest.tar``'s
+weights, a ``torch.save``d state dict of the port
 (``convert.state_dict_from_flax`` makes one from Flax params), or a
 ``train_task`` checkpoint (its ``train_state.pt`` or the directory holding
-it). Without it the weights are random, drawn from ``--seed``.
+it); an http(s) URL only where the file is already in the cache
+(``checkpoint.cached_path``). The JAX package's Flax msgpack bundles and
+Orbax directories raise (ROADMAP.md Queue 1 item 12), and so does a
+RoBERTa model (item 6). The weights are drawn from ``--seed`` first, so
+what a checkpoint leaves out is random.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ def setup(args):
             and not torch.cuda.is_available():
         raise SystemExit("eval_task: --device cuda but CUDA is not available "
                          "(pass --device cpu to run on the CPU)")
+    from .checkpoint import from_pretrained
     from .config import VoltaConfig
     from .models import VoltaForVLTasks
     from .models.layers import init_weights
@@ -98,17 +106,12 @@ def setup(args):
         tc["num_labels"] = data["dataset"].num_labels
 
     model = VoltaForVLTasks(cfg, task_cfg, (task,))
+    # what a checkpoint leaves out keeps its draw from the seed
+    init_weights(model, torch.Generator().manual_seed(args.seed))
     if args.from_pretrained:
-        path = args.from_pretrained
-        if os.path.isdir(path):  # a train_task ckpt/ or best/ directory
-            path = os.path.join(path, "train_state.pt")
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd.get("model"), dict):  # a train_task train state
-            sd = sd["model"]
-        model.load_state_dict(sd, strict=True)
-        logger.info("loaded %d tensors", len(sd))
-    else:
-        init_weights(model, torch.Generator().manual_seed(args.seed))
+        report = from_pretrained(cfg, model, args.from_pretrained)
+        logger.info("loaded %d tensors, %d left at init",
+                    len(report["loaded"]), len(report["skipped"]))
     return model.to(args.device).eval(), task_cfg, task, data
 
 

@@ -18,9 +18,14 @@ with false. The hidden-dropout masks follow the JAX gates too: with
 keep masks of its own tail and of the next feed-forward's (encoder.py
 :161-187, 595-612); with ``use_pallas_dropout_mask`` the other tails draw
 theirs with row 14 (encoder.py:37-38). Every mask is ``hash_dropout``'s for
-the seed its tail would draw, so the flags change no mask. A dual-stream
-plan, ``use_scan`` or ``remat_ff`` raises at construction. Submodules are
-named after the Flax tree (``attn_0``, ``ff_1``, ...).
+the seed its tail would draw, so the flags change no mask. With
+``use_hash_dropout: false`` the tails draw ``int_threshold_dropout``
+(layers.py) where no kernel flag takes them, as in JAX. With ``remat_ff``
+each feed-forward sublayer runs under ``torch.utils.checkpoint`` and is
+recomputed in the backward instead of keeping its activations
+(encoder.py:556-608); attention sublayers never are. A dual-stream plan or
+``use_scan`` raises at construction. Submodules are named after the Flax
+tree (``attn_0``, ``ff_1``, ...).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import SublayerSpec, VoltaConfig
 from ..ops.attention import dropout_attention_hidden_masks, \
@@ -42,17 +48,14 @@ def _make_ln(cfg: VoltaConfig, dim: int) -> LayerNorm:
     the LayerNorm kernels with ``use_pallas_layernorm``, the fused
     dropout+residual+LN kernels with ``use_pallas`` and
     ``use_fused_residual_ln``, the keep-mask kernel (row 14) with
-    ``use_pallas`` and ``use_pallas_dropout_mask``. The non-hash dropout is
-    not ported and raises."""
-    if not cfg.use_hash_dropout:
-        raise NotImplementedError(
-            "use_hash_dropout=false (int_threshold_dropout) is not ported "
-            "yet (ROADMAP.md Queue 1 item 2)")
+    ``use_pallas`` and ``use_pallas_dropout_mask`` unless ``remat_ff``,
+    the hash dropout unless ``use_hash_dropout`` is false."""
     return LayerNorm(dim, use_kernel=cfg.use_pallas_layernorm,
                      fused_residual=cfg.use_pallas
                      and cfg.use_fused_residual_ln,
                      pallas_mask=cfg.use_pallas
-                     and cfg.use_pallas_dropout_mask and not cfg.remat_ff)
+                     and cfg.use_pallas_dropout_mask and not cfg.remat_ff,
+                     hash_mask=cfg.use_hash_dropout)
 
 
 def _fully_fused(spec: SublayerSpec) -> bool:
@@ -135,8 +138,17 @@ class GatedFeedForwardSublayer(nn.Module):
         self.out_ln = _make_ln(cfg, cfg.hidden_size)
 
     def forward(self, x, seeds=None, keep_mask=None):
-        seed = None if keep_mask is not None else site_seed(
+        return self.body(x, self.draw_seed(seeds, keep_mask), keep_mask)
+
+    def draw_seed(self, seeds, keep_mask):
+        """The tail's seed: None with a ``keep_mask`` or without dropout,
+        else the next of ``seeds``."""
+        return None if keep_mask is not None else site_seed(
             self, self.hidden_rate, seeds)
+
+    def body(self, x, seed, keep_mask):
+        """The sublayer for a drawn ``seed``: it draws nothing itself, so
+        a recomputation of the same call drops the same elements."""
         return self.out_ln(self.out_dense(self.act(self.inter_dense(x))),
                            residual=x, drop_rate=self.hidden_rate, seed=seed,
                            keep_mask=keep_mask)
@@ -144,16 +156,15 @@ class GatedFeedForwardSublayer(nn.Module):
 
 class GatedEncoder(nn.Module):
     """Depth-D stack over [text ‖ vision] per the static sublayer plan
-    (reference: volta/encoders.py:820-888)."""
+    (reference: volta/encoders.py:820-888). ``remat`` (the config's
+    ``remat_ff``) recomputes each feed-forward sublayer in the backward."""
 
     def __init__(self, cfg: VoltaConfig):
         super().__init__()
         if cfg.use_scan:
             raise NotImplementedError(
                 "use_scan is not ported: the port runs the stack as a loop")
-        if cfg.remat_ff:
-            raise NotImplementedError(
-                "remat_ff is not ported yet (ROADMAP.md Queue 1 item 2)")
+        self.remat = cfg.remat_ff
         self.names = []
         for spec in cfg.sublayer_plan():
             if not _fully_fused(spec):
@@ -177,6 +188,15 @@ class GatedEncoder(nn.Module):
             layer = getattr(self, name)
             if isinstance(layer, GatedAttentionSublayer):
                 x, ffn_mask = layer(x, bias, seeds)
+            elif self.remat and torch.is_grad_enabled():
+                # the seed is drawn here, outside the recomputed call, and
+                # row 9's mask is one of its inputs, so the backward's
+                # recomputation drops what the forward dropped; no global
+                # generator is read inside, so none is saved
+                x = checkpoint(layer.body, x,
+                               layer.draw_seed(seeds, ffn_mask), ffn_mask,
+                               use_reentrant=False, preserve_rng_state=False)
+                ffn_mask = None
             else:
                 x = layer(x, seeds, keep_mask=ffn_mask)
                 ffn_mask = None

@@ -12,7 +12,11 @@ Counterpart of ``volta_tpu/models/layers.py``. Numerics follow it exactly:
   * Dropout is the JAX package's ``hash_dropout``: keep bit =
     fmix32(position * 0x9E3779B9 + seed) < threshold, bit-equal for the
     same uint32 seed. Each dropout site of a forward takes its own seed from
-    ``DropoutSeeds``, which derives them from one step seed.
+    ``DropoutSeeds``, which derives them from one step seed. With
+    ``use_hash_dropout: false`` the sublayer tails take
+    ``int_threshold_dropout`` instead: raw uint32 draws against the same
+    threshold, the draws from a ``torch.Generator`` seeded with the site's
+    seed where JAX draws threefry bits from a Flax key.
 
 Parameters are float32. Initialisation takes an optional ``torch.Generator``
 (``init_weights``) so a model's random weights are a function of one seed.
@@ -77,25 +81,28 @@ class LayerNorm(nn.Module):
     (volta_tpu/models/layers.py:111-172); without a seed or a ``keep_mask``
     the dropout is off (eval). ``use_kernel``, ``fused_residual`` and
     ``pallas_mask`` are the port's names for the JAX module's
-    ``use_pallas``, ``fused_residual`` and ``pallas_mask``. A dropping
-    residual call takes, in the JAX module's order: an explicit 0/1
-    ``keep_mask`` (drawn by the attention kernel of row 9); else, with
-    ``pallas_mask`` at the shapes the TPU kernel takes, the keep mask of the
-    CUDA kernel of row 14 (``ops.dropout_mask``) for the seed; else, with
+    ``use_pallas``, ``fused_residual`` and ``pallas_mask``; ``hash_mask``
+    is its own. A dropping residual call takes, in the JAX module's order
+    (volta_tpu/models/layers.py:119-167): an explicit 0/1 ``keep_mask``
+    (drawn by the attention kernel of row 9); else, with ``pallas_mask``
+    at the shapes the TPU kernel takes, the keep mask of the CUDA kernel of
+    row 14 (``ops.dropout_mask``) for the seed; else, with
     ``fused_residual``, the fused CUDA dropout+residual+LN kernels
-    (``ops.fused_residual``); else ``hash_dropout``. All draw the same
-    mask for the same seed. A mask is applied as ``hash_dropout`` applies
-    its own; then, with ``use_kernel``, the LayerNorm runs the CUDA
-    LayerNorm kernels (``ops.layernorm``), else plain torch."""
+    (``ops.fused_residual``); else, with ``hash_mask``, ``hash_dropout``;
+    else ``int_threshold_dropout``. The first four draw the same mask for
+    the same seed. A mask is applied as ``hash_dropout`` applies its own;
+    then, with ``use_kernel``, the LayerNorm runs the CUDA LayerNorm
+    kernels (``ops.layernorm``), else plain torch."""
 
     def __init__(self, dim: int, eps: float = LN_EPS,
                  use_kernel: bool = False, fused_residual: bool = False,
-                 pallas_mask: bool = False):
+                 pallas_mask: bool = False, hash_mask: bool = True):
         super().__init__()
         self.eps = eps
         self.use_kernel = use_kernel
         self.fused_residual = fused_residual
         self.pallas_mask = pallas_mask
+        self.hash_mask = hash_mask
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
         self.reset_parameters()
@@ -121,8 +128,10 @@ class LayerNorm(nn.Module):
                 return dropout_residual_ln(x, residual, self.weight,
                                            self.bias, seed, drop_rate,
                                            self.eps)
-            elif dropping:
+            elif dropping and self.hash_mask:
                 x = hash_dropout(x, seed, drop_rate)
+            elif dropping:
+                x = int_threshold_dropout(x, seed, drop_rate)
             x = x + residual
         if self.use_kernel:
             return fused_layer_norm(x, self.weight, self.bias, self.eps)
@@ -195,6 +204,32 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     (``ops/csrc/hash_dropout.cu``, the backward replaying the hash); on the
     CPU its plain twin (``ops.hash_dropout``)."""
     return HashDropout.apply(x, int(seed), float(rate))
+
+
+def int_threshold_keep(bits: torch.Tensor, rate: float) -> torch.Tensor:
+    """The keep bits of uint32 draws ``bits`` (held in int64, or an int32
+    view of the same 32 bits): bits < ``dropout_threshold(rate)``, the
+    threshold JAX's ``jnp.uint32((1.0 - rate) * 4294967295.0)`` truncates to
+    (volta_tpu/models/layers.py:206-213)."""
+    if bits.dtype == torch.int32:
+        bits = bits.to(torch.int64) & _M32
+    return bits < dropout_threshold(rate)
+
+
+def int_threshold_dropout(x: torch.Tensor, seed: int,
+                          rate: float) -> torch.Tensor:
+    """Dropout by a raw-bits compare, the JAX package's
+    ``int_threshold_dropout``: ``x.numel()`` uint32 draws from a
+    ``torch.Generator`` on x's device seeded with the site's uint32
+    ``seed``, kept where ``int_threshold_keep``, applied by
+    ``apply_keep_mask`` (a kept value divided by 1 - rate in x's dtype).
+    The generator is made here from the seed, so a recomputation of the
+    same call draws the same bits. JAX draws threefry bits from a Flax key,
+    which this cannot reproduce: parity holds for the same bits."""
+    gen = torch.Generator(device=x.device).manual_seed(int(seed) & _M32)
+    bits = torch.randint(0, 2**32, x.shape, generator=gen,
+                         dtype=torch.int64, device=x.device)
+    return apply_keep_mask(x, int_threshold_keep(bits, rate), rate)
 
 
 class DropoutSeeds:

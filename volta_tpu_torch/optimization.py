@@ -15,8 +15,13 @@ norm clip, assembled as ``build_optimizer`` (:325-365) does it for
     p <- p - lr(count) * u,  count <- count + 1       scale_by_learning_rate
 
 so the schedule is read at the number of updates already made: with warmup
-the first step's lr is 0. ``torch.optim.AdamW`` always corrects the bias and
-decays the post-update parameter, so it is not this. The update runs as
+the first step's lr is 0. Bias correction counts its own updates
+(``adam_count``, optax's ``ScaleByAdamState.count``): a run resumed from
+the reference's tar takes the schedule's position from its
+``global_step`` and this count from its moments' ``step``
+(volta_tpu/checkpoint.py:535-560), which may differ.
+``torch.optim.AdamW`` always corrects the bias and decays the post-update
+parameter, so it is not this. The update runs as
 ``torch._foreach_*`` ops over all parameters at once and reads nothing back
 to the host.
 """
@@ -158,6 +163,7 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.adam_count = 0
 
     def lr(self, count: Optional[int] = None) -> float:
         return self.schedule(self.count if count is None else count)
@@ -184,7 +190,7 @@ class AdamW:
         torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
         mu, nu = self.mu, self.nu
         if self.correct_bias:
-            t = self.count + 1
+            t = self.adam_count + 1
             mu = torch._foreach_div(mu, 1 - b1 ** t)
             nu = torch._foreach_div(nu, 1 - b2 ** t)
         denom = torch._foreach_sqrt(nu)
@@ -197,14 +203,18 @@ class AdamW:
         torch._foreach_mul_(upd, -self.lr())
         torch._foreach_add_(self.params, upd)
         self.count += 1
+        self.adam_count += 1
 
     def state_dict(self) -> Dict:
-        return {"count": self.count,
+        return {"count": self.count, "adam_count": self.adam_count,
                 "mu": dict(zip(self.names, self.mu)),
                 "nu": dict(zip(self.names, self.nu))}
 
     def load_state_dict(self, state: Dict):
+        """Restore the counts and the moments, each moment by its
+        parameter's name (a name missing from ``state`` raises)."""
         self.count = int(state["count"])
+        self.adam_count = int(state.get("adam_count", self.count))
         with torch.no_grad():
             for i, n in enumerate(self.names):
                 self.mu[i].copy_(state["mu"][n])

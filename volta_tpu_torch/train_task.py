@@ -7,16 +7,22 @@ Counterpart of the root ``train_task.py`` (its flags :25-98 and its loop
         --tasks_config_file config_tasks/ctrl_trainval_tasks.yml --task 1 \\
         --output_dir save --logdir logs
 
-Random weights from ``--seed``; AdamW (``correct_bias=False``) behind the
+Weights random from ``--seed``, or from ``--from_pretrained``: a published
+VOLTA ``.bin``, an HF BERT ``.bin`` or the port's own checkpoint
+(``checkpoint.from_pretrained``); AdamW (``correct_bias=False``) behind the
 global-norm clip with the warmup-linear schedule; dropout at the config's
 rates through the CUDA kernels on the card. It writes the JAX CLI's
 ``<logdir>/<run>/out.txt`` lines (``VAL epoch N TASK1 loss … score …``),
-``<output_dir>/<run>/command.txt``, and ``torch.save``s the model and
-optimizer state to ``<output_dir>/<run>/ckpt/train_state.pt`` every epoch
-and to ``best/`` when the val score improves (``eval_task
---from_pretrained`` reads either). ``--device`` defaults to ``cuda`` and
-never falls back to the CPU. Flags of features not ported yet raise; the
-JAX-only ``--prng_impl`` and ``--no_pallas`` do not exist here.
+``<output_dir>/<run>/command.txt``, and ``torch.save``s the model,
+optimizer and dropout-generator state to
+``<output_dir>/<run>/ckpt/train_state.pt`` every epoch and to ``best/``
+when the val score improves (``eval_task --from_pretrained`` reads
+either). A run resumes from ``--resume_file`` (the reference's
+``pytorch_ckpt_latest.tar`` or a port ``train_state.pt`` or its
+directory), else from its own ``ckpt/train_state.pt`` where one exists.
+``--device`` defaults to ``cuda`` and never falls back to the CPU. Flags of
+features not ported yet raise; the JAX-only ``--prng_impl`` and
+``--no_pallas`` do not exist here.
 """
 
 from __future__ import annotations
@@ -34,11 +40,22 @@ logger = logging.getLogger(__name__)
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     # Model
-    p.add_argument("--from_pretrained", default="", type=str)
+    p.add_argument("--from_pretrained", default="", type=str,
+                   help="a VOLTA-format .bin, an HF BERT .bin (detected by "
+                   "its layer names), the port's own state dict or "
+                   "train_state.pt (or its directory), or an http(s) URL "
+                   "of one already placed in the cache; Flax msgpack "
+                   "bundles and Orbax directories raise (ROADMAP.md Queue "
+                   "1 item 12), and so does a RoBERTa model (item 6)")
     p.add_argument("--bert_model", default="bert-base-uncased", type=str)
     p.add_argument("--config_file", default="configs/ctrl_uniter_base.json",
                    type=str)
-    p.add_argument("--resume_file", default="", type=str)
+    p.add_argument("--resume_file", default="", type=str,
+                   help="the reference's pytorch_ckpt_latest.tar (weights, "
+                   "AdamW moments, global_step, epoch_id) or the port's "
+                   "train_state.pt or its directory; without it a run "
+                   "resumes from <output_dir>/<run>/ckpt/train_state.pt "
+                   "where that exists")
     # Output
     p.add_argument("--output_dir", default="save", type=str)
     p.add_argument("--logdir", default="logs", type=str)
@@ -95,10 +112,6 @@ def refuse_unported(args):
     """Raise NotImplementedError for each flag whose feature the port does
     not have yet, naming the ROADMAP.md item that owns it."""
     unported = [
-        (args.from_pretrained, "--from_pretrained", "Queue 1 item 3, the "
-         "checkpoint slice"),
-        (args.resume_file, "--resume_file", "Queue 1 item 3, the "
-         "checkpoint slice"),
         (args.device_store, "--device_store", "Queue 1 item 5"),
         (args.grad_acc_steps > 1, "--gradient_accumulation_steps > 1",
          "Queue 1 item 5"),
@@ -114,17 +127,6 @@ def refuse_unported(args):
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md {item})")
-
-
-def save_train_state(path: str, state, epoch: int, best_score: float):
-    """``torch.save`` the model and optimizer state to
-    ``<path>/train_state.pt``."""
-    os.makedirs(path, exist_ok=True)
-    torch.save({"step": state.step, "epoch": epoch, "best_score": best_score,
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "generator": state.generator.get_state()},
-               os.path.join(path, "train_state.pt"))
 
 
 def _fetch(pending, keys):
@@ -147,6 +149,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_task: --device cuda but CUDA is not available "
                          "(pass --device cpu to run on the CPU)")
+    from .checkpoint import TRAIN_STATE, from_pretrained, resume, \
+        save_train_state
     from .config import VoltaConfig
     from .eval_step import make_task_eval_step
     from .models import VoltaForVLTasks
@@ -183,10 +187,6 @@ def main(argv=None):
     tb = MetricsLogger(log_dir)
     save_command(output_dir, args, cfg)
     ckpt_dir = os.path.join(output_dir, "ckpt")
-    if os.path.exists(os.path.join(ckpt_dir, "train_state.pt")):
-        logger.warning("%s holds a checkpoint; resuming is not ported yet "
-                       "(ROADMAP.md Queue 1 item 3): training from scratch "
-                       "and overwriting it", ckpt_dir)
 
     data = load_dataset(args, cfg, task_cfg, args.task)
     train_loader = data["train_loader"]
@@ -197,6 +197,10 @@ def main(argv=None):
 
     model = VoltaForVLTasks(cfg, task_cfg, (task,))
     init_weights(model, torch.Generator().manual_seed(args.seed))
+    if args.from_pretrained:
+        report = from_pretrained(cfg, model, args.from_pretrained)
+        logger.info("loaded %d tensors, %d left at init",
+                    len(report["loaded"]), len(report["skipped"]))
     model.to(device)
     logger.info("parameters: %d",
                 sum(p.numel() for p in model.parameters()))
@@ -215,7 +219,17 @@ def main(argv=None):
     train_step = make_task_train_step(model, optimizer, task_cfg, task)
     eval_step = make_task_eval_step(model, task_cfg, task)
 
-    best_score = -1.0
+    best_score, start_epoch = -1.0, 0
+    src = args.resume_file or (ckpt_dir if os.path.exists(
+        os.path.join(ckpt_dir, TRAIN_STATE)) else "")
+    if src:
+        info = resume(cfg, state, src, steps_per_epoch)
+        start_epoch, best_score = info["start_epoch"], info["best_score"]
+        if info["hyperparams"]:
+            logger.info("tar optimizer hyperparams (verify CLI flags "
+                        "match): %s", info["hyperparams"])
+        logger.info("resumed from %s at step %d (epoch %d)", src,
+                    info["global_step"], start_epoch)
     train_losses, val_scores, pending = [], [], []
 
     def flush(epoch):
@@ -224,7 +238,7 @@ def main(argv=None):
             train_losses.append(loss)
         pending.clear()
 
-    for epoch in range(args.num_train_epochs):
+    for epoch in range(start_epoch, args.num_train_epochs):
         train_loader.set_epoch(epoch)
         model.train()
         for batch in train_loader:
