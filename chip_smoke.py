@@ -6,7 +6,8 @@ kernel-drawn hidden-dropout masks (``fuse_hidden_dropout``,
 ``use_pallas_dropout_mask``), the recomputed feed-forwards (``remat_ff``),
 the int-threshold dropout (``use_hash_dropout: false``), the checkpoints
 (reference ``.bin`` export and import, native and reference-tar resume),
-and the two matmul decision probes.
+the two matmul decision probes, and the NLVR2, RefCOCO+ and Flickr30k
+retrieval heads of ``ctrl_trainval_tasks.yml``.
 
     python3 chip_smoke.py [--profile]
 
@@ -200,11 +201,36 @@ and each of which prints its seconds:
     a reference tar: parameters, moments, losses, counts and generator
     bit-equal (or, where the two uninterrupted runs differ, no further
     apart);
-16. the kernels' JSON line (the attention rows also with ``body``, the
+16. task heads: rows 1-4 against their twins at the (B, L) of the task
+    paths, bf16 and fp32, as phases 3 and 4 hold them (row 1 at the eval
+    forwards' 1024 x 77 and 1024 x 57, rows 1-4 at the train steps' 256 x
+    67, 256 x 57 and 128 x 77), with their bf16 device times beside the
+    twins', SDPA's and the bounds, and at L 64 and 65 (the tensor-core bodies'
+    64-row tile edge); then synthetic
+    NLVR2 (1024 statements on 128 image pairs), RefCOCO+ (1026 refs on
+    342 images) and Flickr30k retrieval (64 images of the VQA store, 5
+    captions each) dataroots at full feature width, written here through
+    the port's LMDB writer (the same files as ``tools/make_synth_data.py
+    nlvr2|refcoco|retrieval``), with ``ctrl_trainval_tasks.yml``'s TASK12,
+    TASK10 and TASK8 fields (each val split its train split); for NLVR2
+    and RefCOCO+ the eval CLI at the yml's eval batch (512 pairs, 1024):
+    kernel 1 12 times a batch and no other kernel, one record an item; for
+    each task the train CLI, one epoch at the yml's batch (64, 256, 64)
+    with the config's dropout and its val loop: kernels 3 and 4 12 times a
+    step, K10 27 forward and 27 backward (24 tails, 2 embeddings, and the
+    pooled output or, for refcoco+'s V-logit head, the region outputs),
+    kernel 1 12 times a val batch, finite losses; one eval batch with the
+    kernels and the twins as phase 9 holds VQA's (fp32 within 1e-4; bf16
+    within twice, at least 5e-2, the twins' distance from float64
+    attention sums), answers flipped reported; eval items/s at that batch
+    and train ms/step with its peak memory in bf16, and the train step's
+    device time by kernel;
+17. the kernels' JSON line (the attention rows also with ``body``, the
     body their wrapper runs in bf16; ``pallas`` false for K10, which
     replaces no Pallas kernel; ``bound_by`` "operations" also where the
-    hash's integer operations bound a kernel, which phases 6 and 7 name),
-    then ``{"ok": true, "device": ...}`` last.
+    hash's integer operations bound a kernel, which phases 6 and 7 name;
+    ``task_heads_launches`` the launches of phase 16's CLI runs), then
+    ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -257,6 +283,14 @@ STEP_TOL = 0.02
 RATE = 0.1
 EPS = 1e-12
 SERVING = (256, 60, 60, 12, 64)
+# phase 16's (B, L, a train shape) of rows 1-4: the eval forwards (row 1)
+# of NLVR2 (512 pairs, 40 + 37 tokens) and refcoco+ (1024, 20 + 37); the
+# train steps (rows 1-4: row 1 in the val loop, 2 at dropout 0) of
+# retrieval (64 x 4 ways, 30 + 37), refcoco+ (256) and NLVR2 (64 pairs)
+TASK_SHAPES = ((1024, 77, False), (1024, 57, False), (256, 67, True),
+               (256, 57, True), (128, 77, True))
+# phase 16's retrieval annotations, tools/make_synth_data.py's file name
+RETRIEVAL_ANN = "all_data_final_test_set0_2014.jsonline"
 ODD = [(2, 9, 33, 4, 16), (3, 5, 37, 2, 64), (2, 17, 70, 2, 128)]
 # the bf16 tensor-core forward's tile edges (64 query rows, 64-key tiles):
 # Lq and Lk at 63, 64, 65 and 128, and 563 keys (the longest task sequence)
@@ -658,7 +692,9 @@ def row_bound(name, n, d, itemsize):
 
 
 # K10's launches a training forward, and as many backward: the 24 sublayer
-# tails, the two embedding outputs and the pooled output; the 3 that are no
+# tails, the two embedding outputs and the pooled output (for a V-logit
+# head the region outputs instead: it reads no pooled output, whose seed is
+# drawn and whose dropout is not run); the 3 that are no
 # tail where a flag moves the tails to rows 12, 14 or 9; the pooled output's
 # alone where the config's dropout rates are 0 (its rate is the head's fixed
 # 0.1, models/model.py, as in the JAX module)
@@ -2051,6 +2087,30 @@ def write_synth_vocab(path, size=30522):
         f.write("\n".join(toks[:size]) + "\n")
 
 
+def synth_boxes(rng, n, w=640, h=480):
+    """``n`` random [x1, y1, x2, y2] float32 boxes in a w x h image, drawn
+    as ``tools/make_synth_data.py``'s ``_boxes`` draws them."""
+    x1 = rng.rand(n, 1) * (w * 0.7)
+    y1 = rng.rand(n, 1) * (h * 0.7)
+    x2 = x1 + 8 + rng.rand(n, 1) * (w * 0.3 - 8)
+    y2 = y1 + 8 + rng.rand(n, 1) * (h * 0.3 - 8)
+    return np.concatenate([x1, y1, x2, y2], 1).astype(np.float32)
+
+
+def _synth_record(rng, img_id, boxes, feat_dim):
+    """One features-LMDB record of the synthetic writers: pickled base64
+    float32 features and boxes, in ``tools/make_synth_data.py``'s draw
+    order (features, then boxes)."""
+    import base64
+    import pickle
+
+    feats = (rng.randn(boxes, feat_dim) * 0.5).astype(np.float32)
+    return pickle.dumps({
+        "img_id": img_id, "img_h": 480, "img_w": 640, "num_boxes": boxes,
+        "features": base64.b64encode(feats.tobytes()),
+        "boxes": base64.b64encode(synth_boxes(rng, boxes).tobytes())})
+
+
 def write_synth_vqa(out, images, questions, boxes, feat_dim, num_labels,
                     seed):
     """A synthetic VQA dataroot in the reference's on-disk formats, through
@@ -2060,7 +2120,6 @@ def write_synth_vqa(out, images, questions, boxes, feat_dim, num_labels,
     questions, the answer space of ``num_labels`` and a vocab. The same
     files, byte for byte, as ``tools/make_synth_data.py vqa`` with the same
     arguments."""
-    import base64
     import pickle
 
     from volta_tpu_torch.data import lmdbx
@@ -2071,17 +2130,8 @@ def write_synth_vqa(out, images, questions, boxes, feat_dim, num_labels,
     for i in range(images):
         key = str(1000000 + i).encode()
         keys.append(key)
-        feats = (rng.randn(boxes, feat_dim) * 0.5).astype(np.float32)
-        x1 = rng.rand(boxes, 1) * (640 * 0.7)
-        y1 = rng.rand(boxes, 1) * (480 * 0.7)
-        x2 = x1 + 8 + rng.rand(boxes, 1) * (640 * 0.3 - 8)
-        y2 = y1 + 8 + rng.rand(boxes, 1) * (480 * 0.3 - 8)
-        box = np.concatenate([x1, y1, x2, y2], 1).astype(np.float32)
-        rec = {"img_id": 1000000 + i, "img_h": 480, "img_w": 640,
-               "num_boxes": boxes,
-               "features": base64.b64encode(feats.tobytes()),
-               "boxes": base64.b64encode(box.tobytes())}
-        items.append((key, pickle.dumps(rec)))
+        items.append((key, _synth_record(rng, 1000000 + i, boxes,
+                                         feat_dim)))
     items.append((b"keys", pickle.dumps(keys)))
     lmdbx.write(os.path.join(out, "features.lmdb"), items)
     del items
@@ -2141,6 +2191,490 @@ def make_dataroot(root):
   lr: 0.0001
 """)
     return data, yml
+
+
+def write_synth_nlvr2(out, images, questions, boxes, feat_dim, seed):
+    """A synthetic NLVR2 dataroot: a features LMDB keyed
+    ``synth-<i>-img{0,1}`` (two images a statement) and ``train.json``
+    lines of identifier / sentence / label, and a vocab; the same files,
+    byte for byte, as ``tools/make_synth_data.py nlvr2`` with the same
+    arguments, through the port's own LMDB writer."""
+    import pickle
+
+    from volta_tpu_torch.data import lmdbx
+
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    items, keys = [], []
+    for i in range(images):
+        for half in ("img0", "img1"):
+            key = f"synth-{i}-{half}".encode()
+            keys.append(key)
+            items.append((key, _synth_record(rng, key.decode(), boxes,
+                                             feat_dim)))
+    items.append((b"keys", pickle.dumps(keys)))
+    lmdbx.write(os.path.join(out, "features.lmdb"), items)
+    del items
+    with open(os.path.join(out, "train.json"), "w") as f:
+        for k in range(questions):
+            i = int(rng.randint(images))
+            words = [WORD_STEMS[int(j)] for j in
+                     rng.randint(0, len(WORD_STEMS), rng.randint(5, 12))]
+            f.write(json.dumps({
+                "identifier": f"synth-{i}-{k}",
+                "sentence": "there are " + " ".join(words),
+                "label": "True" if rng.rand() < 0.5 else "False",
+            }) + "\n")
+    write_synth_vocab(os.path.join(out, "vocab.txt"))
+
+
+def write_synth_retrieval(out, images, sentences, seed):
+    """Synthetic Flickr30k retrieval annotations over the VQA writer's
+    features store (image ids 1000000 on): ``images`` jsonl lines of
+    ``img_path`` and ``sentences`` captions, and a vocab; the same files,
+    byte for byte, as ``tools/make_synth_data.py retrieval``."""
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    with open(os.path.join(out, RETRIEVAL_ANN), "w") as f:
+        for i in range(images):
+            sents = []
+            for _ in range(sentences):
+                words = [WORD_STEMS[int(j)] for j in
+                         rng.randint(0, len(WORD_STEMS), rng.randint(6, 14))]
+                sents.append("a photo of " + " ".join(words))
+            f.write(json.dumps({"img_path": f"{1000000 + i}.jpg",
+                                "sentences": sents}) + "\n")
+    write_synth_vocab(os.path.join(out, "vocab.txt"))
+
+
+def write_synth_refcoco(out, images, refs_per_image, boxes, feat_dim, seed):
+    """A synthetic RefCOCO+ dataroot: ``refs(unc).p`` (every ref in the
+    ``train`` split), ``instances.json`` (each ref's box, one of the
+    detector boxes, so the IoU target has a 1.0 slot), a detector-features
+    LMDB keyed by image id, and a vocab; the same files, byte for byte, as
+    ``tools/make_synth_data.py refcoco`` with the same arguments."""
+    import base64
+    import pickle
+
+    from volta_tpu_torch.data import lmdbx
+
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    refs, anns, items, keys = [], [], [], []
+    sent_id = 0
+    for i in range(images):
+        image_id = 3000000 + i
+        det_boxes = synth_boxes(rng, boxes)
+        key = str(image_id).encode()
+        keys.append(key)
+        feats = (rng.randn(boxes, feat_dim) * 0.5).astype(np.float32)
+        items.append((key, pickle.dumps({
+            "img_id": image_id, "img_h": 480, "img_w": 640,
+            "num_boxes": boxes,
+            "features": base64.b64encode(feats.tobytes()),
+            "boxes": base64.b64encode(det_boxes.tobytes())})))
+        for r in range(refs_per_image):
+            bb = det_boxes[int(rng.randint(boxes))]
+            ann_id = image_id * 10 + r
+            anns.append({"id": ann_id,
+                         "bbox": [float(bb[0]), float(bb[1]),
+                                  float(bb[2] - bb[0]),
+                                  float(bb[3] - bb[1])]})
+            words = [WORD_STEMS[int(j)] for j in
+                     rng.randint(0, len(WORD_STEMS), rng.randint(2, 6))]
+            refs.append({"split": "train", "ann_id": ann_id,
+                         "image_id": image_id, "ref_id": ann_id,
+                         "sentences": [{"raw": "the " + " ".join(words)}],
+                         "sent_ids": [sent_id]})
+            sent_id += 1
+    items.append((b"keys", pickle.dumps(keys)))
+    lmdbx.write(os.path.join(out, "refcoco+_feat.lmdb"), items)
+    with open(os.path.join(out, "refs(unc).p"), "wb") as f:
+        pickle.dump(refs, f)
+    with open(os.path.join(out, "instances.json"), "w") as f:
+        json.dump({"annotations": anns}, f)
+    write_synth_vocab(os.path.join(out, "vocab.txt"))
+
+
+def make_task_dataroot(root, vqa_dir):
+    """Phase 16's dataroots and task yml: TASK8 (RetrievalFlickr30k over the
+    VQA store's first 64 images, 5 captions each), TASK10 (refcoco+, 1026
+    refs on 342 images) and TASK12 (NLVR2, 1024 statements on 128 image
+    pairs), at full feature width (36 boxes x 2048), with
+    ``ctrl_trainval_tasks.yml``'s fields. The writers make one split, so
+    each task's val split is its train split (retrieval's caches it under
+    the name ``val``)."""
+    ret, ref, nl = (os.path.join(root, n) for n in
+                    ("flickr30k", "refcoco+", "nlvr2"))
+    write_synth_retrieval(ret, images=64, sentences=5, seed=0)
+    write_synth_refcoco(ref, images=342, refs_per_image=3, boxes=36,
+                        feat_dim=2048, seed=0)
+    write_synth_nlvr2(nl, images=128, questions=1024, boxes=36,
+                      feat_dim=2048, seed=0)
+    yml = os.path.join(root, "task_heads.yml")
+    with open(yml, "w") as f:
+        f.write(f"""TASK8:
+  name: RetrievalFlickr30k
+  type: VL-logit
+  num_labels: 1
+  loss: CrossEntropyLoss
+  process: retrieval
+  task_id: 8
+  dataroot: {ret}
+  features_h5path1: {vqa_dir}/features.lmdb
+  features_h5path2: ''
+  train_annotations_jsonpath: {ret}/{RETRIEVAL_ANN}
+  val_annotations_jsonpath: {ret}/{RETRIEVAL_ANN}
+  max_seq_length: 30
+  max_region_num: 36
+  batch_size: 64
+  train_split: train
+  val_split: val
+  lr: 0.00002
+TASK10:
+  name: refcoco+
+  type: V-logit
+  loss: BCEWithLogitLoss
+  process: normal
+  task_id: 10
+  dataroot: {ref}
+  features_h5path1: {ref}/refcoco+_feat.lmdb
+  features_h5path2: ''
+  train_annotations_jsonpath: ''
+  val_annotations_jsonpath: ''
+  max_seq_length: 20
+  max_region_num: 36
+  batch_size: 256
+  eval_batch_size: 1024
+  train_split: train
+  val_split: train
+  lr: 0.0001
+TASK12:
+  name: NLVR2
+  type: VL-binary-classifier
+  num_labels: 2
+  loss: BCEWithLogitLoss
+  process: nlvr
+  task_id: 12
+  dataroot: {nl}
+  features_h5path1: {nl}/features.lmdb
+  features_h5path2: ''
+  train_annotations_jsonpath: ''
+  val_annotations_jsonpath: ''
+  max_seq_length: 40
+  max_region_num: 36
+  batch_size: 64
+  eval_batch_size: 512
+  train_split: train
+  val_split: train
+  lr: 0.00001
+""")
+    return yml
+
+
+def task_argmax(ttype, logits, info):
+    """The answers a head's logits give: the region (V-logit), the option
+    (VL-logit) or the class."""
+    if ttype.startswith("V-logit"):
+        return logits[..., 0].argmax(1)
+    if ttype == "VL-logit":
+        return logits.reshape(info["batch_size"], -1).argmax(1)
+    return logits.argmax(1)
+
+
+def hold_task_logits(task_cfg, task, batch_np, tag):
+    """One eval batch of ``task`` through ctrl_uniter_base with the kernels
+    and with the twins, bf16 and, on the same weights, fp32: fp32 logits
+    within LOGIT_TOL_FP32; bf16 within NOISE_FACTOR times the twins'
+    distance from the twins with float64 attention sums (at least
+    LOGIT_TOL); the answers that flip, reported. Returns the bf16 model."""
+    import torch
+
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+
+    ttype = task_cfg[task]["type"]
+    one = to_device(batch_np, "cuda")
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(task_cfg, dtype, task=task).eval()
+        fn = make_task_eval_step(model, task_cfg, task)
+        out = fn(one)
+        kern = out["prediction"].float()
+        with twins():
+            plain = fn(one)["prediction"].float()
+            with float64_attention():
+                alt = fn(one)["prediction"].float()
+        ans = [task_argmax(ttype, x, out["info"]) for x in (kern, plain, alt)]
+        n = int(ans[0].numel())
+        diff = float((kern - plain).abs().max())
+        noise = float((plain - alt).abs().max())
+        flips = int((ans[0] != ans[1]).sum())
+        noise_flips = int((ans[2] != ans[1]).sum())
+        tol = LOGIT_TOL_FP32 if dtype == "float32" \
+            else max(LOGIT_TOL, NOISE_FACTOR * noise)
+        print(f"{tag} logits {tuple(kern.shape)} {dtype} kernels vs plain "
+              f"twins: max abs diff {diff:.3e} (tol {tol:.3e}; twins vs "
+              f"float64 attention sums {noise:.3e}); answers flipped "
+              f"{flips} of {n} (twins vs float64 sums {noise_flips}); "
+              f"|logits| max {float(kern.abs().max()):.3f}", flush=True)
+        if not bool(torch.isfinite(kern).all()):
+            raise RuntimeError(f"{tag}: non-finite {dtype} logits")
+        if diff > tol:
+            raise RuntimeError(f"{tag}: the {dtype} kernel model disagrees "
+                               "with the plain twins")
+        if dtype == "float32":
+            del model, fn
+    return model
+
+
+def run_task(root, data_dir, yml, power, task, tag, eval_cli):
+    """Phase 16 for one task of ``yml``: the eval CLI (``eval_cli``) over
+    the val split at the yml's eval batch, with exact launches and one
+    record an item; the train CLI, one epoch at the yml's batch with the
+    config's dropout and its val loop, with exact launches and finite
+    losses; one eval batch held to the twins (``hold_task_logits``); eval
+    items/s at that batch and train ms/step with peak memory, bf16.
+    Returns the launches of the runs and the rates."""
+    import torch
+
+    from volta_tpu_torch import eval_task, train_task
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import warmup_linear_schedule
+    from volta_tpu_torch.task_utils import load_dataset, load_task_config, \
+        process_batch
+
+    task_cfg = load_task_config(yml)
+    key = "TASK" + task
+    tc = task_cfg[key]
+    out = {}
+    if eval_cli:
+        argv = ["--config_file", CONFIG, "--tasks_config_file", yml,
+                "--task", task, "--vocab_file",
+                os.path.join(data_dir, "vocab.txt"),
+                "--output_dir", os.path.join(root, f"results_{tag}"),
+                "--num_workers", "4", "--compute_dtype", "bfloat16",
+                "--device", "cuda", "--seed", "0"]
+        reset_launches()
+        t0 = time.time()
+        summary = eval_task.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        with open(summary["out_file"]) as f:
+            results = json.load(f)
+        n_items = summary["n"]
+        n_batches = -(-n_items // tc["eval_batch_size"])
+        print(f"eval_task.main ({tag}): {n_items} items in {n_batches} "
+              f"batches of {tc['eval_batch_size']}, {wall:.1f} s wall (data "
+              f"and model set-up included), loss {summary['loss']:.4f} "
+              f"score {summary['score']:.4f}, {len(results)} records, "
+              f"launches {launches}", flush=True)
+        want = expect(attention_fwd=12 * n_batches)
+        if launches != want:
+            raise RuntimeError(f"{tag} eval launches {launches}, expected "
+                               f"{want}")
+        if summary["nonfinite_batches"] or len(results) != n_items:
+            raise RuntimeError(f"{tag}: {summary['nonfinite_batches']} "
+                               f"non-finite batches, {len(results)} records "
+                               f"for {n_items} items")
+        out["eval"] = launches
+
+    argv = train_argv(root, data_dir, yml, CONFIG, 1, tag, task=task)
+    cfg = VoltaConfig.from_json_file(CONFIG)
+    data = load_dataset(train_task.parse_args(argv), cfg, task_cfg, task)
+    n_train, n_val = len(data["train_loader"]), len(data["val_loader"])
+    reset_launches()
+    t0 = time.time()
+    summary = train_task.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(LAUNCHES)
+    steps, losses = summary["steps"], summary["train_losses"]
+    print(f"train_task.main ({tag}): {steps} steps at b{tc['batch_size']}, "
+          f"{n_val} val batches, {wall:.1f} s wall (data and model set-up "
+          f"included), losses {[round(l, 4) for l in losses]}, val scores "
+          f"{summary['val_scores']}, launches {launches}", flush=True)
+    want = expect(attention_dropout_fwd=12 * steps,
+                  attention_dropout_bwd=12 * steps,
+                  attention_fwd=12 * n_val,
+                  **k10(K10_SITES * steps))
+    if steps != n_train or len(losses) != steps \
+            or not np.all(np.isfinite(losses)) \
+            or len(summary["val_scores"]) != 1:
+        raise RuntimeError(f"{tag}: {steps} steps, losses {losses}")
+    if launches != want:
+        raise RuntimeError(f"{tag} train launches {launches}, expected "
+                           f"{want}")
+    out["train"] = launches
+
+    # an eval batch of the yml's eval size from the val loader
+    per = tc.get("eval_batch_size", tc["batch_size"]) // tc["batch_size"]
+    val = [b for _, b in zip(range(per), data["val_loader"])]
+    eval_np = concat_batches([{k: v for k, v in b.items()
+                               if isinstance(v, np.ndarray)} for b in val])
+    model = hold_task_logits(task_cfg, key, eval_np, tag)
+    step = make_task_eval_step(model, task_cfg, key)
+    batch = to_device(eval_np, "cuda")
+    items = int(eval_np["question"].shape[0])
+    rows = int(process_batch(tc, batch)[0]["input_ids"].shape[0])
+    runs = [throughput(step, batch, iters=10) for _ in range(3)]
+    rate = float(np.median([r for r, _ in runs]))
+    print(f"{tag} eval forward b{items} ({rows} rows): median {rate:.1f} "
+          f"items/s, {rate * rows / items:.1f} rows/s (runs "
+          f"{', '.join(f'{r:.1f}' for r, _ in runs)}), peak "
+          f"{max(m for _, m in runs):.2f} GiB [{power}]", flush=True)
+
+    model.train()
+    state, tstep = new_step(model, task_cfg,
+                            warmup_linear_schedule(1e-4, 10, 1000), task=key)
+    train_np = next(iter(data["train_loader"]))
+    tbatch = to_device({k: v for k, v in train_np.items()
+                        if isinstance(v, np.ndarray)}, "cuda")
+    mss, peaks = [], []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        mss.append(cuda_ms(lambda: tstep(state, tbatch), iters=10, warmup=2))
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+    ms = float(np.median(mss))
+    print(f"{tag} train step b{tc['batch_size']} bf16: median {ms:.2f} "
+          f"ms/step, {tc['batch_size'] / ms * 1e3:.1f} items/s (runs "
+          f"{', '.join(f'{m:.2f}' for m in mss)}), peak {max(peaks):.2f} "
+          f"GiB [{power}]", flush=True)
+    profile_device(lambda: tstep(state, tbatch), ms, f"{tag} train step",
+                   top=12)
+    out["rates"] = {"eval_items_per_s": rate, "train_ms": ms}
+    return out
+
+
+def check_task_kernels():
+    """Phase 16 (a): rows 1-4 against their twins at the (B, L) the task
+    paths give them, bf16 and fp32, as phases 3 and 4 hold them: row 1 at
+    the eval shapes, rows 1-4 at the train shapes (``TASK_SHAPES``); rows 1
+    and 3 within TOL, rows 2 and 4 within two bf16 ulps of the largest
+    value (fp32 1e-5 relative), row 3's mask bit-equal to the twin's hash
+    with its keep fraction 0.9 +- 0.005. In bf16, each row's device time
+    there (``kernel_ms``) beside its twin's and its bound, and at L = 64
+    and 65 for the tile edge."""
+    import torch
+
+    from volta_tpu_torch.ops import attention_cuda as ac
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
+
+    h, d = 12, 64
+    scale = d ** -0.5
+    for i, (b, l, train) in enumerate(TASK_SHAPES):
+        for dt in ("bfloat16", "float32"):
+            q, k, v, bias = attention_inputs(b, l, l, h, d,
+                                             getattr(torch, dt), 1600 + i)
+            g = torch.randn_like(q)
+            seed = 1600 + i
+            out1 = ac.attention_fwd(q, k, v, bias, scale, h)
+            torch.cuda.synchronize()
+            ref1 = ac.attention_fwd_ref(q, k, v, bias, scale, h)
+            err1 = float((out1.float() - ref1.float()).abs().max())
+            if not bool(torch.isfinite(out1).all()) or err1 > TOL[dt]:
+                raise RuntimeError(f"row 1 disagrees at B={b} L={l} {dt}: "
+                                   f"{err1:.3e}")
+            del ref1
+            line = f"row 1 {err1:.3e}"
+            if train:
+                got2 = ac.attention_bwd(q, k, v, bias, g, scale, h)
+                out3, mask = adc.attention_dropout_fwd(
+                    q, k, v, bias, scale, h, RATE, seed, return_mask=True)
+                got4 = adc.attention_dropout_bwd(q, k, v, bias, g, scale, h,
+                                                 RATE, seed)
+                torch.cuda.synchronize()
+                keep = adc.keep_mask(seed, (b, h, l, l), RATE, device="cuda")
+                if not torch.equal(mask, keep):
+                    raise RuntimeError(f"row-3 mask differs from the twin's "
+                                       f"at B={b} L={l} {dt}")
+                err2 = max(close(a, r, dt, f"row 2 d{n} at B={b} L={l}")
+                           for n, a, r in zip("qkv", got2,
+                                              ac.attention_bwd_ref(
+                                                  q, k, v, bias, g, scale, h,
+                                                  want_db=False)))
+                ref3 = adc.attention_dropout_fwd_ref(q, k, v, bias, scale, h,
+                                                     RATE, keep)
+                err3 = float((out3.float() - ref3.float()).abs().max())
+                if not bool(torch.isfinite(out3).all()) or err3 > TOL[dt]:
+                    raise RuntimeError(f"row 3 disagrees at B={b} L={l} "
+                                       f"{dt}: {err3:.3e}")
+                err4 = max(close(a, r, dt, f"row 4 d{n} at B={b} L={l}")
+                           for n, a, r in zip(
+                               "qkv", got4, adc.attention_dropout_bwd_ref(
+                                   q, k, v, bias, g, scale, h, RATE, keep)))
+                frac = float(mask.float().mean())
+                if abs(frac - (1 - RATE)) > 0.005:
+                    raise RuntimeError(f"keep fraction {frac} at B={b} "
+                                       f"L={l}")
+                line += (f", row 2 {err2:.3e}, row 3 {err3:.3e} (mask "
+                         f"bit-equal, keep fraction {frac:.5f}), row 4 "
+                         f"{err4:.3e}")
+                del got2, out3, mask, got4, keep, ref3
+            print(f"B={b} L={l} H={h} D={d} {dt} max abs diff vs twins: "
+                  f"{line}", flush=True)
+            if dt == "bfloat16":
+                time_task_rows(q, k, v, bias, g, scale, h, seed, train)
+            del q, k, v, bias, g, out1
+    # the tensor-core bodies' 64-row tile edge, at the train rows' batch
+    for l in (64, 65):
+        q, k, v, bias = attention_inputs(256, l, l, h, d, torch.bfloat16,
+                                         1700 + l)
+        time_task_rows(q, k, v, bias, torch.randn_like(q), scale, h,
+                       1700 + l, True, twins=False)
+
+
+def time_task_rows(q, k, v, bias, g, scale, h, seed, train, twins=True):
+    """Device ms (``kernel_ms``) of row 1 and, for a train shape, rows 2-4
+    on these bf16 operands, beside their twins' (``twins``), their bounds
+    and SDPA's forward (row 1) and forward + backward (row 2) on the same
+    operands and additive mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from volta_tpu_torch.ops import attention_cuda as ac
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
+
+    b, l, d = q.shape[0], q.shape[1], q.shape[2] // h
+    sq, sk, sv, smask = sdpa_operands(q, k, v, bias, h)
+    leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
+    sg = g.view(b, l, h, d).transpose(1, 2)
+    library = {
+        "row 1": lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=smask),
+        "row 2": lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+            *leaves, attn_mask=smask), leaves, sg)}
+    keep = lambda: adc.keep_mask(seed, (b, h, l, l), RATE,  # noqa: E731
+                                 device="cuda")
+    rows = [("row 1", lambda: ac.attention_fwd(q, k, v, bias, scale, h),
+             lambda: ac.attention_fwd_ref(q, k, v, bias, scale, h), False)]
+    if train:
+        rows += [
+            ("row 2", lambda: ac.attention_bwd(q, k, v, bias, g, scale, h),
+             lambda: ac.attention_bwd_ref(q, k, v, bias, g, scale, h,
+                                          want_db=False), True),
+            ("row 3", lambda: adc.attention_dropout_fwd(
+                q, k, v, bias, scale, h, RATE, seed),
+             lambda: adc.attention_dropout_fwd_ref(
+                 q, k, v, bias, scale, h, RATE, keep()), False),
+            ("row 4", lambda: adc.attention_dropout_bwd(
+                q, k, v, bias, g, scale, h, RATE, seed),
+             lambda: adc.attention_dropout_bwd_ref(
+                 q, k, v, bias, g, scale, h, RATE, keep()), True)]
+    for name, kern, plain, backward in rows:
+        ms = kernel_ms(kern, iters=30)
+        plain_ms = kernel_ms(plain, iters=5) if twins else None
+        lib_ms = kernel_ms(library[name], iters=30) \
+            if name in library else None
+        bnd = attention_bound(b, l, l, h, d, 2, backward)
+        print(f"{name} B={b} L={l} bf16: {ms:.4f} ms, plain twin "
+              f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
+              f", SDPA "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"{' (forward + backward)' if name == 'row 2' else ''}, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.3f} of "
+              "the bound", flush=True)
 
 
 def write_config(root, name, **fields):
@@ -2319,9 +2853,9 @@ def run_slice(root, data_dir, yml, power, config, tag, per_batch, routes,
     return launches, rates
 
 
-def train_argv(root, data_dir, yml, config, epochs, tag):
+def train_argv(root, data_dir, yml, config, epochs, tag, task="1"):
     return ["--config_file", config, "--tasks_config_file", yml,
-            "--task", "1", "--vocab_file", os.path.join(data_dir, "vocab.txt"),
+            "--task", task, "--vocab_file", os.path.join(data_dir, "vocab.txt"),
             "--output_dir", os.path.join(root, f"save_{tag}"),
             "--logdir", os.path.join(root, f"logs_{tag}"),
             "--num_train_epochs", str(epochs), "--num_workers", "4",
@@ -2418,9 +2952,9 @@ def run_train(root, data_dir, yml, flagged, hm, fuse, pmask, free, hm_free):
     return out, data
 
 
-def build_model(task_cfg, dtype, config=CONFIG, seed=0):
-    """ctrl_uniter_base (``config``) with a VQA head on the card, random
-    weights from ``seed``."""
+def build_model(task_cfg, dtype, config=CONFIG, seed=0, task="TASK1"):
+    """ctrl_uniter_base (``config``) with ``task``'s head (VQA's by
+    default) on the card, random weights from ``seed``."""
     import torch
 
     from volta_tpu_torch import VoltaForVLTasks
@@ -2429,12 +2963,12 @@ def build_model(task_cfg, dtype, config=CONFIG, seed=0):
 
     cfg = VoltaConfig.from_json_file(config)
     cfg.compute_dtype = dtype
-    model = VoltaForVLTasks(cfg, task_cfg, ("TASK1",))
+    model = VoltaForVLTasks(cfg, task_cfg, (task,))
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.cuda()
 
 
-def new_step(model, task_cfg, lr):
+def new_step(model, task_cfg, lr, task="TASK1"):
     """A fresh clip + AdamW over ``model``: its train state and step."""
     from volta_tpu_torch.optimization import build_optimizer
     from volta_tpu_torch.train_step import create_train_state, \
@@ -2442,7 +2976,7 @@ def new_step(model, task_cfg, lr):
 
     opt = build_optimizer("adamw", lr, model, clip_norm=1.0)
     return (create_train_state(model, opt, seed=11),
-            make_task_train_step(model, opt, task_cfg, "TASK1"))
+            make_task_train_step(model, opt, task_cfg, task))
 
 
 def compare_steps(task_cfg, batch_np, flagged, hm, fuse, pmask, masks_ln):
@@ -3148,7 +3682,7 @@ def check_remat_int_checkpoints(root, data_dir, yml, task_cfg, batch_np,
     return rates
 
 
-def profile_device(fn, call_ms, what, calls=3):
+def profile_device(fn, call_ms, what, calls=3, top=40):
     """Device time of ``fn()`` (a train step or an eval forward) by kernel
     (torch.profiler) over ``calls`` calls after the timing runs, and the
     device's idle share against the unprofiled ``call_ms`` (the profiler
@@ -3185,7 +3719,7 @@ def profile_device(fn, call_ms, what, calls=3):
     for fam, ms in sorted(families.items(), key=lambda x: -x[1]):
         print(f"  family {fam}: {ms:.3f} ms {100 * ms / total:.1f}%",
               flush=True)
-    for ms, count, key in rows[:40]:
+    for ms, count, key in rows[:top]:
         print(f"  {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} "
               f"{key[:110]}", flush=True)
 
@@ -3294,6 +3828,15 @@ def main(argv):
             rates.update(check_remat_int_checkpoints(
                 root, data_dir, yml, task_cfg, batch, power,
                 "--profile" in argv, flagged, pmask))
+        with phase("16 task heads"):
+            check_task_kernels()
+            task_yml = make_task_dataroot(root, data_dir)
+            task_runs = {tag: run_task(root, data_dir, task_yml, power,
+                                       task, tag, cli)
+                         for task, tag, cli in (("12", "NLVR2", True),
+                                                ("10", "refcoco+", True),
+                                                ("8", "RetrievalFlickr30k",
+                                                 False))}
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -3328,6 +3871,10 @@ def main(argv):
           f"{rates['plain LN flags'][1]:.2f} ms/step; int threshold vs hash "
           f"tails {rates['int threshold'][1]:.2f} vs "
           f"{rates['hash tails'][1]:.2f} ms/step", flush=True)
+    for tag, run in task_runs.items():
+        r = run["rates"]
+        print(f"{tag} [{power}]: eval {r['eval_items_per_s']:.1f} items/s, "
+              f"train {r['train_ms']:.2f} ms/step", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
           flush=True)
 
@@ -3385,6 +3932,10 @@ def main(argv):
              "library_ms": results[name]["library_ms"],
              **{k: results[name][k] for k in ("shapes", "body", "leg2")
                 if k in results[name]},
+             # phase 16's launches: the task heads' eval and train runs
+             "task_heads_launches": sum(
+                 run[k][name] for run in task_runs.values()
+                 for k in ("eval", "train") if k in run),
              "pallas": name not in NOT_PALLAS,
              **({"body": bodies[name]} if name in bodies else {})}
             for name, (src, replaces) in KERNELS.items()]

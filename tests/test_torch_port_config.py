@@ -168,3 +168,47 @@ def test_smoke_dataroot_is_the_synth_tool_s_without_the_jax_package(
     assert "features.lmdb" in port and "vocab.txt" in port
     for name in sorted(tool):
         assert port[name] == tool[name], name
+
+
+@pytest.mark.parametrize("kind,writer,sizes", [
+    ("nlvr2", "write_synth_nlvr2",
+     dict(images=3, questions=9, boxes=3, feat_dim=8, seed=3)),
+    ("retrieval", "write_synth_retrieval",
+     dict(images=4, sentences=3, seed=3)),
+    ("refcoco", "write_synth_refcoco",
+     dict(images=3, refs_per_image=2, boxes=4, feat_dim=8, seed=3)),
+], ids=["nlvr2", "retrieval", "refcoco"])
+def test_smoke_task_dataroots_are_the_synth_tool_s(tmp_path, kind, writer,
+                                                   sizes):
+    """chip_smoke.py's NLVR2, Flickr30k-retrieval and RefCOCO+ writers
+    (phase 16), with no JAX package loaded, write at a small size the
+    files ``tools/make_synth_data.py nlvr2|retrieval|refcoco`` writes
+    with the same arguments, byte for byte."""
+    port_dir, tool_dir = str(tmp_path / "port"), str(tmp_path / "tool")
+    code = ("import json, sys\n"
+            "import chip_smoke\n"
+            f"chip_smoke.{writer}({port_dir!r}, **{sizes!r})\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('volta_tpu', 'jax', 'jaxlib', 'flax'))\n"
+            "print(json.dumps({'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"bad": []}
+    args = [a for k, v in sizes.items() for a in (f"--{k}", str(v))]
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "tools", "make_synth_data.py"), kind,
+                    "--out", tool_dir, *args], check=True, cwd=REPO, env=env,
+                   capture_output=True, timeout=300)
+    port, tool = {}, {}
+    for root, out in ((port_dir, port), (tool_dir, tool)):
+        for d, _, files in os.walk(root):
+            for name in files:
+                path = os.path.join(d, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, root)] = f.read()
+    assert sorted(port) == sorted(tool) and "vocab.txt" in port
+    for name in sorted(tool):
+        assert port[name] == tool[name], name

@@ -1348,3 +1348,124 @@ def test_int_threshold_on_the_card(cuda_device):
     assert torch.equal(first[0], second[0])
     for n in first[1]:
         assert torch.equal(first[1][n], second[1][n]), n
+
+
+# the (B, L) rows 1-4 take on the task paths (chip_smoke.py phase 16):
+# NLVR2 eval (512 pairs, 40 + 37 tokens) and train (64 pairs), retrieval
+# eval and train (64 x 4 ways, 30 + 37), refcoco+ train (256, 20 + 37)
+TASK_SHAPES = [(1024, 77, 77, 12, 64), (256, 67, 67, 12, 64),
+               (256, 57, 57, 12, 64), (128, 77, 77, 12, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", TASK_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rows_1_to_4_at_the_task_lengths(cuda_device, dtype, shape):
+    """Rows 1-4 at odd L = Lq = Lk 77, 67, 57 against their twins: the
+    forwards within 2e-2 (bf16) / 1e-5, the backwards within two bf16 ulps
+    of the largest value (fp32 1e-5 relative), row 3's mask bit-equal to
+    the hash, its keep fraction 0.9 +- 0.005."""
+    b, lq, lk, h, d = shape
+    q, k, v, bias, g = _inputs(shape, dtype, cuda_device, seed=lq)
+    scale, seed = d ** -0.5, 0xBEEF + lq
+    out1 = attention_cuda.attention_fwd(q, k, v, bias, scale, h)
+    got2 = attention_cuda.attention_bwd(q, k, v, bias, g, scale, h)
+    out3, mask = adc.attention_dropout_fwd(q, k, v, bias, scale, h, RATE,
+                                           seed, return_mask=True)
+    got4 = adc.attention_dropout_bwd(q, k, v, bias, g, scale, h, RATE, seed)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    ref1 = attention_cuda.attention_fwd_ref(q, k, v, bias, scale, h)
+    assert float((out1.float() - ref1.float()).abs().max()) <= tol
+    ref2 = attention_cuda.attention_bwd_ref(q, k, v, bias, g, scale, h,
+                                            False)
+    for name, a, r in zip(("dq", "dk", "dv"), got2, ref2):
+        _assert_close(a, r, dtype, "row 2 " + name)
+    keep = adc.keep_mask(seed, (b, h, lq, lk), RATE, device=cuda_device)
+    assert torch.equal(mask, keep)
+    ref3 = adc.attention_dropout_fwd_ref(q, k, v, bias, scale, h, RATE, keep)
+    assert float((out3.float() - ref3.float()).abs().max()) <= tol
+    ref4 = adc.attention_dropout_bwd_ref(q, k, v, bias, g, scale, h, RATE,
+                                         keep)
+    for name, a, r in zip(("dq", "dk", "dv"), got4, ref4):
+        _assert_close(a, r, dtype, "row 4 " + name)
+    frac = float(mask.float().mean())
+    assert abs(frac - (1 - RATE)) <= 0.005, frac
+
+
+HEADS_TASK = {
+    "TASK10": {"type": "V-logit", "process": "normal",
+               "loss": "BCEWithLogitLoss"},
+    "TASK12": {"type": "VL-binary-classifier", "num_labels": 2,
+               "process": "nlvr", "loss": "BCEWithLogitLoss"},
+}
+
+
+def _heads_batch(task, b=2, lt=8, lv=6, feat=2048):
+    """A small numpy batch in the layout of ``task``'s dataset: NLVR2's
+    two images on one region axis; refcoco+'s region targets, one row's
+    last two regions padded."""
+    rng = np.random.RandomState(8)
+    nv = 2 * lv if task == "TASK12" else lv
+    v_mask = np.ones((b, nv), np.int64)
+    v_mask[1, nv - 2:] = 0
+    target = (np.eye(2, dtype=np.float32)[[0, 1]] if task == "TASK12"
+              else rng.rand(b, nv, 1).astype(np.float32))
+    return {"question": rng.randint(1, 1000, (b, lt)),
+            "features": rng.randn(b, nv, feat).astype(np.float32),
+            "spatials": rng.rand(b, nv, 5).astype(np.float32),
+            "segment_ids": np.zeros((b, lt), np.int64),
+            "input_mask": np.ones((b, lt), np.int64),
+            "image_mask": v_mask, "target": target}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["TASK10", "TASK12"],
+                         ids=["v_logit", "nlvr2"])
+def test_task_heads_on_the_card_equal_the_cpu(cuda_device, task):
+    """ctrl_uniter_base with the V-logit and the NLVR2 head: the nlvr
+    pairing on the card equal to the CPU's bit for bit; the fp32 logits on
+    the card within 1e-4 of the CPU's; in bf16 the padded regions' logits
+    are -10000 rounded to bf16 (-9984) on both."""
+    import copy
+    import os
+
+    from volta_tpu_torch import VoltaForVLTasks
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+    from volta_tpu_torch.models.layers import init_weights
+    from volta_tpu_torch.task_utils import process_batch
+
+    batch = _heads_batch(task)
+    cpu_in, cpu_info = process_batch(
+        HEADS_TASK[task], to_device(batch, "cpu"))
+    card_in, card_info = process_batch(
+        HEADS_TASK[task], to_device(batch, cuda_device))
+    assert card_info == cpu_info
+    for k in cpu_in:
+        assert torch.equal(card_in[k].cpu(), cpu_in[k]), k
+    if task == "TASK12":
+        assert torch.equal(card_in["input_ids"][0::2],
+                           card_in["input_ids"][1::2])
+    for dtype in ("float32", "bfloat16"):
+        cfg = VoltaConfig.from_json_file(os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "configs", "ctrl_uniter_base.json"))
+        cfg.compute_dtype = dtype
+        model = VoltaForVLTasks(cfg, HEADS_TASK, (task,))
+        init_weights(model, torch.Generator().manual_seed(3))
+        cpu = make_task_eval_step(model.eval(), HEADS_TASK, task)(batch)
+        card_model = copy.deepcopy(model).to(cuda_device)
+        card = make_task_eval_step(card_model, HEADS_TASK, task)(batch)
+        got, want = card["prediction"].cpu(), cpu["prediction"]
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        if dtype == "float32":
+            assert float((got - want).abs().max()) <= 1e-4
+        elif task == "TASK10":
+            pad = torch.from_numpy(batch["image_mask"] == 0)
+            for pred in (got, want):
+                assert torch.equal(pred[..., 0][pad], torch.full(
+                    (int(pad.sum()),), -9984.0, dtype=torch.bfloat16))
+        del card_model

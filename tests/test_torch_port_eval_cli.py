@@ -64,7 +64,7 @@ def workdir(tmp_path_factory):
     return dict(tmp=tmp, vocab=vocab, model_cfg=model_cfg, yml=yml, cfg=cfg)
 
 
-def _jax_eval(w):
+def _jax_eval(w, task="1"):
     """The JAX eval step over the eval loader, with the Flax init of the
     root eval_task.py (PRNGKey(0) on the first batch)."""
     import eval_task as jax_cli
@@ -74,18 +74,19 @@ def _jax_eval(w):
                               split="", in_memory=False, num_workers=0,
                               batch_size=4)
     cfg = w["cfg"]
+    key = "TASK" + task
     task_cfg = load_task_config(w["yml"])
-    tc = task_cfg["TASK1"]
-    data = load_dataset_eval(args, cfg, task_cfg, "1")
-    model = JaxVLTasks(cfg, task_cfg, ("TASK1",))
+    tc = task_cfg[key]
+    data = load_dataset_eval(args, cfg, task_cfg, task)
+    model = JaxVLTasks(cfg, task_cfg, (key,))
     inputs, _ = process_batch(tc, next(iter(data["loader"])))
     variables = jax.jit(lambda r: model.init(
         r, np.asarray(inputs["input_ids"]), np.asarray(inputs["image_feat"]),
-        np.asarray(inputs["image_loc"]), "TASK1",
+        np.asarray(inputs["image_loc"]), key,
         np.asarray(inputs["token_type_ids"]),
         np.asarray(inputs["attention_mask"]),
         np.asarray(inputs["image_attention_mask"])))(jax.random.PRNGKey(0))
-    step = make_task_eval_step(model, task_cfg, "TASK1")
+    step = make_task_eval_step(model, task_cfg, key)
     results, loss, score, n = [], 0.0, 0.0, 0
     for batch in data["loader"]:
         out = step(variables["params"], batch)
@@ -113,6 +114,96 @@ def test_port_cli_writes_the_jax_answers(workdir):
         port_results = json.load(f)
     assert summary["out_file"].endswith("train_result.json")
     assert len(port_results) == 10 and summary["n"] == 10
+    assert port_results == jax_results
+    assert summary["nonfinite_batches"] == 0
+    np.testing.assert_allclose(summary["loss"], jax_loss, rtol=1e-5)
+    np.testing.assert_allclose(summary["score"], jax_score, rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def task_workdir(workdir):
+    """NLVR2 (TASK12) and refcoco+ (TASK10) dataroots in the reference's
+    formats, written by ``tools/make_synth_data.py``'s generators at a tiny
+    size, and a yml holding both beside TASK1."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_data", os.path.join(REPO, "tools", "make_synth_data.py"))
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    tmp = workdir["tmp"]
+    roots = {}
+    for name, kw in (("nlvr2", dict(questions=6)),
+                     ("refcoco", dict(refs_per_image=2))):
+        roots[name] = os.path.join(tmp, name)
+        getattr(synth, f"gen_{name}")(argparse.Namespace(
+            out=roots[name], images=3, boxes=5, feat_dim=32, seed=0, **kw))
+    with open(workdir["yml"]) as f:
+        text = f.read()
+    text += f"""TASK12:
+  name: NLVR2
+  type: VL-binary-classifier
+  num_labels: 2
+  loss: BCEWithLogitLoss
+  process: nlvr
+  dataroot: {roots["nlvr2"]}
+  features_h5path1: {roots["nlvr2"]}/features.lmdb
+  features_h5path2: ''
+  train_annotations_jsonpath: ''
+  val_annotations_jsonpath: ''
+  max_seq_length: 14
+  max_region_num: 6
+  batch_size: 4
+  eval_batch_size: 4
+  train_split: train
+  val_split: train
+TASK10:
+  name: refcoco+
+  type: V-logit
+  loss: BCEWithLogitLoss
+  process: normal
+  dataroot: {roots["refcoco"]}
+  features_h5path1: {roots["refcoco"]}/refcoco+_feat.lmdb
+  features_h5path2: ''
+  train_annotations_jsonpath: ''
+  val_annotations_jsonpath: ''
+  max_seq_length: 10
+  max_region_num: 6
+  batch_size: 4
+  eval_batch_size: 4
+  train_split: train
+  val_split: train
+"""
+    yml = os.path.join(tmp, "tasks_heads.yml")
+    with open(yml, "w") as f:
+        f.write(text)
+    return dict(workdir, yml=yml)
+
+
+@pytest.mark.parametrize("task,n", [("12", 6), ("10", 6)],
+                         ids=["nlvr2", "refcoco+"])
+def test_port_cli_writes_the_jax_task_records(task_workdir, task, n):
+    """The port's eval CLI on an NLVR2 and a refcoco+ dataroot writes the
+    records of the root eval_task.py's ``collect_results`` for the same
+    weights."""
+    w = task_workdir
+    params, jax_results, jax_loss, jax_score = _jax_eval(w, task)
+    weights = os.path.join(w["tmp"], f"port_weights_{task}.pt")
+    torch.save(state_dict_from_flax(params), weights)
+    summary = port_eval.main([
+        "--config_file", w["model_cfg"], "--tasks_config_file", w["yml"],
+        "--task", task, "--vocab_file", w["vocab"],
+        "--from_pretrained", weights,
+        "--output_dir", os.path.join(w["tmp"], f"port_results_{task}"),
+        "--num_workers", "0", "--compute_dtype", "float32",
+        "--device", "cpu"])
+    with open(summary["out_file"]) as f:
+        port_results = json.load(f)
+    assert summary["out_file"].endswith("train_result.json")
+    assert len(port_results) == summary["n"] == n
+    keys = {"12": ["answer", "question_id"], "10": ["IOU", "id", "target"]}
+    assert all(sorted(r) == keys[task] for r in port_results)
+    # V-logit records carry a float IoU that JSON writes in full
     assert port_results == jax_results
     assert summary["nonfinite_batches"] == 0
     np.testing.assert_allclose(summary["loss"], jax_loss, rtol=1e-5)

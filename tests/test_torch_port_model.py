@@ -232,6 +232,9 @@ def test_unported_configs_raise():
     cfg = dataclasses.replace(small_cfg(), use_scan=True)
     with pytest.raises(NotImplementedError, match="use_scan"):
         VoltaForVLTasks(cfg, TASK_CFG, ("TASK1",))
-    with pytest.raises(NotImplementedError, match="VL-logit"):
-        VoltaForVLTasks(small_cfg(), {"TASK8": {"type": "VL-logit"}},
+    # every head type of the JAX module is ported; an unknown one raises
+    # as the JAX module's does
+    VoltaForVLTasks(small_cfg(), {"TASK8": {"type": "VL-logit"}}, ("TASK8",))
+    with pytest.raises(ValueError, match="Undefined task type: VL-other"):
+        VoltaForVLTasks(small_cfg(), {"TASK8": {"type": "VL-other"}},
                         ("TASK8",))

@@ -89,6 +89,89 @@ def test_two_epochs_validate_and_checkpoint(workdir):
     assert summary["score"] == pytest.approx(out["best_score"], abs=1e-9)
 
 
+TASK_YML = """TASK{task}:
+  name: {name}
+  type: {type}
+  loss: {loss}
+  process: {process}
+  dataroot: {root}
+  features_h5path1: {feat}
+  features_h5path2: ''
+  train_annotations_jsonpath: {ann}
+  val_annotations_jsonpath: {ann}
+  max_seq_length: 12
+  max_region_num: 6
+  batch_size: 4
+  eval_batch_size: 4
+  train_split: train
+  val_split: {val}
+  lr: 0.001
+"""
+
+
+@pytest.mark.parametrize("kind", ["nlvr2", "refcoco", "retrieval"])
+def test_task_heads_train_validate_and_checkpoint(workdir, kind):
+    """One epoch of the NLVR2, RefCOCO+ and Flickr30k-retrieval heads on
+    dataroots of ``tools/make_synth_data.py``'s formats: the VAL line and
+    the checkpoints; the eval CLI scores the best NLVR2 and RefCOCO+
+    checkpoint as the validation that chose it did (retrieval's eval split
+    is ``RetrievalDatasetVal``'s gallery, which ``eval_retrieval.py``
+    reads)."""
+    import argparse
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_data", os.path.join(REPO, "tools", "make_synth_data.py"))
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    tmp = workdir["tmp"]
+    root = os.path.join(tmp, kind)
+    getattr(synth, f"gen_{kind}")(argparse.Namespace(
+        out=root, images=4, boxes=5, feat_dim=32, seed=0, questions=8,
+        refs_per_image=2, sentences=2))
+    task, fields = {
+        "nlvr2": ("12", dict(name="NLVR2", type="VL-binary-classifier",
+                             loss="BCEWithLogitLoss", process="nlvr",
+                             feat=f"{root}/features.lmdb", ann="''",
+                             val="train")),
+        "refcoco": ("10", dict(name="refcoco+", type="V-logit",
+                               loss="BCEWithLogitLoss", process="normal",
+                               feat=f"{root}/refcoco+_feat.lmdb", ann="''",
+                               val="train")),
+        "retrieval": ("8", dict(
+            name="RetrievalFlickr30k", type="VL-logit",
+            loss="CrossEntropyLoss", process="retrieval",
+            feat=fixtures.make_features_lmdb(
+                root, [1000000 + i for i in range(4)], feature_size=32),
+            ann=f"{root}/all_data_final_test_set0_2014.jsonline",
+            val="val"))}[kind]
+    yml = os.path.join(root, "tasks.yml")
+    with open(yml, "w") as f:
+        f.write(TASK_YML.format(task=task, root=root, **fields))
+    base = workdir["base"][:]
+    base[base.index("--tasks_config_file") + 1] = yml
+    base[base.index("--task") + 1] = task
+    out = port_train.main(base + [
+        "--output_dir", os.path.join(root, "save"),
+        "--logdir", os.path.join(root, "logs"), "--num_train_epochs", "1"])
+    assert out["steps"] == 2  # 8 items at batch 4
+    assert all(l == l and l < 1e4 for l in out["train_losses"])
+    with open(os.path.join(out["log_dir"], "out.txt")) as f:
+        lines = [l for l in f if " VAL epoch " in l]
+    assert [l.split(" VAL ")[1].split()[:3] for l in lines] == [
+        ["epoch", "0", f"TASK{task}"]]
+    for d in ("ckpt", "best"):
+        assert os.path.isfile(os.path.join(out["run_dir"], d,
+                                           "train_state.pt"))
+    if kind == "retrieval":
+        return
+    summary = port_eval.main(base + [
+        "--from_pretrained", os.path.join(out["run_dir"], "best"),
+        "--output_dir", os.path.join(root, "results")])
+    assert summary["n"] == 8
+    assert summary["score"] == pytest.approx(out["best_score"], abs=1e-9)
+
+
 @pytest.mark.parametrize("flag", [
     ["--device_store"], ["--gradient_accumulation_steps", "2"],
     ["--optim", "RAdam"], ["--optimizer_state_dtype", "bfloat16"],

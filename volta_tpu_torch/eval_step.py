@@ -23,9 +23,10 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def make_task_eval_step(model, task_cfg: Dict, task_id: str) -> Callable:
-    """``step(batch) -> {loss, score, batch_size, prediction}``: the batch
-    goes to the model's device and through the model under
-    ``torch.inference_mode()``; loss and score stay on the device."""
+    """``step(batch) -> {loss, score, batch_size, prediction, info}``: the
+    batch goes to the model's device and through the model under
+    ``torch.inference_mode()``; loss and score stay on the device; ``info``
+    is ``process_batch``'s (the sizes ``collect_results`` reads)."""
     tc = task_cfg[task_id]
     ttype, loss_name = tc["type"], tc.get("loss", "BCEWithLogitLoss")
     device = next(model.parameters()).device
@@ -41,6 +42,7 @@ def make_task_eval_step(model, task_cfg: Dict, task_id: str) -> Callable:
             loss, score = task_loss_and_score(ttype, pred, batch, info,
                                               loss_name)
         return {"loss": loss, "score": score,
-                "batch_size": info["batch_size"], "prediction": pred}
+                "batch_size": info["batch_size"], "prediction": pred,
+                "info": info}
 
     return step

@@ -1,6 +1,7 @@
 """Evaluate a model of the port on a task split and dump its predictions.
 
-Counterpart of the root ``eval_task.py`` for the VL-classifier path:
+Counterpart of the root ``eval_task.py`` for every task type of the port's
+``VoltaForVLTasks``:
 
     python -m volta_tpu_torch.eval_task --config_file configs/ctrl_uniter_base.json \
         --tasks_config_file config_tasks/ctrl_trainval_tasks.yml --task 1 \
@@ -58,9 +59,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def collect_results(task_type, prediction, batch, dataset, results):
-    """Prediction records for the VL-classifier heads
-    (reference: volta/task_utils.py:540-616)."""
+def collect_results(task_type, prediction, batch, info, dataset, results):
+    """Prediction records per task type, as the root ``eval_task.py``
+    writes them (reference: volta/task_utils.py:540-616); ``info`` is
+    ``process_batch``'s."""
     pred = np.asarray(prediction)
     qids = np.asarray(batch["question_id"])
     if task_type == "VL-classifier":
@@ -72,8 +74,30 @@ def collect_results(task_type, prediction, batch, dataset, results):
             true_qid = dataset.entries[int(qid)]["question_id"]
             results.append({"questionId": str(true_qid),
                             "prediction": dataset.label2ans[int(row)]})
-    else:
-        raise NotImplementedError(f"task type {task_type!r} is not ported")
+    elif task_type == "VL-logit":
+        logit = pred.reshape(info["batch_size"], info["num_options"])
+        probs = np.exp(logit - logit.max(1, keepdims=True))
+        probs /= probs.sum(1, keepdims=True)
+        for qid, row in zip(qids, probs):
+            results.append({"question_id": int(qid),
+                            "answer": [float(p) for p in row]})
+    elif task_type == "V-logit-mc":
+        # the candidate logits among the 101.. trailing region slots and
+        # the chosen candidate's index (reference: volta/task_utils.py:595-606)
+        mc = np.asarray(batch["multi_choice_ids"])
+        logit = np.take_along_axis(pred[:, 101:, 0], mc, 1)
+        for qid, s in zip(qids, logit.argmax(1)):
+            results.append({"id": int(qid), "target": int(s)})
+    elif task_type.startswith("V-logit"):
+        sel = pred[..., 0].argmax(1)
+        tgt = np.asarray(batch["target"])[..., 0]
+        picked = np.take_along_axis(tgt, sel[:, None], 1)[:, 0]
+        for qid, s, iou in zip(qids, sel, picked):
+            results.append({"id": int(qid), "target": int(s),
+                            "IOU": float(iou)})
+    else:  # binary / tri classifiers
+        for qid, row in zip(qids, pred.argmax(1)):
+            results.append({"question_id": int(qid), "answer": int(row)})
     return results
 
 
@@ -133,7 +157,7 @@ def main(argv=None):
         # the predictions are the output, so they come to the host per batch
         pred = out["prediction"].float().cpu().numpy()
         nonfinite += int(not np.isfinite(pred).all())
-        collect_results(tc["type"], pred, batch, ds, results)
+        collect_results(tc["type"], pred, batch, out["info"], ds, results)
         total_loss += float(out["loss"])
         total_score += float(out["score"])
         total_n += int(out["batch_size"])

@@ -1,5 +1,7 @@
 """Fine-tuning losses. Counterpart of ``volta_tpu/losses.py``; only the
-binary cross-entropy of the VQA path is ported so far."""
+binary cross-entropy of the fine-tuning heads is ported so far (the cross
+entropy of the VL-logit and tri-classifier heads is ``task_utils``'s, as
+in the JAX package)."""
 
 from __future__ import annotations
 

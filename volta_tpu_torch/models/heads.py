@@ -1,4 +1,4 @@
-"""Poolers and the VQA classifier.
+"""Poolers and the classifier of the VQA and NLVR2 heads.
 
 Counterpart of ``volta_tpu/models/heads.py`` (heads.py:27-67,118-171):
 ``TextPooler``, ``ImagePooler``, ``fuse_pooled`` and ``SimpleClassifier``.

@@ -1,14 +1,22 @@
 """Backbone and task wrapper.
 
 Counterpart of ``volta_tpu/models/model.py``: ``VoltaModel`` (model.py:30-108)
-with the shared-embedding branch, and ``VoltaForVLTasks`` (:156-246) with the
-``VL-classifier`` / ``VL-classifier-GQA`` heads. ``module.training`` decides
+with the shared-embedding branch, ``VLogitMLP`` (:140-151) and
+``VoltaForVLTasks`` (:156-246) with every head type of the JAX module:
+``VL-classifier`` / ``VL-classifier-GQA`` and ``VL-binary-classifier``
+(``SimpleClassifier``, the binary one over the two images' pooled outputs
+side by side), ``VL-tri-classifier`` and ``VL-logit`` (one ``Dense``), and
+``V-logit`` / ``V-logit-mc`` (a ``Dense`` or, with ``num_clf_layers: 2``,
+``VLogitMLP``, over the region outputs, padding regions penalised by
+-10000 in the logits' dtype). ``module.training`` decides
 whether dropout runs: in eval mode the forward is the JAX package's
 ``deterministic=True`` path; in training mode every dropout site of the JAX
 train path runs, each with its own uint32 seed from ``DropoutSeeds`` over
-the forward's ``dropout_seed``. Submodule names follow the Flax tree
-(``bert.embeddings``, ``bert.encoder``, ``bert.t_pooler``, ``clf_TASK1``) so
-that ``convert.state_dict_from_flax`` is a plain walk.
+the forward's ``dropout_seed``, drawn in call order: the encoder's, the
+pooled output's, then the region outputs' and ``VLogitMLP``'s. Submodule
+names follow the Flax tree (``bert.embeddings``, ``bert.encoder``,
+``bert.t_pooler``, ``clf_TASK1``, ``clf_TASK10.dense1``) so that
+``convert.state_dict_from_flax`` is a plain walk.
 """
 
 from __future__ import annotations
@@ -22,8 +30,9 @@ from ..config import VoltaConfig
 from ..ops.attention import additive_mask
 from .embeddings import build_embeddings
 from .encoder import GatedEncoder
+from .embeddings import compute_dtype
 from .heads import ImagePooler, SimpleClassifier, TextPooler, fuse_pooled
-from .layers import DropoutSeeds, hash_dropout, site_seed
+from .layers import Dense, DropoutSeeds, gelu, hash_dropout, site_seed
 
 
 class VoltaModel(nn.Module):
@@ -71,13 +80,56 @@ class VoltaModel(nn.Module):
         return seq_t, seq_v, pooled_t, pooled_v
 
 
+class VLogitMLP(nn.Module):
+    """2-layer V-logit head: dense -> gelu -> dropout -> dense to one logit
+    a region (reference: volta/encoders.py:1141-1147). Its dropout runs at
+    ``v_attention_probs_dropout_prob`` in training mode."""
+
+    def __init__(self, cfg: VoltaConfig):
+        super().__init__()
+        std, dt = cfg.initializer_range, compute_dtype(cfg)
+        self.rate = cfg.v_attention_probs_dropout_prob
+        self.dense1 = Dense(cfg.v_hidden_size, cfg.v_hidden_size, std, dt)
+        self.dense2 = Dense(cfg.v_hidden_size, 1, std, dt)
+
+    def forward(self, x, seeds=None):
+        x = gelu(self.dense1(x))
+        seed = site_seed(self, self.rate, seeds)
+        if seed is not None:
+            x = hash_dropout(x, seed, self.rate)
+        return self.dense2(x)
+
+
+def build_head(cfg: VoltaConfig, tc: Dict[str, Any]) -> nn.Module:
+    """The classifier of one task config ``tc`` (volta_tpu/models/model.py
+    :176-195); an unknown type raises ``ValueError``."""
+    ttype, std, dt = tc["type"], cfg.initializer_range, compute_dtype(cfg)
+    if ttype in ("VL-classifier", "VL-classifier-GQA"):
+        return SimpleClassifier(cfg, cfg.pooler_size, cfg.clf_hidden_size,
+                                tc["num_labels"])
+    if ttype == "VL-binary-classifier":
+        # the two images of a pair side by side
+        return SimpleClassifier(cfg, 2 * cfg.pooler_size,
+                                cfg.clf_hidden_size, 2)
+    if ttype == "VL-tri-classifier":
+        return Dense(cfg.pooler_size, 3, std, dt)
+    if ttype == "VL-logit":
+        return Dense(cfg.pooler_size, 1, std, dt)
+    if ttype.startswith("V-logit"):
+        if tc.get("num_clf_layers", 1) == 2:
+            return VLogitMLP(cfg)
+        return Dense(cfg.v_hidden_size, 1, std, dt)
+    raise ValueError(f"Undefined task type: {ttype}")
+
+
 class VoltaForVLTasks(nn.Module):
     """Task wrapper with one classifier per task
     (reference: volta/encoders.py:1117-1206). ``task_cfg`` maps task ids to
-    dicts with ``type`` and ``num_labels``; ``task_ids`` are the tasks to
-    build heads for. Returns the prediction logits. The pooled output gets
-    dropout at ``dropout_prob`` (0.1, fixed as in the JAX module) in
-    training mode."""
+    dicts with ``type`` (and ``num_labels`` / ``num_clf_layers`` where they
+    apply); ``task_ids`` are the tasks to build heads for. Returns the
+    prediction logits. In training mode the pooled output, and for the
+    V-logit heads the region outputs, get dropout at ``dropout_prob`` (0.1,
+    fixed as in the JAX module)."""
 
     def __init__(self, cfg: VoltaConfig, task_cfg: Dict[str, Any],
                  task_ids: Sequence[str], dropout_prob: float = 0.1):
@@ -87,14 +139,8 @@ class VoltaForVLTasks(nn.Module):
         self.dropout_prob = dropout_prob
         self.bert = VoltaModel(cfg)
         for task_id in task_ids:
-            tc = task_cfg[task_id]
-            if tc["type"] not in ("VL-classifier", "VL-classifier-GQA"):
-                raise NotImplementedError(
-                    f"task type {tc['type']!r} is not ported yet (ROADMAP.md "
-                    "Queue 1, eval path)")
-            self.add_module(f"clf_{task_id}", SimpleClassifier(
-                cfg, cfg.pooler_size, cfg.clf_hidden_size,
-                tc["num_labels"]))
+            self.add_module(f"clf_{task_id}",
+                            build_head(cfg, task_cfg[task_id]))
 
     def forward(self, input_ids, image_feat, image_loc, task_id: str,
                 token_type_ids=None, attention_mask=None,
@@ -103,11 +149,36 @@ class VoltaForVLTasks(nn.Module):
         dropout site needs it) seeds the forward's dropout sites."""
         seeds = DropoutSeeds(dropout_seed) \
             if self.training and dropout_seed is not None else None
-        _, _, pooled_t, pooled_v = self.bert(
+        _, seq_v, pooled_t, pooled_v = self.bert(
             input_ids, image_feat, image_loc, token_type_ids, attention_mask,
             image_attention_mask, seeds)
-        pooled = fuse_pooled(self.cfg, pooled_t, pooled_v)
+        ttype = self.task_cfg[task_id]["type"]
+        clf = getattr(self, f"clf_{task_id}")
+        # the pooled output's site draws its seed on every path, so the
+        # sites after it keep theirs; a V-logit head does not read the
+        # pooled output, so its dropout is not run (XLA drops it from the
+        # JAX step as dead code)
         seed = site_seed(self, self.dropout_prob, seeds)
-        if seed is not None:
+        if ttype.startswith("V-logit"):
+            seed = site_seed(self, self.dropout_prob, seeds)
+            if seed is not None:
+                seq_v = hash_dropout(seq_v, seed, self.dropout_prob)
+            logit = clf(seq_v, seeds) if isinstance(clf, VLogitMLP) \
+                else clf(seq_v)
+            if image_attention_mask is None:
+                image_attention_mask = torch.ones(
+                    image_feat.shape[:2], dtype=torch.float32,
+                    device=logit.device)
+            # in the logits' dtype, as the JAX module builds it: -10000 is
+            # -9984 in bf16
+            mask_pen = ((1.0 - image_attention_mask.to(logit.dtype))
+                        * -10000.0)[..., None]
+            return logit + mask_pen
+        pooled = fuse_pooled(self.cfg, pooled_t, pooled_v)
+        if seed is not None and pooled is not None:
             pooled = hash_dropout(pooled, seed, self.dropout_prob)
-        return getattr(self, f"clf_{task_id}")(pooled)
+        if ttype == "VL-binary-classifier":
+            # NLVR2: the two images of a pair are consecutive rows; fuse
+            # their pooled outputs (reference: volta/encoders.py:1200-1202)
+            pooled = pooled.reshape(-1, pooled.shape[-1] * 2)
+        return clf(pooled)

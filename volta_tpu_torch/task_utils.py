@@ -1,9 +1,11 @@
-"""Task configs, eval datasets, batch reshapes and the VQA loss and score.
+"""Task configs, datasets, batch reshapes and every task type's loss and
+score.
 
-JAX-free counterpart of ``volta_tpu/task_utils.py`` (task_utils.py:27-165,
-173-236, 272-293), which imports JAX at the top and so cannot be imported
-here. The datasets, readers and loader are the port's copies in ``data/``.
-Only the ``normal`` process and the VL-classifier loss are ported so far.
+JAX-free counterpart of ``volta_tpu/task_utils.py`` (task_utils.py:27-232,
+272-329), which imports JAX at the top and so cannot be imported here. The
+datasets, readers and loader are the port's copies in ``data/``. All five
+processes (``normal``, ``expand``, ``retrieval``, ``nlvr``, ``dialog``)
+and the losses and scores of every head type are ported.
 """
 
 from __future__ import annotations
@@ -138,22 +140,74 @@ def load_dataset_eval(args, cfg, task_cfg: Dict[str, Any], task_id: str):
             "loader": loader}
 
 
+def _flat2(x):
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
 def process_batch(task_cfg: Dict[str, Any], batch: Dict[str, Any]
                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """The task's ``process`` reshape; returns (model_inputs, info). Only
-    ``normal`` (no reshape) is ported."""
+    """The task's ``process`` reshape (volta_tpu/task_utils.py:169-232) on
+    a batch of tensors; returns (model_inputs, info), where info carries the
+    sizes the loss needs (``batch_size``, ``num_options``)."""
     process = task_cfg.get("process", "normal")
-    if process != "normal":
-        raise NotImplementedError(
-            f"process {process!r} is not ported yet (ROADMAP.md Queue 1, "
-            "eval path)")
-    feats = batch["features"]
+    feats, spatials = batch["features"], batch["spatials"]
+    image_mask = batch["image_mask"]
+    question = batch["question"]
+    input_mask, segment_ids = batch["input_mask"], batch["segment_ids"]
     info = {"batch_size": feats.shape[0], "num_options": 1}
-    inputs = dict(input_ids=batch["question"], image_feat=feats,
-                  image_loc=batch["spatials"],
-                  token_type_ids=batch["segment_ids"],
-                  attention_mask=batch["input_mask"],
-                  image_attention_mask=batch["image_mask"])
+
+    if process == "expand":
+        # one image tiled over the question options (VCR)
+        # reference: volta/task_utils.py:185-208
+        num_options = question.shape[1]
+
+        def tile(x):
+            return x[:, None].expand((x.shape[0], num_options)
+                                     + tuple(x.shape[1:])).reshape(
+                (-1,) + tuple(x.shape[1:]))
+        feats, spatials, image_mask = map(tile, (feats, spatials,
+                                                 image_mask))
+        question, input_mask, segment_ids = map(
+            _flat2, (question, input_mask, segment_ids))
+        info["num_options"] = num_options
+    elif process == "retrieval":
+        # flatten the 4-way pos/neg dim (reference: volta/task_utils.py:210-218)
+        info["num_options"] = question.shape[1]
+        feats, spatials, image_mask, question, input_mask, segment_ids = map(
+            _flat2, (feats, spatials, image_mask, question, input_mask,
+                     segment_ids))
+    elif process == "nlvr":
+        # split 2x36 regions into two images, duplicate the sentence
+        # (reference: volta/task_utils.py:220-232); the two images of a pair
+        # stay consecutive rows, which the binary head reads as one row
+        b = feats.shape[0]
+        feats = feats.reshape(b * 2, feats.shape[1] // 2, feats.shape[2])
+        spatials = spatials.reshape(b * 2, spatials.shape[1] // 2,
+                                    spatials.shape[2])
+        image_mask = image_mask.reshape(b * 2, image_mask.shape[1] // 2)
+        question, input_mask, segment_ids = (
+            torch.repeat_interleave(x, 2, dim=0)
+            for x in (question, input_mask, segment_ids))
+    elif process == "dialog":
+        # rounds x options expansion (reference: volta/task_utils.py:149-183)
+        nround, num_options = question.shape[1], question.shape[2]
+        b = feats.shape[0]
+
+        def tile(x):
+            return x[:, None, None].expand(
+                (b, nround, num_options) + tuple(x.shape[1:])).reshape(
+                (-1,) + tuple(x.shape[1:]))
+        feats, spatials, image_mask = map(tile, (feats, spatials,
+                                                 image_mask))
+        question = question.reshape(-1, question.shape[-1])
+        input_mask = input_mask.reshape(-1, input_mask.shape[-1])
+        segment_ids = segment_ids.reshape(-1, segment_ids.shape[-1])
+        info["num_options"] = num_options
+        info["batch_size"] = b * nround
+
+    inputs = dict(input_ids=question, image_feat=feats, image_loc=spatials,
+                  token_type_ids=segment_ids, attention_mask=input_mask,
+                  image_attention_mask=image_mask)
     return inputs, info
 
 
@@ -164,16 +218,56 @@ def soft_score_with_logits(logits, targets):
     return torch.gather(targets, 1, pred[:, None])[:, 0]
 
 
+def cross_entropy(logits, labels):
+    """Per-row cross entropy, the log-softmax in float32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+
+
 def task_loss_and_score(task_type: str, prediction, batch, info,
                         loss_name: str = "BCEWithLogitLoss"):
-    """Loss and batch score (reference: volta/task_utils.py:238-279); the
-    VL-classifier branch only."""
-    if task_type not in ("VL-classifier", "VL-classifier-GQA"):
-        raise NotImplementedError(
-            f"task type {task_type!r} is not ported yet (ROADMAP.md Queue 1, "
-            "eval path)")
+    """Training loss and batch score per task type
+    (volta_tpu/task_utils.py:279-329; reference:
+    volta/task_utils.py:238-279). An unknown type raises ``ValueError``."""
     target = batch["target"]
-    loss = binary_cross_entropy_with_logits(prediction, target) \
-        * target.shape[1]
-    score = torch.sum(soft_score_with_logits(prediction, target))
+    bsz = info["batch_size"]
+    if task_type in ("VL-classifier", "VL-classifier-GQA"):
+        loss = binary_cross_entropy_with_logits(prediction, target) \
+            * target.shape[1]
+        score = torch.sum(soft_score_with_logits(prediction, target))
+    elif task_type == "VL-logit":
+        logit = prediction.reshape(bsz, info["num_options"])
+        # dialog process delivers [b, rounds] labels; flatten to match the
+        # rounds-expanded rows (reference: volta/task_utils.py:155)
+        tgt = target.reshape(-1).long()
+        loss = torch.mean(cross_entropy(logit, tgt))
+        score = torch.sum(torch.argmax(logit, dim=1) == tgt)
+    elif task_type == "V-logit":
+        loss = binary_cross_entropy_with_logits(prediction, target) \
+            * target.shape[1]
+        sel = torch.argmax(prediction[..., 0], dim=1)
+        picked = torch.gather(target[..., 0], 1, sel[:, None])
+        score = torch.sum(picked > 0.5)
+    elif task_type == "V-logit-mc":
+        # gather candidate boxes among the 101.. trailing region slots
+        # (reference: volta/task_utils.py:261-269)
+        mc = batch["multi_choice_ids"].long()
+        logit = torch.gather(prediction[:, 101:, 0], 1, mc)[..., None]
+        loss = binary_cross_entropy_with_logits(logit, target) \
+            * target.shape[1]
+        score = torch.sum(torch.argmax(logit[..., 0], dim=1)
+                          == torch.argmax(target[..., 0], dim=1))
+    elif task_type == "VL-binary-classifier":
+        loss = binary_cross_entropy_with_logits(prediction, target)
+        score = torch.sum(soft_score_with_logits(prediction, target))
+    elif task_type == "VL-tri-classifier":
+        if loss_name == "CrossEntropyLoss":
+            loss = torch.mean(cross_entropy(prediction, target))
+            score = torch.sum(torch.argmax(prediction, dim=1)
+                              == target.long())
+        else:
+            loss = binary_cross_entropy_with_logits(prediction, target)
+            score = torch.sum(soft_score_with_logits(prediction, target))
+    else:
+        raise ValueError(f"Undefined task type: {task_type}")
     return loss, score

@@ -1,7 +1,7 @@
 """Fine-tune a model of the port on one task, validating every epoch.
 
 Counterpart of the root ``train_task.py`` (its flags :25-98 and its loop
-:100-312) for the VL-classifier path:
+:100-312) for every task type of the port's ``VoltaForVLTasks``:
 
     python -m volta_tpu_torch.train_task --config_file configs/ctrl_uniter_base.json \\
         --tasks_config_file config_tasks/ctrl_trainval_tasks.yml --task 1 \\
