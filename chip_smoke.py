@@ -6,8 +6,10 @@ kernel-drawn hidden-dropout masks (``fuse_hidden_dropout``,
 ``use_pallas_dropout_mask``), the recomputed feed-forwards (``remat_ff``),
 the int-threshold dropout (``use_hash_dropout: false``), the checkpoints
 (reference ``.bin`` export and import, native and reference-tar resume),
-the two matmul decision probes, and the NLVR2, RefCOCO+ and Flickr30k
-retrieval heads of ``ctrl_trainval_tasks.yml``.
+the two matmul decision probes, the NLVR2, RefCOCO+ and Flickr30k
+retrieval heads of ``ctrl_trainval_tasks.yml``, and the plain attention
+route with attention-map capture (``--no_pallas``, ``--dump_attn``), the
+device store, gradient accumulation, freezing and ``embed_clf``.
 
     python3 chip_smoke.py [--profile]
 
@@ -178,25 +180,22 @@ and each of which prints its seconds:
     with each hidden-mask flag;
 15. ``remat_ff``, the int threshold and the checkpoints at b256 bf16:
     (a) the ``remat_ff`` config against the plain one, the same weights and
-    seed, by default and with the LayerNorm flags, under torch's
-    deterministic algorithms: the loss and every gradient of one batch and
-    two train steps bit-equal (outside them the embeddings' backward sums
-    the token-type table's gradient in a run-dependent order: two runs of
-    the plain step differ there, and the phase prints which gradients
-    differ), the exact
+    seed, by default and with the LayerNorm flags, with torch's default
+    algorithms (the token-type table sums its gradient in a fixed order):
+    the loss and every gradient of one batch and
+    two train steps bit-equal, the exact
     launches a step (the recomputation replays each feed-forward tail: K10,
     or row 12 with the LayerNorm flags, 12 more forward launches); with
     ``use_pallas_dropout_mask`` under ``remat_ff`` row 14 launches none
     (the JAX gate) and the step equals the row-14 step; ms/step and peak
     memory of each in turns, and with ``--profile`` the device time by
     kernel; (b) ``use_hash_dropout: false``: each of the 24 tails' keep
-    fraction 0.9 +- 0.005, the same seed twice bit-equal (deterministic
-    algorithms), no K10 at the
+    fraction 0.9 +- 0.005, the same seed twice bit-equal, no K10 at the
     tails, and with ``use_fused_residual_ln`` the tails on row 12; its
     ms/step against the same weights with hash tails; (c) a model exported
     as a reference ``.bin`` read through the eval CLI's loader into other
-    weights, its b1024 logits bit-equal; under the deterministic
-    algorithms, 4 steps uninterrupted, twice, against 2 steps, the train
+    weights, its b1024 logits bit-equal; 4 steps uninterrupted, twice,
+    against 2 steps, the train
     state saved, fresh objects, restored and 2 more, and the same through
     a reference tar: parameters, moments, losses, counts and generator
     bit-equal (or, where the two uninterrupted runs differ, no further
@@ -225,7 +224,34 @@ and each of which prints its seconds:
     attention sums), answers flipped reported; eval items/s at that batch
     and train ms/step with its peak memory in bf16, and the train step's
     device time by kernel;
-17. the kernels' JSON line (the attention rows also with ``body``, the
+17. capture, the plain attention route and the rest of the train CLI at
+    ctrl_uniter_base's full width: (a) the eval CLI on VQA at b64 with
+    ``--dump_attn 2``: the npz keys and shapes, every probability row
+    (intra ‖ inter) summing to 1 within 1e-3, the maps within 1e-4 of a
+    float64 softmax of the captured queries and keys with the batch's
+    padding bias, row 1 12 times a batch and no attention kernel in the
+    capture forwards, and the capture route's answers held to the kernel
+    route's twins as phase 9 holds the kernels, with no more answers
+    flipped against the kernels' than the twins flip against float64
+    sums; (b) ``--no_pallas``: the
+    eval CLI and a train epoch (4 steps at b256) launch no attention or
+    LayerNorm kernel and K10 27 + 27 a step, the plain route's b256 logits
+    held to the twins likewise, and its train ms/step and peak memory
+    beside the kernel route's in turns (with ``--profile`` its device time
+    by kernel family); (c) K = 2 accumulation over two
+    b128 halves against the b256 step, fp32 dropout-free: parameters
+    within 1e-5, one update on both; (d) a VQA b256 and an NLVR2 b64 step
+    from the device store bit-equal to the dense-batch step, the store's
+    GiB; (e) ``fixed_layers``: frozen parameters moved by exactly the
+    decay term (float32 rounding), undecayed ones not at all; (f)
+    ``embed_clf``: ``dense2`` the float64 answer means within 1e-6; (g)
+    two default b256 steps' gradients equal to the bit with torch's
+    default algorithms; (h) one VQA epoch of the train CLI with
+    ``--gradient_accumulation_steps 2 --device_store``, ``fixed_layers``
+    and ``embed_clf``: the default route's launches (K10 27 + 27 a
+    micro-step), one update every two micro-steps, finite losses, the
+    frozen parameters at their decay alone in the saved state;
+18. the kernels' JSON line (the attention rows also with ``body``, the
     body their wrapper runs in bf16; ``pallas`` false for K10, which
     replaces no Pallas kernel; ``bound_by`` "operations" also where the
     hash's integer operations bound a kernel, which phases 6 and 7 name;
@@ -3311,31 +3337,11 @@ def hash_tails(model):
             m.hash_mask = s
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms (warnings printed, not raised):
-    outside them the embeddings' backward sums the token-type table's
-    gradient in an order that changes from run to run on the card
-    (``run_to_run``), so two runs of one step differ there."""
-    import warnings
-
-    import torch
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-    for msg in sorted({str(w.message).split(".")[0] for w in caught}):
-        print(f"  deterministic mode: {msg[:160]}", flush=True)
-
-
 def run_to_run(task_cfg, batch):
     """The parameters whose gradient differs between two runs of the same
-    b256 step outside the deterministic algorithms, with their modules'
-    types: the ops that sum in a run-dependent order."""
+    b256 step with torch's default algorithms, with their modules' types:
+    the ops that sum in a run-dependent order (none since the token-type
+    table sums its gradient in a fixed order)."""
     import torch
 
     runs = []
@@ -3379,12 +3385,10 @@ def remat_steps(task_cfg, batch, plain, remat, counts, what):
         if model.bert.encoder.remat != (tag == "remat_ff"):
             raise RuntimeError(f"{config} built remat="
                                f"{model.bert.encoder.remat}")
-        with deterministic():
-            loss, g = grads(model, task_cfg, batch)
-            state, step = new_step(model, task_cfg, 1e-4)
-            reset_launches()
-            losses = torch.stack([step(state, batch)["loss"]
-                                  for _ in range(2)])
+        loss, g = grads(model, task_cfg, batch)
+        state, step = new_step(model, task_cfg, 1e-4)
+        reset_launches()
+        losses = torch.stack([step(state, batch)["loss"] for _ in range(2)])
         launches = dict(LAUNCHES)
         want = expect(**{k: 2 * c for k, c in counts[tag].items()})
         if launches != want:
@@ -3396,7 +3400,7 @@ def remat_steps(task_cfg, batch, plain, remat, counts, what):
     (l0, g0, s0, p0), (l1, g1, s1, p1) = res["plain"], res["remat_ff"]
     gd, pd = max_diff(g0, g1), max_diff(p0, p1)
     print(f"remat_ff vs plain ({what}), b256 bf16, same weights and seed, "
-          "deterministic algorithms: "
+          "default algorithms: "
           f"loss {l0!r} vs {l1!r}, gradients max abs diff {gd[0]:.3e} "
           f"({gd[1]}), two steps' losses {s0.tolist()} vs {s1.tolist()}, "
           f"params max abs diff {pd[0]:.3e}; launches a step "
@@ -3427,8 +3431,7 @@ def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
     layers.int_threshold_keep = counted
     try:
         model = build_model(task_cfg, "bfloat16", int_thr).train()
-        with deterministic():
-            runs = [grads(model, task_cfg, batch) for _ in range(2)]
+        runs = [grads(model, task_cfg, batch) for _ in range(2)]
         (la, ga), (lb, gb) = runs
         per_forward = len(fractions) // 2
         state, step = new_step(model, task_cfg, 1e-4)
@@ -3443,7 +3446,8 @@ def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
                   **k10(K10_FLAGGED))
     print(f"int threshold (use_hash_dropout false), b256 bf16: {len(fr)} "
           f"tails a step, keep fractions {min(fr):.5f}-{max(fr):.5f}; the "
-          f"same seed twice (deterministic algorithms): loss {la!r} vs {lb!r}, gradients max abs diff "
+          f"same seed twice (default algorithms): loss {la!r} vs {lb!r}, "
+          "gradients max abs diff "
           f"{max_diff(ga, gb)[0]:.3e}; step loss {loss:.4f}, launches "
           f"{launches}", flush=True)
     if per_forward != 24 or len(fr) != 24 or \
@@ -3513,10 +3517,10 @@ def resume_runs(root, task_cfg, batch, k=2):
     """Phase 15 (c): 2k steps uninterrupted, twice, against k steps, the
     port's train state saved, fresh objects, restored and k more; and a
     reference tar of the same state resumed the same way (the generator,
-    which the tar does not hold, given alike); under the deterministic
-    algorithms (``run_to_run`` names what differs outside them):
-    parameters, moments, losses, counts and generator bit-equal, or, where
-    the two uninterrupted runs differ, no further apart than they are."""
+    which the tar does not hold, given alike), with torch's default
+    algorithms: parameters, moments, losses, counts and generator
+    bit-equal, or, where the two uninterrupted runs differ, no further
+    apart than they are."""
     import torch
 
     from volta_tpu_torch import checkpoint as ck
@@ -3537,38 +3541,37 @@ def resume_runs(root, task_cfg, batch, k=2):
     def run(state, step, n):
         return [step(state, batch)["loss"] for _ in range(n)]
 
-    with deterministic():
-        whole = []
-        for _ in range(2):
-            state, step = fresh()
-            whole.append(snapshot(state, run(state, step, 2 * k)))
-            del state, step
+    whole = []
+    for _ in range(2):
         state, step = fresh()
-        first = run(state, step, k)
-        t0 = time.time()
-        ck.save_train_state(os.path.join(root, "resume"), state, 0, 0.0)
-        native_s = time.time() - t0
-        t0 = time.time()
-        ck.save_reference_tar(os.path.join(root, "latest.tar"),
-                              state.model.cfg, state, epoch_id=0)
-        tar_s = time.time() - t0
-        gen = state.generator.get_state()
+        whole.append(snapshot(state, run(state, step, 2 * k)))
         del state, step
-        torch.cuda.empty_cache()
-        resumed = {}
-        state, step = fresh(seed=5)  # other weights, another generator
-        state.generator.manual_seed(99)
-        ck.restore_train_state(os.path.join(root, "resume"), state)
-        resumed["native"] = snapshot(state, first + run(state, step, k))
-        del state, step
-        state, step = fresh(seed=5)
-        ck.resume_from_reference_tar(state.model.cfg, state,
-                                     os.path.join(root, "latest.tar"))
-        state.generator.set_state(gen)
-        resumed["reference tar"] = snapshot(state,
-                                            first + run(state, step, k))
-        del state, step
-        torch.cuda.empty_cache()
+    state, step = fresh()
+    first = run(state, step, k)
+    t0 = time.time()
+    ck.save_train_state(os.path.join(root, "resume"), state, 0, 0.0)
+    native_s = time.time() - t0
+    t0 = time.time()
+    ck.save_reference_tar(os.path.join(root, "latest.tar"),
+                          state.model.cfg, state, epoch_id=0)
+    tar_s = time.time() - t0
+    gen = state.generator.get_state()
+    del state, step
+    torch.cuda.empty_cache()
+    resumed = {}
+    state, step = fresh(seed=5)  # other weights, another generator
+    state.generator.manual_seed(99)
+    ck.restore_train_state(os.path.join(root, "resume"), state)
+    resumed["native"] = snapshot(state, first + run(state, step, k))
+    del state, step
+    state, step = fresh(seed=5)
+    ck.resume_from_reference_tar(state.model.cfg, state,
+                                 os.path.join(root, "latest.tar"))
+    state.generator.set_state(gen)
+    resumed["reference tar"] = snapshot(state,
+                                        first + run(state, step, k))
+    del state, step
+    torch.cuda.empty_cache()
 
     def diff(a, b):
         d = max(max_diff(a[key], b[key])[0] for key in ("params", "mu", "nu"))
@@ -3583,7 +3586,7 @@ def resume_runs(root, task_cfg, batch, k=2):
              for what, f in (("train state", "resume/train_state.pt"),
                              ("reference tar", "latest.tar"))}
     print(f"resume after {k} of {2 * k} steps, b256 bf16 with dropout, "
-          f"deterministic algorithms: train state {sizes['train state']:.2f} "
+          f"default algorithms: train state {sizes['train state']:.2f} "
           f"GiB written in {native_s:.1f} s, reference tar "
           f"{sizes['reference tar']:.2f} GiB in {tar_s:.1f} s; two "
           f"uninterrupted runs differ by {noise:.3e}", flush=True)
@@ -3645,7 +3648,6 @@ def check_remat_int_checkpoints(root, data_dir, yml, task_cfg, batch_np,
                          hash_dropout_bwd=K10_SITES)},
         "use_pallas_dropout_mask")
     int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln)
-    run_to_run(task_cfg, batch)
 
     rates = {}
     for config, what, on, off in (
@@ -3679,6 +3681,557 @@ def check_remat_int_checkpoints(root, data_dir, yml, task_cfg, batch_np,
     del model, state, step
     export_reload(root, data_dir, yml)
     resume_runs(root, task_cfg, batch)
+    return rates
+
+
+@contextlib.contextmanager
+def plain_route(model):
+    """The model's attention on the plain route (``use_pallas`` false at
+    every attention sublayer), the same weights."""
+    from volta_tpu_torch.models.encoder import GatedAttentionSublayer
+
+    subs = [m for m in model.modules()
+            if isinstance(m, GatedAttentionSublayer)]
+    saved = [(m.use_pallas, m.fuse_hidden) for m in subs]
+    for m in subs:
+        m.use_pallas = m.fuse_hidden = False
+    try:
+        yield
+    finally:
+        for m, (up, fh) in zip(subs, saved):
+            m.use_pallas, m.fuse_hidden = up, fh
+
+
+def hold_to_twins(tag, logits, fn, batch, strict=False):
+    """``logits`` (of the same weights on another route) against the twins'
+    of ``fn`` on ``batch``, by phase 9's rule: within NOISE_FACTOR times
+    (at least LOGIT_TOL) the twins' distance from the twins with float64
+    attention sums, and no more than AGREE_SLACK more answers flipped,
+    against the twins' answers and against the kernels'. ``strict``: no
+    more answers flipped against the kernels' than the twins flip against
+    float64 sums, without the slack."""
+    import torch
+
+    with twins():
+        plain = fn(batch)["prediction"].float()
+        with float64_attention():
+            alt = fn(batch)["prediction"].float()
+    kernels = fn(batch)["prediction"].float()
+    noise = float((plain - alt).abs().max())
+    agree_noise = float((alt.argmax(1) == plain.argmax(1)).float().mean())
+    diff = float((logits - plain).abs().max())
+    agree = float((logits.argmax(1) == plain.argmax(1)).float().mean())
+    agree_k = float((logits.argmax(1) == kernels.argmax(1)).float().mean())
+    tol = max(LOGIT_TOL, NOISE_FACTOR * noise)
+    n = logits.shape[0]
+    min_agree = agree_noise - AGREE_SLACK / n
+    flips_k = int((logits.argmax(1) != kernels.argmax(1)).sum())
+    flips_noise = int((alt.argmax(1) != plain.argmax(1)).sum())
+    print(f"logits b{n} ({tag}) vs the kernels' twins: max abs "
+          f"diff {diff:.3e} (tol {tol:.3e}; twins vs float64 sums "
+          f"{noise:.3e}), answers agree {agree:.4f}, with the kernels' "
+          f"{agree_k:.4f} (min {min_agree:.4f}; twins vs float64 sums "
+          f"{agree_noise:.4f}); answers flipped against the kernels' "
+          f"{flips_k} of {n}, the twins against float64 sums {flips_noise}"
+          f"{' (strict: at most that)' if strict else ''}", flush=True)
+    if not bool(torch.isfinite(logits).all()) or diff > tol \
+            or min(agree, agree_k) < min_agree \
+            or (strict and flips_k > flips_noise):
+        raise RuntimeError(f"{tag} logits disagree with the twins")
+
+
+def capture_eval(root, data_dir, yml, power):
+    """Phase 17 (a): the eval CLI on VQA at b64 with ``--dump_attn 2``: the
+    npz keys and shapes, each probability row (intra ‖ inter) summing to 1
+    within 1e-3, the maps equal to a float64 softmax of the captured
+    queries and keys with the batch's padding bias (within 1e-4), no
+    attention kernel launched by the capture forwards (row 1 twelve times
+    a batch, as without the dump), and the capture route's answers held
+    to the kernel route's twins."""
+    import torch
+
+    from volta_tpu_torch import eval_task
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.ops.attention import additive_mask
+
+    # the yml's eval batch is 256; --batch_size applies where it has none
+    yml64 = os.path.join(root, "tasks_b64.yml")
+    with open(yml) as f, open(yml64, "w") as g:
+        g.write("".join(l for l in f if "eval_batch_size" not in l))
+    out_dir = os.path.join(root, "results_capture")
+    argv = ["--config_file", CONFIG, "--tasks_config_file", yml64,
+            "--task", "1", "--vocab_file", os.path.join(data_dir, "vocab.txt"),
+            "--output_dir", out_dir, "--num_workers", "4",
+            "--compute_dtype", "bfloat16", "--device", "cuda", "--seed", "0",
+            "--dump_attn", "2", "--batch_size", "64"]
+    reset_launches()
+    t0 = time.time()
+    summary = eval_task.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(LAUNCHES)
+    n_batches = -(-summary["n"] // 64)
+    print(f"eval_task.main --dump_attn 2 --batch_size 64: {summary['n']} "
+          f"questions in {n_batches} batches, {wall:.1f} s wall (set-up and "
+          f"two npz dumps included) [{power}], launches {launches}",
+          flush=True)
+    if launches != expect(attention_fwd=12 * n_batches):
+        raise RuntimeError(f"capture eval launched {launches}")
+
+    args = eval_task.parse_args(argv)
+    model, task_cfg, task, data = eval_task.setup(args)
+    batches = [b for _, b in zip(range(2), data["loader"])]
+    h, d = 12, 64
+    for bi, batch in enumerate(batches):
+        path = os.path.join(out_dir, f"attn_val_{bi}.npz")
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        lt, lv = batch["question"].shape[1], batch["features"].shape[1]
+        b = batch["question"].shape[0]
+        want = {"question_id": (b,), "row_qid_index": (b,)}
+        for s in range(12):
+            for stream, lq in (("t", lt), ("v", lv)):
+                want[f"s{s:02d}_{stream}_queries"] = (b, h, lq, d)
+                want[f"s{s:02d}_{stream}_keys"] = (b, h, lq, d)
+                want[f"s{s:02d}_{stream}_intra_attn"] = \
+                    (b, h, lq, lt if stream == "t" else lv)
+                want[f"s{s:02d}_{stream}_inter_attn"] = \
+                    (b, h, lq, lv if stream == "t" else lt)
+        got = {k: v.shape for k, v in arrays.items()}
+        if got != want:
+            raise RuntimeError(f"{path}: arrays {got}, expected {want}")
+        if not all(arrays[k].dtype == np.float32 for k in arrays
+                   if k.startswith("s")):
+            raise RuntimeError(f"{path}: maps not float32")
+        bias = additive_mask(torch.from_numpy(np.concatenate(
+            [batch["input_mask"], batch["image_mask"]], 1)), torch.float64)
+        row_err = map_err = 0.0
+        for s in range(12):
+            keys = torch.from_numpy(np.concatenate(
+                [arrays[f"s{s:02d}_t_keys"], arrays[f"s{s:02d}_v_keys"]],
+                2)).double()
+            for stream, intra_first in (("t", True), ("v", False)):
+                a = f"s{s:02d}_{stream}_"
+                intra, inter = arrays[a + "intra_attn"], \
+                    arrays[a + "inter_attn"]
+                probs = np.concatenate([intra, inter] if intra_first
+                                       else [inter, intra], -1)
+                row_err = max(row_err, float(np.abs(
+                    probs.astype(np.float64).sum(-1) - 1.0).max()))
+                q = torch.from_numpy(arrays[a + "queries"]).double()
+                ref = torch.softmax(q @ keys.transpose(-1, -2) / 8.0 + bias,
+                                    -1).numpy()
+                map_err = max(map_err, float(np.abs(probs - ref).max()))
+        print(f"  {path.rsplit('/', 1)[1]}: {len(arrays)} arrays; "
+              f"probability rows sum to 1 within {row_err:.2e} (tol 1e-3); "
+              f"maps vs a float64 softmax of the captured queries and keys "
+              f"{map_err:.2e} (tol 1e-4)", flush=True)
+        if row_err > 1e-3 or map_err > 1e-4:
+            raise RuntimeError(f"{path}: maps off")
+        if not np.array_equal(arrays["question_id"], batch["question_id"]):
+            raise RuntimeError(f"{path}: question ids")
+
+    step = make_task_eval_step(model, task_cfg, task)
+    one = to_device(batches[0], "cuda")
+    from volta_tpu_torch.task_utils import process_batch
+
+    inputs, _ = process_batch(task_cfg[task], one)
+    reset_launches()
+    with torch.inference_mode():
+        logits, extras = model(
+            inputs["input_ids"], inputs["image_feat"], inputs["image_loc"],
+            task, inputs["token_type_ids"], inputs["attention_mask"],
+            inputs["image_attention_mask"], output_probs=True)
+    if dict(LAUNCHES) != expect() or len(extras["probs"]) != 12:
+        raise RuntimeError(f"the capture forward launched {dict(LAUNCHES)}")
+    hold_to_twins("capture route, b64 bf16", logits.float(), step, one,
+                  strict=True)
+    del model
+
+
+def no_pallas_runs(root, data_dir, yml, power, batch_np, profile):
+    """Phase 17 (b): ``--no_pallas``: the eval CLI and one train epoch (4
+    steps at b256) launch no attention kernel and K10 27 + 27 a step; the
+    plain route's b256 logits held to the kernel route's twins; ms/step and
+    peak memory of the plain and the kernel route in turns."""
+    import torch
+
+    from volta_tpu_torch import eval_task, train_task
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import warmup_linear_schedule
+    from volta_tpu_torch.task_utils import load_task_config
+
+    argv = ["--config_file", CONFIG, "--tasks_config_file", yml,
+            "--task", "1", "--vocab_file", os.path.join(data_dir, "vocab.txt"),
+            "--output_dir", os.path.join(root, "results_no_pallas"),
+            "--num_workers", "4", "--compute_dtype", "bfloat16",
+            "--device", "cuda", "--seed", "0", "--no_pallas"]
+    reset_launches()
+    summary = eval_task.main(argv)
+    if dict(LAUNCHES) != expect() or summary["nonfinite_batches"]:
+        raise RuntimeError(f"--no_pallas eval launched {dict(LAUNCHES)}")
+    plain_model = eval_task.setup(eval_task.parse_args(argv))[0]
+    kernel_model, task_cfg, task, data = eval_task.setup(
+        eval_task.parse_args(argv[:-1]))
+    one = to_device(next(iter(data["loader"])), "cuda")
+    plain = make_task_eval_step(plain_model, task_cfg, task)(one)
+    hold_to_twins("--no_pallas eval, b256 bf16",
+                  plain["prediction"].float(),
+                  make_task_eval_step(kernel_model, task_cfg, task), one)
+    del plain_model, kernel_model
+
+    targv = train_argv(root, data_dir, yml, CONFIG, 1, "no_pallas") + \
+        ["--no_pallas"]
+    reset_launches()
+    t0 = time.time()
+    out = train_task.main(targv)
+    torch.cuda.synchronize()
+    steps, losses = out["steps"], out["train_losses"]
+    print(f"train_task.main --no_pallas: {steps} steps at b256, "
+          f"{time.time() - t0:.1f} s wall, losses "
+          f"{[round(l, 4) for l in losses]}, launches {dict(LAUNCHES)}",
+          flush=True)
+    if dict(LAUNCHES) != expect(**k10(K10_SITES * steps)) or \
+            not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"--no_pallas train launched {dict(LAUNCHES)}")
+
+    task_cfg = load_task_config(yml)
+    batch = to_device({k: v for k, v in batch_np.items()
+                       if isinstance(v, np.ndarray)}, "cuda")
+    model = build_model(task_cfg, "bfloat16").train()
+    state, step = new_step(model, task_cfg,
+                           warmup_linear_schedule(1e-4, 10, 1000))
+    rates = step_rates(step, state, batch,
+                       (("plain route", lambda: plain_route(model)),
+                        ("kernel route", contextlib.nullcontext)),
+                       power, "default,")
+    if profile:
+        with plain_route(model):
+            profile_device(lambda: step(state, batch),
+                           rates["plain route"][1], "plain route")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return rates
+
+
+def accumulation_check(task_cfg, batch, free):
+    """Phase 17 (c): K = 2 over the two b128 halves against K = 1 on the
+    b256 batch, fp32, dropout 0, the same weights: after one update the
+    parameters within 1e-5, one update and one schedule tick on both."""
+    import torch
+
+    from volta_tpu_torch.optimization import build_optimizer
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_task_train_step
+
+    out = []
+    for k in (1, 2):
+        # eval mode: no dropout at all (the pooled output's fixed 0.1
+        # would draw other masks for the halves); the step still trains
+        model = build_model(task_cfg, "float32", free).eval()
+        opt = build_optimizer("adamw", 1e-4, model, clip_norm=1.0,
+                              grad_accum_steps=k)
+        state = create_train_state(model, opt, seed=11)
+        step = make_task_train_step(model, opt, task_cfg, "TASK1")
+        n = batch["question"].shape[0] // k
+        for i in range(k):
+            step(state, {key: v[i * n:(i + 1) * n] for key, v in
+                         batch.items()})
+        out.append((params_of(model), state.step, opt.count))
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    (pa, sa, ca), (pb, sb, cb) = out
+    d = max_diff(pa, pb)
+    print(f"gradient accumulation, fp32 dropout 0: K=2 on two b128 halves vs "
+          f"K=1 on b256: params max abs diff {d[0]:.3e} ({d[1]}; tol 1e-5); "
+          f"micro-steps {sb} vs {sa}, updates {cb} vs {ca}", flush=True)
+    if d[0] > 1e-5 or (ca, cb) != (1, 1) or (sa, sb) != (1, 2):
+        raise RuntimeError("K=2 accumulation disagrees with the b256 step")
+
+
+def store_steps(root, data_dir, yml, task_yml, power):
+    """Phase 17 (d): the device store. A VQA b256 step from the store and
+    from the dense batch, the same weights and seed: the loss and every
+    parameter after it equal to the bit; the same for an NLVR2 step at its
+    b64 (the [b, 2] rows); the stores' GiB."""
+    import torch
+
+    from volta_tpu_torch import train_task
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.data.loader import _load_chunk
+    from volta_tpu_torch.task_utils import load_dataset, load_task_config
+    from volta_tpu_torch.train_step import make_task_train_step, \
+        store_to_device
+
+    for task, path, tag in (("1", yml, "VQA"), ("12", task_yml, "NLVR2")):
+        task_cfg = load_task_config(path)
+        key = "TASK" + task
+        args = train_task.parse_args(train_argv(root, data_dir, path, CONFIG,
+                                                1, "store", task))
+        data = load_dataset(args, VoltaConfig.from_json_file(CONFIG),
+                            task_cfg, task, split="train")
+        ds = data["train_dataset"]
+        task_cfg[key].setdefault("num_labels", getattr(ds, "num_labels", 2))
+        idx = np.arange(data["batch_size"])
+        dense = _load_chunk(ds, idx)
+        ds.enable_device_store(feat_dtype="float32")
+        stored = _load_chunk(ds, idx)
+        store = store_to_device(ds.device_store_arrays(), "cuda",
+                                torch.bfloat16)
+        gib = sum(t.numel() * t.element_size()
+                  for t in store.values()) / 2**30
+        runs = []
+        for use_store, b in ((False, dense), (True, stored)):
+            model = build_model(task_cfg, "bfloat16", task=key).train()
+            state, _ = new_step(model, task_cfg, 1e-4, task=key)
+            step = make_task_train_step(model, state.optimizer, task_cfg,
+                                        key, store=store if use_store
+                                        else None)
+            loss = step(state, b)["loss"]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(3):
+                step(state, b)
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) / 3 * 1e3
+            runs.append((loss.cpu(), params_of(model), ms))
+            del model, state, step
+            torch.cuda.empty_cache()
+        (la, pa, ma), (lb, pb, mb) = runs
+        d = max_diff(pa, pb)
+        print(f"device store, {tag} b{len(idx)} bf16: store {gib:.3f} GiB on "
+              f"the card; first step's loss {la.item()!r} (dense) vs "
+              f"{lb.item()!r} (store), params after 4 steps max abs diff "
+              f"{d[0]:.3e}; wall {ma:.2f} vs {mb:.2f} ms/step (dense batch "
+              f"on the host vs rows from the store) [{power}]", flush=True)
+        if not torch.equal(la, lb) or d[0] != 0.0:
+            raise RuntimeError(f"the {tag} store step differs from the "
+                               "dense step")
+        del store
+
+
+def freeze_check(root, task_cfg, batch):
+    """Phase 17 (e): ``fixed_layers`` [embeddings, attn_0]: after one step
+    at lr 1e-2, weight decay 0.1, each frozen parameter that decays stands
+    at p (1 - lr wd) within float32 rounding, each that does not decay
+    where it was, and the others moved."""
+    import torch
+
+    from volta_tpu_torch.optimization import build_optimizer, no_decay_mask
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_task_train_step
+    from volta_tpu_torch.train_utils import apply_freeze, freeze_mask
+
+    fixed = ["embeddings", "attn_0"]
+    config = write_config(root, "ctrl_uniter_base_frozen.json",
+                          fixed_layers=fixed)
+    model = build_model(task_cfg, "bfloat16", config).train()
+    lr, wd = 1e-2, 0.1
+    opt = apply_freeze(build_optimizer("adamw", lr, model, weight_decay=wd,
+                                       clip_norm=1.0), model,
+                       model.cfg.fixed_layers)
+    before = params_of(model)
+    state = create_train_state(model, opt, seed=11)
+    make_task_train_step(model, opt, task_cfg, "TASK1")(state, batch)
+    after = params_of(model)
+    trains, decays = freeze_mask(model, fixed), no_decay_mask(model)
+    worst = still = 0.0
+    moved = 0
+    for n, p in before.items():
+        if trains[n]:
+            moved += not torch.equal(after[n], p)
+            continue
+        if decays[n]:
+            want = p.double() * (1 - lr * wd)
+            worst = max(worst, float(((after[n].double() - want).abs()
+                                      / want.abs().clamp_min(1e-30)).max()))
+        else:
+            still = max(still, float((after[n] - p).abs().max()))
+    n_frozen = sum(not t for t in trains.values())
+    print(f"fixed_layers {fixed}: {n_frozen} frozen parameters; decayed "
+          f"ones at p (1 - lr wd) within {worst:.2e} relative (tol 1e-6), "
+          f"undecayed ones moved {still:.1e} (tol 0); {moved} of "
+          f"{len(trains) - n_frozen} trained parameters moved", flush=True)
+    # a trained tensor stands still only where its whole gradient is 0
+    if worst > 1e-6 or still != 0.0 or moved < 0.9 * (len(trains) -
+                                                      n_frozen):
+        raise RuntimeError("frozen parameters moved by more than their decay")
+    del model, opt, state
+
+
+def embed_clf_check(root, data_dir, yml, task_cfg):
+    """Phase 17 (f): ``embed_clf`` on the VQA answer space (3129 answers)
+    with the classifier as wide as the text (``clf_hidden_size`` 768):
+    ``dense2`` equals a float64 mean of each answer's word-embedding rows,
+    in sorted answer order, within 1e-6."""
+    import torch
+
+    from volta_tpu_torch import train_task
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.task_utils import load_dataset
+    from volta_tpu_torch.train_utils import init_classifier_from_answers
+
+    config = write_config(root, "ctrl_uniter_base_clf768.json",
+                          clf_hidden_size=768)
+    args = train_task.parse_args(train_argv(root, data_dir, yml, config, 1,
+                                            "embed_clf"))
+    ds = load_dataset(args, VoltaConfig.from_json_file(config), task_cfg,
+                      "1", split="train")["train_dataset"]
+    model = build_model(task_cfg, "bfloat16", config)
+    if not init_classifier_from_answers(model, "TASK1", ds):
+        raise RuntimeError("embed_clf did not set dense2")
+    table = model.bert.embeddings.word_embeddings.weight.detach().double()
+    tok = ds._tokenizer
+    means = []
+    for answer, _ in sorted(ds.ans2label.items()):
+        ids = tok.convert_tokens_to_ids(tok.tokenize(answer)) or \
+            tok.convert_tokens_to_ids([tok.unk_token])
+        means.append(table[ids].mean(0))
+    want = torch.stack(means)
+    got = model.clf_TASK1.dense2.weight.detach().double()
+    err = float((got - want).abs().max())
+    print(f"embed_clf: dense2 {tuple(got.shape)} vs the float64 answer "
+          f"means: max abs diff {err:.2e} (tol 1e-6)", flush=True)
+    if err > 1e-6:
+        raise RuntimeError("embed_clf's dense2 is not the answer means")
+    del model
+
+
+def train_cli_extras(root, data_dir, yml, power):
+    """Phase 17 (h): the train CLI's own wiring of accumulation, the store,
+    freezing and ``embed_clf``: one VQA epoch (b256 updates of two b128
+    micro-batches) through ``train_task.main`` with
+    ``--gradient_accumulation_steps 2 --device_store``, a config with ``fixed_layers`` [embeddings] and
+    ``clf_hidden_size`` 768, a task with ``embed_clf``. The default route's
+    exact launches (K10 27 + 27 a micro-step), one update every two
+    micro-steps, finite losses; ``embed_clf`` set ``dense2``; the store
+    was built from the loader's dataset; in the saved state the frozen
+    parameters without decay stand where they started and those with it
+    at their decay alone."""
+    import torch
+
+    from volta_tpu_torch import train_step as ts
+    from volta_tpu_torch import train_task, train_utils
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import no_decay_mask
+    from volta_tpu_torch.task_utils import load_dataset, load_task_config
+
+    fixed = ["embeddings"]
+    config = write_config(root, "ctrl_uniter_base_cli_extras.json",
+                          fixed_layers=fixed, clf_hidden_size=768)
+    clf_yml = os.path.join(root, "tasks_embed_clf.yml")
+    with open(yml) as f, open(clf_yml, "w") as g:
+        g.write(f.read() + "  embed_clf: true\n")
+    argv = train_argv(root, data_dir, clf_yml, config, 1, "cli_extras") + \
+        ["--gradient_accumulation_steps", "2", "--device_store"]
+    # the loader's batch is the task's over K, as in the JAX CLI
+    data = load_dataset(train_task.parse_args(argv),
+                        VoltaConfig.from_json_file(config),
+                        load_task_config(clf_yml), "1")
+    n_val, micro_batch = len(data["val_loader"]), data["batch_size"]
+    del data
+
+    seen = {}
+    real = (train_utils.init_classifier_from_answers,
+            train_utils.apply_freeze, ts.store_to_device)
+
+    def embed_clf(model, task, ds):
+        seen["embed_clf"] = real[0](model, task, ds)
+        return seen["embed_clf"]
+
+    def freeze(opt, model, fixed_layers):
+        seen.update(opt=opt, before=params_of(model),
+                    trains=train_utils.freeze_mask(model, fixed_layers),
+                    decays=no_decay_mask(model))
+        return real[1](opt, model, fixed_layers)
+
+    def store(arrays, device, dtype):
+        out = real[2](arrays, device, dtype)
+        seen["store_gib"] = sum(t.numel() * t.element_size()
+                                for t in out.values()) / 2**30
+        return out
+
+    (train_utils.init_classifier_from_answers, train_utils.apply_freeze,
+     ts.store_to_device) = (embed_clf, freeze, store)
+    try:
+        reset_launches()
+        t0 = time.time()
+        summary = train_task.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        (train_utils.init_classifier_from_answers, train_utils.apply_freeze,
+         ts.store_to_device) = real
+    launches = dict(LAUNCHES)
+    steps, losses = summary["steps"], summary["train_losses"]
+    saved = torch.load(os.path.join(summary["run_dir"], "ckpt",
+                                    "train_state.pt"),
+                       map_location="cpu", weights_only=True)
+    updates = saved["optimizer"]["count"]
+    opt, before = seen["opt"], seen["before"]
+    factor = 1.0
+    worst = still = 0.0
+    for i in range(updates):
+        factor *= 1 - opt.lr(i) * opt.weight_decay
+    for n, trains in seen["trains"].items():
+        if trains:
+            continue
+        was, now = before[n].cpu().double(), saved["model"][n].double()
+        if seen["decays"][n]:
+            worst = max(worst, float(((now - was * factor).abs()
+                                      / (was * factor).abs().clamp_min(
+                                          1e-30)).max()))
+        else:
+            still = max(still, float((now - was).abs().max()))
+    n_frozen = sum(not t for t in seen["trains"].values())
+    print(f"train_task.main --gradient_accumulation_steps 2 --device_store, "
+          f"fixed_layers {fixed}, embed_clf: {steps} micro-steps at "
+          f"b{micro_batch}, "
+          f"{updates} updates, {wall:.1f} s wall (data, store and model "
+          f"set-up included), losses {[round(l, 4) for l in losses]}, store "
+          f"{seen.get('store_gib', 0.0):.3f} GiB, embed_clf set "
+          f"{seen.get('embed_clf')}; {n_frozen} frozen parameters: decayed "
+          f"ones at their decay within {worst:.2e} relative (tol 1e-6), "
+          f"undecayed ones moved {still:.1e} (tol 0); launches {launches} "
+          f"[{power}]", flush=True)
+    want = expect(attention_dropout_fwd=12 * steps,
+                  attention_dropout_bwd=12 * steps,
+                  attention_fwd=12 * n_val, **k10(K10_SITES * steps))
+    if launches != want:
+        raise RuntimeError(f"CLI extras launches {launches}, expected {want}")
+    if steps < 2 or updates != steps // 2 or len(losses) != steps or \
+            not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"{steps} micro-steps, {updates} updates, "
+                           f"losses {losses}")
+    if seen.get("embed_clf") is not True or "store_gib" not in seen:
+        raise RuntimeError("embed_clf or the device store did not apply")
+    if not n_frozen or worst > 1e-6 or still != 0.0:
+        raise RuntimeError("frozen parameters moved by more than their decay")
+    seen.clear()
+    torch.cuda.empty_cache()
+
+
+def check_capture_train_extras(root, data_dir, yml, task_yml, task_cfg,
+                               batch_np, power, free, profile):
+    """Phase 17: capture, the plain route and the rest of the train CLI at
+    ctrl_uniter_base's full width (bf16, L 60)."""
+    from volta_tpu_torch.eval_step import to_device
+
+    batch = to_device({k: v for k, v in batch_np.items()
+                       if isinstance(v, np.ndarray)}, "cuda")
+    capture_eval(root, data_dir, yml, power)
+    rates = no_pallas_runs(root, data_dir, yml, power, batch_np, profile)
+    accumulation_check(task_cfg, batch, free)
+    store_steps(root, data_dir, yml, task_yml, power)
+    freeze_check(root, task_cfg, batch)
+    embed_clf_check(root, data_dir, yml, task_cfg)
+    differ = run_to_run(task_cfg, batch)
+    if differ:
+        raise RuntimeError(f"two default b256 steps differ in {differ}")
+    train_cli_extras(root, data_dir, yml, power)
     return rates
 
 
@@ -3837,6 +4390,10 @@ def main(argv):
                                                 ("10", "refcoco+", True),
                                                 ("8", "RetrievalFlickr30k",
                                                  False))}
+        with phase("17 capture, plain route, train CLI extras"):
+            rates.update(check_capture_train_extras(
+                root, data_dir, yml, task_yml, task_cfg, batch, power,
+                free, "--profile" in argv))
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -3871,6 +4428,9 @@ def main(argv):
           f"{rates['plain LN flags'][1]:.2f} ms/step; int threshold vs hash "
           f"tails {rates['int threshold'][1]:.2f} vs "
           f"{rates['hash tails'][1]:.2f} ms/step", flush=True)
+    print(f"plain route vs kernel route [{power}]: train b256 default "
+          f"{rates['plain route'][1]:.2f} vs {rates['kernel route'][1]:.2f} "
+          "ms/step", flush=True)
     for tag, run in task_runs.items():
         r = run["rates"]
         print(f"{tag} [{power}]: eval {r['eval_items_per_s']:.1f} items/s, "

@@ -194,7 +194,8 @@ def test_dispatch_routes_by_rate_and_replays_the_mask():
     with keep_mask(seed)), rate 0 to the no-dropout one; the same seed gives
     the same output, another seed another, and the wrappers refuse a
     tensor on neither the CPU nor a card."""
-    b, lq, lk, h, d = 3, 5, 37, 2, 64
+    # 9 queries: JAX's gate sends fewer than 8 to the plain route
+    b, lq, lk, h, d = 3, 9, 37, 2, 64
     q, k, v, _, mask = _inputs(b, lq, lk, h, d, seed=4)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     bias4 = _bias2(mask).view(b, 1, 1, lk)

@@ -264,7 +264,7 @@ def test_head_major_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 # ------------------------------------------------------------------ model
-def hm_cfg(dtype="float32", use_pallas=False):
+def hm_cfg(dtype="float32", use_pallas=True):
     return dataclasses.replace(small_cfg(dtype, use_pallas),
                                attn_natural_layout=False)
 
@@ -384,7 +384,7 @@ def test_layout_flag_routes_the_attention_wrappers(attention_calls, natural,
     kernels: each forward of the small model (two attention sublayers)
     calls the layout's forward wrapper twice, each train step its backward
     wrapper twice too, and the other layout's wrappers never."""
-    cfg = port_cfg(small_cfg() if natural else hm_cfg())
+    cfg = port_cfg(small_cfg(use_pallas=True) if natural else hm_cfg())
     assert cfg.attn_natural_layout is natural
     torch.manual_seed(0)
     model = VoltaForVLTasks(cfg, TASK_CFG, ("TASK1",))

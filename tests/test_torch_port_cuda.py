@@ -1174,32 +1174,68 @@ BODIES = [("wgrad", (15360, 768, 3072), "wgmma"),
           ("matmul_bias_act", (17, 40, 9), "mma.sync")]
 
 
+def _profiled_kernel_names(call, row, active=3):
+    """The kernel names the profiler records over ``active`` calls of
+    ``call``, after one warm-up call inside the same profiler context: a
+    profiler's first short launch can be missing from its records, which is
+    how a single profiled call came back without its kernel now and then.
+    The port's own count of ``row``'s launches must agree that every call
+    launched."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = []
+    before = LAUNCHES[row]
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=active,
+                                   repeat=1),
+                 on_trace_ready=lambda p: names.extend(
+                     e.key for e in p.key_averages())) as prof:
+        for _ in range(1 + active):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    assert LAUNCHES[row] == before + 1 + active
+    return " ".join(names)
+
+
+def _body_call(row, shape, device):
+    from volta_tpu_torch.ops import matmul as mm
+
+    n, k, m = shape
+    if row == "wgrad":
+        ops = _mm_inputs([(n, k), (n, m)], device, seed=n)
+        return mm.matmul_body(*ops), lambda: mm.wgrad(*ops)
+    ops = _mm_inputs([(n, k), (k, m), (1, m)], device, seed=k)
+    return mm.matmul_body(*ops), lambda: mm.matmul_bias_act(*ops, True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("row,shape,body", BODIES)
 def test_matmul_runs_the_body_its_rule_gives(cuda_device, row, shape, body):
     """``matmul_body`` names the body, and the profiler shows that body's
     kernel and not the other's: no operand set that the rule gives to the
     Hopper body runs the mma.sync body."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from volta_tpu_torch.ops import matmul as mm
-
-    n, k, m = shape
-    if row == "wgrad":
-        ops = _mm_inputs([(n, k), (n, m)], cuda_device, seed=n)
-        call = lambda: mm.wgrad(*ops)  # noqa: E731
-    else:
-        ops = _mm_inputs([(n, k), (k, m), (1, m)], cuda_device, seed=k)
-        call = lambda: mm.matmul_bias_act(*ops, True)  # noqa: E731
-    assert mm.matmul_body(*ops) == body
+    rule, call = _body_call(row, shape, cuda_device)
+    assert rule == body
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = " ".join(e.key for e in prof.key_averages())
+    names = _profiled_kernel_names(call, row)
     assert ("wgmma_kernel" in names) == (body == "wgmma"), names
     assert ("matmul_kernel" in names) == (body == "mma.sync"), names
+
+
+@pytest.mark.cuda
+def test_body_profiler_harness_repeats(cuda_device):
+    """The harness of ``test_matmul_runs_the_body_its_rule_gives`` at the
+    shape whose single profiled call came back without its kernel now and
+    then: 20 profiler contexts in a row each see the mma.sync body's
+    kernel."""
+    rule, call = _body_call("matmul_bias_act", (17, 40, 9), cuda_device)
+    assert rule == "mma.sync"
+    for _ in range(20):
+        names = _profiled_kernel_names(call, "matmul_bias_act")
+        assert "matmul_kernel" in names and "wgmma_kernel" not in names, \
+            names
 
 
 @pytest.mark.cuda
@@ -1234,11 +1270,12 @@ def _small_model(device, **fields):
     cfg = VoltaConfig.from_json_file(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "configs", "ctrl_uniter_base.json"))
-    cfg = dataclasses.replace(
-        cfg, hidden_size=128, v_hidden_size=128, num_attention_heads=2,
-        v_num_attention_heads=2, intermediate_size=256,
-        v_intermediate_size=256, pooler_size=128, v_pooler_size=128,
-        clf_hidden_size=96, compute_dtype="bfloat16", **fields)
+    cfg = dataclasses.replace(cfg, **{
+        "hidden_size": 128, "v_hidden_size": 128, "num_attention_heads": 2,
+        "v_num_attention_heads": 2, "intermediate_size": 256,
+        "v_intermediate_size": 256, "pooler_size": 128,
+        "v_pooler_size": 128, "clf_hidden_size": 96,
+        "compute_dtype": "bfloat16", **fields})
     model = VoltaForVLTasks(cfg, SMALL_TASK, ("TASK1",))
     init_weights(model, torch.Generator().manual_seed(0))
     return model.to(device).train()
@@ -1260,28 +1297,20 @@ def _small_batch(device, b=8, lt=23, lv=36, feat=2048):
 
 
 def _loss_and_grads(model, batch, seed):
-    """Under torch's deterministic algorithms: by default the embeddings'
-    backward may sum a table row's gradient in a run-dependent order."""
-    import warnings
-
+    """The loss and every gradient of one training forward and backward,
+    with torch's default algorithms: the token-type table sums its
+    gradient in a fixed order (``models.layers._SmallTableLookup``)."""
     from volta_tpu_torch.task_utils import process_batch, \
         task_loss_and_score
 
     tc = SMALL_TASK["TASK1"]
     inputs, info = process_batch(tc, batch)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            pred = model(inputs["input_ids"], inputs["image_feat"],
-                         inputs["image_loc"], "TASK1",
-                         inputs["token_type_ids"], inputs["attention_mask"],
-                         inputs["image_attention_mask"], dropout_seed=seed)
-            loss, _ = task_loss_and_score(tc["type"], pred, batch, info,
-                                          tc["loss"])
-            loss.backward()
-    finally:
-        torch.use_deterministic_algorithms(False)
+    pred = model(inputs["input_ids"], inputs["image_feat"],
+                 inputs["image_loc"], "TASK1", inputs["token_type_ids"],
+                 inputs["attention_mask"], inputs["image_attention_mask"],
+                 dropout_seed=seed)
+    loss, _ = task_loss_and_score(tc["type"], pred, batch, info, tc["loss"])
+    loss.backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return loss.detach(), grads
@@ -1469,3 +1498,63 @@ def test_task_heads_on_the_card_equal_the_cpu(cuda_device, task):
                 assert torch.equal(pred[..., 0][pad], torch.full(
                     (int(pad.sum()),), -9984.0, dtype=torch.bfloat16))
         del card_model
+
+
+@pytest.mark.cuda
+def test_token_type_gradient_repeats_without_the_global_switch(cuda_device):
+    """The token-type table's gradient at the b256 train shape (256 x 60
+    tokens on 2 rows) is the same over two runs with torch's default
+    algorithms, and within float32 rounding of an ``index_add_``."""
+    from volta_tpu_torch.models.layers import Embed
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    table = Embed(2, 768, 0.02, fixed_order_grad=True).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.randint(0, 2, (256, 60), generator=gen, device=cuda_device)
+    g = torch.randn(256, 60, 768, generator=gen, device=cuda_device)
+    grads = []
+    for _ in range(2):
+        table(ids).backward(g)
+        grads.append(table.weight.grad.clone())
+        table.weight.grad = None
+    assert torch.equal(grads[0], grads[1])
+    want = torch.zeros_like(table.weight).index_add_(
+        0, ids.reshape(-1), g.reshape(-1, 768))
+    torch.testing.assert_close(grads[0], want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_plain_route_runs_on_the_card(cuda_device, mode):
+    """``use_pallas: false`` on the card: no attention kernel launches (the
+    tails' K10 does in training), the eval logits within 1e-4 of the same
+    fp32 model on the CPU, and a training step finite and repeatable to
+    the bit with the default algorithms."""
+    import copy
+
+    from volta_tpu_torch.eval_step import make_task_eval_step
+    from volta_tpu_torch.ops import reset_launches
+
+    batch = _small_batch(cuda_device)
+    attention = [k for k in LAUNCHES if k.startswith("attention")]
+    reset_launches()
+    if mode == "eval":
+        model = _small_model(cuda_device, use_pallas=False,
+                             compute_dtype="float32").eval()
+        card = make_task_eval_step(model, SMALL_TASK, "TASK1")(batch)
+        cpu = copy.deepcopy(model).cpu()
+        want = make_task_eval_step(cpu, SMALL_TASK, "TASK1")(
+            {k: v.cpu() for k, v in batch.items()})
+        assert bool(torch.isfinite(card["prediction"]).all())
+        assert float((card["prediction"].cpu() - want["prediction"])
+                     .abs().max()) <= 1e-4
+        assert all(LAUNCHES[k] == 0 for k in LAUNCHES)
+        return
+    model = _small_model(cuda_device, use_pallas=False)
+    first = _loss_and_grads(model, batch, seed=3)
+    assert all(LAUNCHES[k] == 0 for k in attention)
+    assert LAUNCHES["hash_dropout_fwd"] == LAUNCHES["hash_dropout_bwd"] == 27
+    second = _loss_and_grads(model, batch, seed=3)
+    assert torch.isfinite(first[0]) and torch.equal(first[0], second[0])
+    for n in first[1]:
+        assert torch.equal(first[1][n], second[1][n]), n

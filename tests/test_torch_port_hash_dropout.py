@@ -147,7 +147,8 @@ def test_train_step_gradients_equal_the_plain_autograd_path(dtype,
     through HashDropout equal those of the path before it, autograd
     through ``hash_dropout_ref`` at every site, bit for bit; the 2 · 2
     tails, 2 embedding sites and the pooled output took the Function."""
-    model = VoltaForVLTasks(small_cfg(dtype), TASK_CFG, ("TASK1",))
+    model = VoltaForVLTasks(small_cfg(dtype, use_pallas=True), TASK_CFG,
+                            ("TASK1",))
     init_weights(model, torch.Generator().manual_seed(3))
     model.train()
     batch = to_device(make_batch(7), "cpu")

@@ -121,3 +121,36 @@ def test_embed_matches_flax():
         emb.weight.copy_(torch.from_numpy(table))
     got = emb(torch.from_numpy(ids))
     np.testing.assert_array_equal(_np(got), np.asarray(ref))
+
+
+def test_token_type_table_sums_its_gradient_in_fixed_order():
+    """The token-type table (``fixed_order_grad``, a one-hot product) gives
+    the lookup and gradient of JAX's embedding; the model builds it so and
+    its other tables with ``F.embedding``."""
+    rng = np.random.RandomState(4)
+    mod = jl.embed(2, 16, 0.02, "e")
+    ids = rng.randint(0, 2, (4, 9)).astype(np.int32)
+    g = rng.randn(4, 9, 16).astype(np.float32)
+    params = mod.init(jax.random.PRNGKey(1), jnp.asarray(ids))["params"]
+    ref, vjp = jax.vjp(lambda p: mod.apply({"params": p}, jnp.asarray(ids)),
+                       params)
+    (want,) = vjp(jnp.asarray(g))
+    emb = tl.Embed(2, 16, 0.02, fixed_order_grad=True)
+    with torch.no_grad():
+        emb.weight.copy_(torch.from_numpy(np.array(params["embedding"])))
+    got = emb(torch.from_numpy(ids).long())
+    np.testing.assert_array_equal(_np(got), np.asarray(ref))
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(_np(emb.weight.grad),
+                               np.asarray(want["embedding"]),
+                               rtol=1e-6, atol=1e-6)
+
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.models.embeddings import UniterEmbeddings
+
+    e = UniterEmbeddings(VoltaConfig(
+        vocab_size=50, hidden_size=16, v_hidden_size=16,
+        max_position_embeddings=32, v_feature_size=8))
+    assert e.token_type_embeddings.fixed_order_grad
+    assert not (e.word_embeddings.fixed_order_grad
+                or e.position_embeddings.fixed_order_grad)

@@ -78,8 +78,12 @@ def flax_params():
     return jax.tree.map(np.asarray, variables["params"])
 
 
-def torch_model(params, dtype="float32"):
-    model = VoltaForVLTasks(small_cfg(dtype), TASK_CFG, ("TASK1",))
+def torch_model(params, dtype="float32", use_pallas=True):
+    """The port's model on ``params``; ``use_pallas`` picks its attention
+    route as JAX's gate does (the kernels' twins here, or the plain
+    composition)."""
+    model = VoltaForVLTasks(small_cfg(dtype, use_pallas), TASK_CFG,
+                            ("TASK1",))
     return load_flax_params(model, params).eval()
 
 
@@ -163,7 +167,7 @@ def test_encoder_matches(flax_params, dtype, use_pallas):
             jnp.asarray(t, jdt), jnp.asarray(v, jdt),
             jax_mask(jnp.asarray(batch["input_mask"])),
             jax_mask(jnp.asarray(batch["image_mask"])))
-    model = torch_model(flax_params, dtype)
+    model = torch_model(flax_params, dtype, use_pallas)
     with torch.no_grad():
         tt, tv = model.bert.encoder(
             torch.from_numpy(t).to(tdt), torch.from_numpy(v).to(tdt),
@@ -200,7 +204,7 @@ def test_full_logits_and_loss_match(flax_params, dtype, use_pallas):
     ref = _jax_logits(flax_params, batch, dtype, use_pallas)
     if use_pallas:
         assert pa.TRACE_COUNT[0] > 0
-    got = _torch_logits(torch_model(flax_params, dtype), batch)
+    got = _torch_logits(torch_model(flax_params, dtype, use_pallas), batch)
     assert got.shape == (B, 9) and got.dtype == getattr(torch, dtype)
     # bf16 atol 5e-2 on logits; the largest difference found (batch seeds
     # 3-7, both JAX paths) was 1.95e-3, one bf16 ulp of logits of ~0.3

@@ -153,8 +153,6 @@ def test_unported_optimizer_options_raise():
     toy = _Toy()
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         topt.build_optimizer("radam", 1e-3, toy)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        topt.build_optimizer("adamw", 1e-3, toy, grad_accum_steps=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         topt.build_optimizer("adamw", 1e-3, toy, state_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):

@@ -48,7 +48,9 @@ MODES = {
 
 
 def port_cfg(dtype="float32", **fields):
-    cfg = VoltaConfig.from_dict(small_cfg(dtype).to_dict())
+    # the attention kernels' route (their twins here), as the default
+    # config takes it
+    cfg = VoltaConfig.from_dict(small_cfg(dtype, use_pallas=True).to_dict())
     return dataclasses.replace(cfg, **fields)
 
 

@@ -157,7 +157,9 @@ def test_reference_tar_resumes_as_in_jax(grouping, correct_bias, tmp_path):
     jinfo, jlosses, jparams = _jax_continue(jcfg, params, path,
                                             correct_bias, batch)
 
-    pcfg = VoltaConfig.from_dict(jcfg.to_dict())
+    # the port on the attention kernels' route (their twins here), as the
+    # default config takes it; JAX's XLA path, dropout off on both sides
+    pcfg = VoltaConfig.from_dict(small_cfg(use_pallas=True).to_dict())
     model = VoltaForVLTasks(pcfg, TASK_CFG, ("TASK1",))
     init_weights(model, torch.Generator().manual_seed(3))
     opt = build_optimizer("adamw", warmup_linear_schedule(LR, WARMUP, TOTAL),
@@ -198,7 +200,7 @@ def test_tar_without_moments_or_model_state(tmp_path):
 
 # ------------------------------------------------------------------ native
 def _native_setup(init_seed, gen_seed):
-    pcfg = VoltaConfig.from_dict(small_cfg().to_dict())
+    pcfg = VoltaConfig.from_dict(small_cfg(use_pallas=True).to_dict())
     model = VoltaForVLTasks(pcfg, TASK_CFG, ("TASK1",))
     init_weights(model, torch.Generator().manual_seed(init_seed))
     opt = build_optimizer("adamw", warmup_linear_schedule(1e-3, 2, 20),

@@ -169,8 +169,11 @@ def flax_params():
     return jax.tree.map(np.asarray, variables["params"])
 
 
-def torch_model(params, dtype="float32"):
-    model = VoltaForVLTasks(small_cfg(dtype), TASKS, IDS)
+def torch_model(params, dtype="float32", use_pallas=True):
+    """The port's model on ``params``; ``use_pallas`` picks its attention
+    route as JAX's gate does (the kernels' twins here, or the plain
+    composition)."""
+    model = VoltaForVLTasks(small_cfg(dtype, use_pallas), TASKS, IDS)
     return load_flax_params(model, params).eval()
 
 
@@ -240,8 +243,9 @@ def test_unknown_process_and_type():
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "xla"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_every_head_matches(flax_params, dtype, use_pallas):
-    """Every head's logits, loss and score against JAX's eval step."""
-    model = torch_model(flax_params, dtype)
+    """Every head's logits, loss and score against JAX's eval step, on the
+    same attention route."""
+    model = torch_model(flax_params, dtype, use_pallas)
     traced = pa.TRACE_COUNT[0]
     for task in IDS:
         tc = TASKS[task]

@@ -96,7 +96,8 @@ def test_train_step_matches_jax_without_dropout():
     assert norms[0] > CLIP  # the clip is active
 
     tmodel = load_flax_params(
-        VoltaForVLTasks(small_cfg(), TASK_CFG, ("TASK1",)), params).eval()
+        VoltaForVLTasks(small_cfg(use_pallas=True), TASK_CFG, ("TASK1",)),
+        params).eval()
     opt = build_optimizer("adamw", warmup_linear_schedule(LR, WARMUP, STEPS),
                           tmodel, weight_decay=WD, clip_norm=CLIP,
                           betas=BETAS, eps=EPS)
@@ -122,7 +123,10 @@ def test_train_step_matches_jax_without_dropout():
 
 def _train_setup(seed=0, lr=1e-3):
     torch.manual_seed(0)
-    model = VoltaForVLTasks(small_cfg(), TASK_CFG, ("TASK1",))
+    # the attention kernels' route (their twins here): use_pallas, as JAX
+    # gates them
+    model = VoltaForVLTasks(small_cfg(use_pallas=True), TASK_CFG,
+                            ("TASK1",))
     from volta_tpu_torch.models.layers import init_weights
 
     init_weights(model, torch.Generator().manual_seed(1))

@@ -2,7 +2,8 @@
 CPU, on the synthetic VQA fixtures: two epochs write the JAX CLI's val lines
 and checkpoints, the port's eval CLI scores the best checkpoint exactly as
 the last validation did, unported flags raise, and the port imports no
-JAX."""
+JAX. The flags ported since (--no_pallas, --gradient_accumulation_steps,
+--device_store) are held in tests/test_torch_port_train_extras.py."""
 
 import os
 import subprocess
@@ -173,7 +174,6 @@ def test_task_heads_train_validate_and_checkpoint(workdir, kind):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--device_store"], ["--gradient_accumulation_steps", "2"],
     ["--optim", "RAdam"], ["--optimizer_state_dtype", "bfloat16"],
     ["--skip_disconnected_params"], ["--profile_steps", "3"],
     ["--distributed"]], ids=lambda f: f[0].lstrip("-"))
@@ -185,7 +185,7 @@ def test_unported_flags_raise(workdir, flag):
 
 
 def test_jax_only_flags_do_not_exist(workdir):
-    for flag in (["--no_pallas"], ["--prng_impl", "rbg"]):
+    for flag in (["--prng_impl", "rbg"],):
         with pytest.raises(SystemExit):
             port_train.parse_args(workdir["base"] + flag)
 

@@ -658,19 +658,22 @@ def restore_train_state(path: str, state) -> Dict[str, Any]:
                                       map_location="cpu", weights_only=True))
 
 
-def resume(cfg: VoltaConfig, state, path: str,
-           steps_per_epoch: int) -> Dict[str, Any]:
+def resume(cfg: VoltaConfig, state, path: str, steps_per_epoch: int,
+           micro_steps_per_epoch: int) -> Dict[str, Any]:
     """Resume ``state`` from a reference tar or from the port's own train
     state (file or directory), as the JAX CLI does (train_task.py:197-212):
     returns ``{start_epoch, global_step, best_score}`` and, for a tar, its
     ``hyperparams``. A tar's epoch is its ``epoch_id`` + 1, or its
-    ``global_step`` over the epoch's steps; the port's, its step over the
-    epoch's steps."""
+    ``global_step`` (updates) over the epoch's updates; the port's, its
+    step (micro-steps under gradient accumulation) over the epoch's
+    micro-steps, ``micro_steps_per_epoch`` (the loader's batches).
+    JAX's CLI divides its micro-steps by the epoch's updates there
+    (train_task.py:182,227), which skips epochs with K > 1."""
     path = _train_state_path(path)
     obj = _tolerant_torch_load(path)
     if _is_train_state(obj):
         info = _restore(state, obj)
-        return {"start_epoch": info["step"] // max(steps_per_epoch, 1),
+        return {"start_epoch": info["step"] // max(micro_steps_per_epoch, 1),
                 "global_step": info["step"],
                 "best_score": info["best_score"], "hyperparams": {}}
     info = _resume_tar(cfg, state, obj, path)

@@ -97,15 +97,19 @@ class VoltaConfig:
     # {intra_attn, inter_attn, queries, keys} dicts in extras["probs"]
     # (same as calling with output_probs=True; eval_task --dump_attn
     # saves them to .npz).
+    # port: every forward takes the capture route (the plain attention);
+    # the maps come back where the caller passes output_probs=True.
     visualization: bool = False
     # --- TPU-native extensions (not in reference schema) -------------------
     # Compute dtype for the encoder ("float32" | "bfloat16"); params stay fp32.
     compute_dtype: str = "float32"
     # Use the Pallas fused attention kernel where available (wins on the
     # no-dropout/eval path; measured +18% eval throughput on v5e).
-    # port: the attention always runs through the CUDA kernels; this flag
-    # only gates use_fused_residual_ln, fuse_hidden_dropout and
-    # use_pallas_dropout_mask, as it does in the JAX encoder.
+    # port: with a bias and L >= 8 the attention runs the CUDA kernels, as
+    # JAX gates its Pallas ones; false runs the plain composition
+    # (ops/attention.py plain_attention) and turns off
+    # use_fused_residual_ln, fuse_hidden_dropout and use_pallas_dropout_mask,
+    # as it does in the JAX encoder.
     use_pallas: bool = True
     # Pallas fused LayerNorm (XLA's fused LN measured slightly faster at
     # BERT-base shapes, so off by default; flip for wider models).
@@ -122,7 +126,8 @@ class VoltaConfig:
     # activation). Never applied to the dropout-attention kernel — its
     # Mosaic PRNG draws are not reproducible across recompilations, so
     # recompute there would decorrelate the mask from the forward pass.
-    # port: not ported yet (ROADMAP.md Queue 1 item 2); true raises.
+    # port: each feed-forward sublayer runs under torch.utils.checkpoint
+    # with its dropout seed drawn outside (models/encoder.py).
     remat_ff: bool = False
     # Fused dropout+residual+LayerNorm train kernel for the sublayer tails
     # (ops/fused_residual.py). Measured A/B on v5e (b256 seq23 r37 VQA
@@ -166,8 +171,8 @@ class VoltaConfig:
     # (b256 VQA step): 88.5 ms vs 92.3 ms RngBitGenerator bernoulli vs
     # 91.4 ms Pallas mask kernel (which stays available via
     # use_pallas_dropout_mask as the draw-replay-safe alternative).
-    # port: hash dropout is the port's only hidden dropout; false raises
-    # (int_threshold_dropout, ROADMAP.md Queue 1 item 2).
+    # port: false draws the sublayer tails' masks by int_threshold_dropout
+    # (models/layers.py) where no kernel flag takes them.
     use_hash_dropout: bool = True
     # Natural-layout attention kernels: block the q/k/v arrays in their
     # native [B, L, H*D] projection-output layout (batch-only grid) and

@@ -1,5 +1,6 @@
 """The eval step: counterpart of ``make_task_eval_step``
-(volta_tpu/parallel/train_step.py:159-178)."""
+(volta_tpu/parallel/train_step.py:159-178), and the eval CLI's attention-
+map step (eval_task.py:169-178)."""
 
 from __future__ import annotations
 
@@ -44,5 +45,26 @@ def make_task_eval_step(model, task_cfg: Dict, task_id: str) -> Callable:
         return {"loss": loss, "score": score,
                 "batch_size": info["batch_size"], "prediction": pred,
                 "info": info}
+
+    return step
+
+
+def make_attn_step(model, task_cfg: Dict, task_id: str) -> Callable:
+    """``step(batch) -> probs``: the model's ``extras["probs"]`` for the
+    batch, one (t_data, v_data) an attention sublayer, from a forward with
+    ``output_probs`` under ``torch.inference_mode()``."""
+    tc = task_cfg[task_id]
+    device = next(model.parameters()).device
+
+    def step(batch):
+        with torch.inference_mode():
+            inputs, _ = process_batch(tc, to_device(batch, device))
+            _, extras = model(inputs["input_ids"], inputs["image_feat"],
+                              inputs["image_loc"], task_id,
+                              inputs["token_type_ids"],
+                              inputs["attention_mask"],
+                              inputs["image_attention_mask"],
+                              output_probs=True)
+        return extras["probs"]
 
     return step

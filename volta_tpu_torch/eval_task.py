@@ -19,7 +19,12 @@ it); an http(s) URL only where the file is already in the cache
 (``checkpoint.cached_path``). The JAX package's Flax msgpack bundles and
 Orbax directories raise (ROADMAP.md Queue 1 item 12), and so does a
 RoBERTa model (item 6). The weights are drawn from ``--seed`` first, so
-what a checkpoint leaves out is random.
+what a checkpoint leaves out is random. ``--no_pallas`` sets the config's
+``use_pallas`` false: the attention then runs the plain composition, not
+the kernels, as JAX's does. ``--dump_attn N`` writes the attention maps of
+the first N batches (``dump_attn_maps``), formed on that plain route as
+JAX forms them; ``--drop_last``, ``--use_chunk`` and ``--local_rank`` are
+accepted and unused, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -51,12 +56,44 @@ def parse_args(argv=None):
     p.add_argument("--vocab_file", default="", type=str)
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--drop_last", action="store_true")
     p.add_argument("--in_memory", default=False, type=bool)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--no_pallas", action="store_true")
     p.add_argument("--seed", type=int, default=42)
+    # accepted for the reference scripts' command lines; unused, as in the
+    # JAX CLI (eval_task.py:41-45)
+    p.add_argument("--use_chunk", default=0, type=float)
+    p.add_argument("--local_rank", type=int, default=-1)
+    p.add_argument("--dump_attn", type=int, default=0, metavar="N",
+                   help="save per-sublayer attention maps ({intra_attn, "
+                   "inter_attn, queries, keys} per stream) for the first N "
+                   "eval batches as attn_<split>_<i>.npz")
     p.add_argument("--device", default="cuda", type=str)
     return p.parse_args(argv)
+
+
+def dump_attn_maps(attn, qids, path, row_index=None):
+    """The root CLI's ``dump_attn_maps`` (eval_task.py:55-73): the
+    per-sublayer (t_data, v_data) dicts flattened into one .npz with keys
+    like ``s03_t_intra_attn`` (float32), the batch's ``question_id`` and
+    ``process_row_index``'s ``row_*`` arrays. Returns the number of maps.
+    The archive is stored, not deflated as the root CLI's is (``np.load``
+    reads both): a b64 batch of ctrl_uniter_base holds 416 MB of maps,
+    which zlib deflated at about 6 MB/s on the card's host."""
+    arrays = {"question_id": np.asarray(qids)}
+    n_meta = 1 + len(row_index or {})
+    for k, v in (row_index or {}).items():
+        arrays[k] = np.asarray(v)
+    for li, (t_data, v_data) in enumerate(attn):
+        for stream, data in (("t", t_data), ("v", v_data)):
+            for key, val in data.items():
+                if val is not None:
+                    arrays[f"s{li:02d}_{stream}_{key}"] = \
+                        val.float().cpu().numpy()
+    np.savez(path, **arrays)
+    return len(arrays) - n_meta
 
 
 def collect_results(task_type, prediction, batch, info, dataset, results):
@@ -118,6 +155,8 @@ def setup(args):
     np.random.seed(args.seed)
     cfg = VoltaConfig.from_json_file(args.config_file)
     cfg.compute_dtype = args.compute_dtype
+    if args.no_pallas:
+        cfg.use_pallas = False
     task_cfg = load_task_config(args.tasks_config_file)
     task = task_key(args.task)
     tc = task_cfg[task]
@@ -141,18 +180,29 @@ def setup(args):
 
 def main(argv=None):
     """Run the eval; returns {loss, score, n, nonfinite_batches, out_file}."""
-    from .eval_step import make_task_eval_step
+    from .eval_step import make_attn_step, make_task_eval_step
+    from .task_utils import process_row_index
 
     args = parse_args(argv)
     model, task_cfg, task, data = setup(args)
     tc = task_cfg[task]
     ds, loader = data["dataset"], data["loader"]
     eval_step = make_task_eval_step(model, task_cfg, task)
+    attn_step = make_attn_step(model, task_cfg, task) if args.dump_attn \
+        else None
+    if attn_step is not None:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     results = []
     total_loss = total_score = 0.0
     total_n = nonfinite = 0
-    for batch in loader:
+    for bi, batch in enumerate(loader):
+        if attn_step is not None and bi < args.dump_attn:
+            path = os.path.join(args.output_dir, f"attn_"
+                                f"{args.split or tc['val_split']}_{bi}.npz")
+            n = dump_attn_maps(attn_step(batch), batch["question_id"], path,
+                               row_index=process_row_index(tc, batch))
+            logger.info("wrote %d attention arrays to %s", n, path)
         out = eval_step(batch)
         # the predictions are the output, so they come to the host per batch
         pred = out["prediction"].float().cpu().numpy()

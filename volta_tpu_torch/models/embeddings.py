@@ -40,7 +40,8 @@ class UniterEmbeddings(nn.Module):
         self.position_embeddings = Embed(cfg.max_position_embeddings,
                                          cfg.hidden_size, std)
         self.token_type_embeddings = Embed(cfg.type_vocab_size,
-                                           cfg.hidden_size, std)
+                                           cfg.hidden_size, std,
+                                           fixed_order_grad=True)
         # the JAX module's LNs, volta_tpu/models/embeddings.py:304-316
         kern = cfg.use_pallas_layernorm
         self.layer_norm = LayerNorm(cfg.hidden_size, use_kernel=kern)

@@ -33,7 +33,8 @@ from torch import nn
 
 from ..ops import dropout_mask
 from ..ops.fused_residual import dropout_residual_ln
-from ..ops.hash import _M32, GOLDEN, dropout_threshold, fmix32  # noqa: F401
+from ..ops.hash import _M32, GOLDEN, dropout_threshold, fmix32, \
+    seeded_bits  # noqa: F401
 from ..ops.hash_dropout import HashDropout, apply_keep_mask
 from ..ops.layernorm import LN_EPS, fused_layer_norm
 
@@ -161,15 +162,39 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class _SmallTableLookup(torch.autograd.Function):
+    """``F.embedding`` forward; the table's gradient as the float32 product
+    one_hot(ids)ᵀ · g. ``F.embedding``'s backward on the card sums a row
+    that nearly every token hits in an order that changes from run to run;
+    the product sums in one order."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=ids.device)
+        one_hot = (ids.reshape(-1, 1) == rows).to(torch.float32)
+        gw = one_hot.t() @ g.reshape(-1, g.shape[-1]).to(torch.float32)
+        return None, gw.to(g.dtype)
+
+
 class Embed(nn.Module):
     """Embedding table with N(0, stddev) init; ``zero_pad_row`` zeroes row 0
-    to match torch's ``padding_idx=0`` initialisation."""
+    to match torch's ``padding_idx=0`` initialisation. ``fixed_order_grad``
+    (the token-type table's few rows) sums the gradient in a fixed order
+    (``_SmallTableLookup``)."""
 
     def __init__(self, num: int, features: int, stddev: float,
-                 zero_pad_row: bool = False):
+                 zero_pad_row: bool = False, fixed_order_grad: bool = False):
         super().__init__()
         self.stddev = stddev
         self.zero_pad_row = zero_pad_row
+        self.fixed_order_grad = fixed_order_grad
         self.weight = nn.Parameter(torch.empty(num, features))
         self.reset_parameters()
 
@@ -180,6 +205,8 @@ class Embed(nn.Module):
                 self.weight[0].zero_()
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.fixed_order_grad:
+            return _SmallTableLookup.apply(ids, self.weight)
         return F.embedding(ids, self.weight)
 
 
@@ -226,10 +253,8 @@ def int_threshold_dropout(x: torch.Tensor, seed: int,
     The generator is made here from the seed, so a recomputation of the
     same call draws the same bits. JAX draws threefry bits from a Flax key,
     which this cannot reproduce: parity holds for the same bits."""
-    gen = torch.Generator(device=x.device).manual_seed(int(seed) & _M32)
-    bits = torch.randint(0, 2**32, x.shape, generator=gen,
-                         dtype=torch.int64, device=x.device)
-    return apply_keep_mask(x, int_threshold_keep(bits, rate), rate)
+    return apply_keep_mask(x, int_threshold_keep(
+        seeded_bits(x.shape, seed, x.device), rate), rate)
 
 
 class DropoutSeeds:

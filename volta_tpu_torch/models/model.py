@@ -17,6 +17,13 @@ pooled output's, then the region outputs' and ``VLogitMLP``'s. Submodule
 names follow the Flax tree (``bert.embeddings``, ``bert.encoder``,
 ``bert.t_pooler``, ``clf_TASK1``, ``clf_TASK10.dense1``) so that
 ``convert.state_dict_from_flax`` is a plain walk.
+
+Capture (model.py:61-108, 201-209): ``output_probs`` (and, on
+``VoltaModel``, ``output_all_layers``) runs the encoder's general loop and
+adds ``extras`` ``{all_t, all_v, probs}`` to the return value; the config's
+``visualization`` implies ``output_probs`` on every forward, so such a
+config trains and evaluates on the plain attention route, as JAX's does,
+while a caller that asks for neither keyword gets today's return value.
 """
 
 from __future__ import annotations
@@ -41,9 +48,6 @@ class VoltaModel(nn.Module):
 
     def __init__(self, cfg: VoltaConfig):
         super().__init__()
-        if cfg.visualization:
-            raise NotImplementedError(
-                "attention-map capture (visualization) is not ported yet")
         if cfg.fusion_method == "vl-bert_vqa":
             raise NotImplementedError(
                 "the VL-BERT [MASK] pooler is not ported yet")
@@ -58,8 +62,12 @@ class VoltaModel(nn.Module):
             self.v_pooler = ImagePooler(cfg)
 
     def forward(self, input_ids, image_feat, image_loc, token_type_ids=None,
-                attention_mask=None, image_attention_mask=None, seeds=None):
+                attention_mask=None, image_attention_mask=None, seeds=None,
+                output_all_layers=False, output_probs=False):
+        """(seq_t, seq_v, pooled_t, pooled_v), and ``extras`` after them
+        when either keyword is true."""
         fusion = self.cfg.fusion_method
+        capture = output_probs or self.cfg.visualization
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         if token_type_ids is None:
@@ -70,14 +78,18 @@ class VoltaModel(nn.Module):
                 device=input_ids.device)
         t_emb, v_emb = self.embeddings(input_ids, image_feat, image_loc,
                                        token_type_ids, seeds)
-        seq_t, seq_v = self.encoder(t_emb, v_emb,
-                                    additive_mask(attention_mask),
-                                    additive_mask(image_attention_mask),
-                                    seeds)
+        seq_t, seq_v, *rest = self.encoder(
+            t_emb, v_emb, additive_mask(attention_mask),
+            additive_mask(image_attention_mask), seeds,
+            output_all_layers=output_all_layers, output_probs=capture)
         pooled_t = None if fusion == "none" else self.t_pooler(seq_t)
         pooled_v = None if fusion in ("none", "text") \
             else self.v_pooler(seq_v)
-        return seq_t, seq_v, pooled_t, pooled_v
+        if not (output_all_layers or output_probs):
+            return seq_t, seq_v, pooled_t, pooled_v
+        all_t, all_v, probs = rest[0]
+        return seq_t, seq_v, pooled_t, pooled_v, {
+            "all_t": all_t, "all_v": all_v, "probs": probs}
 
 
 class VLogitMLP(nn.Module):
@@ -144,14 +156,22 @@ class VoltaForVLTasks(nn.Module):
 
     def forward(self, input_ids, image_feat, image_loc, task_id: str,
                 token_type_ids=None, attention_mask=None,
-                image_attention_mask=None, dropout_seed: int = None):
+                image_attention_mask=None, dropout_seed: int = None,
+                output_probs: bool = False):
         """``dropout_seed`` (a uint32, read in training mode only, where a
-        dropout site needs it) seeds the forward's dropout sites."""
+        dropout site needs it) seeds the forward's dropout sites. With
+        ``output_probs`` the return is (logits, extras)."""
         seeds = DropoutSeeds(dropout_seed) \
             if self.training and dropout_seed is not None else None
-        _, seq_v, pooled_t, pooled_v = self.bert(
+        _, seq_v, pooled_t, pooled_v, *extras = self.bert(
             input_ids, image_feat, image_loc, token_type_ids, attention_mask,
-            image_attention_mask, seeds)
+            image_attention_mask, seeds, output_probs=output_probs)
+        logits = self._head(task_id, seq_v, pooled_t, pooled_v, image_feat,
+                            image_attention_mask, seeds)
+        return (logits, extras[0]) if output_probs else logits
+
+    def _head(self, task_id, seq_v, pooled_t, pooled_v, image_feat,
+              image_attention_mask, seeds):
         ttype = self.task_cfg[task_id]["type"]
         clf = getattr(self, f"clf_{task_id}")
         # the pooled output's site draws its seed on every path, so the

@@ -8,11 +8,23 @@ and one PV product.
 Layout convention, as in the JAX package: q/k/v are [B, L, H, D]; the
 additive bias is [B, 1, 1, Lk] (0 for live keys, -10000 for padding).
 The plain functions compute in float32, or in float64 for float64 inputs.
+
+``fused_attention`` keeps JAX's gate (volta_tpu/ops/attention.py:61): the
+CUDA kernels run with ``use_pallas``, a bias and Lq >= 8; anything else
+runs ``plain_attention``, the composition of the functions below on
+whatever device the tensors are on, which is JAX's XLA path and not a
+kernel's twin standing in for a kernel. That route drops the
+probabilities as JAX's ``_attend`` does with ``nn.Dropout``
+(volta_tpu/models/encoder.py:118-122): Bernoulli(1 - rate) keep bits,
+here uint32 draws from the site's seed against the rate's threshold
+(``probs_keep``), kept values divided by 1 - rate.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .hash import dropout_threshold, seeded_bits
 
 
 def acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -49,11 +61,42 @@ def _bias2(bias, b, lk):
     return bias.to(torch.float32).expand(b, 1, 1, lk).reshape(b, lk)
 
 
+def probs_keep(shape, rate: float, seed: int, device) -> torch.Tensor:
+    """The plain route's keep bits for attention probabilities of
+    ``shape``: the uint32 draws of the site's ``seed`` below the threshold
+    of ``rate``, as ``int_threshold_dropout`` draws them."""
+    return seeded_bits(shape, seed, device) < dropout_threshold(rate)
+
+
+def plain_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
+                    seed: int = None):
+    """JAX's XLA attention (``_attend``'s plain branch, volta_tpu/models
+    /encoder.py:118-122): the joint softmax, dropped with ``probs_keep``'s
+    bits when ``dropout_rate > 0``, times v. Returns (out [B, Lq, H, D],
+    the probabilities after dropout [B, H, Lq, Lk] float32). No kernel
+    runs; the bias may be None."""
+    # imported here: hash_dropout's module imports this one
+    from .hash_dropout import apply_keep_mask
+
+    probs = attention_probs(q, k, bias, scale)
+    if dropout_rate > 0.0:
+        if seed is None:
+            raise ValueError("plain_attention: dropout needs a seed")
+        probs = apply_keep_mask(
+            probs, probs_keep(probs.shape, dropout_rate, seed, probs.device),
+            dropout_rate)
+    return attention_out(probs, v), probs
+
+
 def fused_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
-                    seed: int = None, natural: bool = True):
+                    seed: int = None, natural: bool = True,
+                    use_pallas: bool = True):
     """One-shot attention, [B,L,H,D] in and out, no probs for the caller.
 
-    The single dispatch point. With ``dropout_rate > 0`` (training) the
+    The single dispatch point. Outside JAX's gate of the kernels
+    (volta_tpu/ops/attention.py:61, encoder.py:99-100: ``use_pallas``, a
+    bias and Lq >= 8) it is ``plain_attention``. Inside, with
+    ``dropout_rate > 0`` (training) the
     natural [B, L, H·D] views go to ``attention_dropout_cuda
     .DropoutAttention`` with the call's uint32 ``seed``; anything else goes
     to ``attention_cuda.FusedAttention``. With ``natural=False`` (the
@@ -66,6 +109,10 @@ def fused_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
     tensors and run their plain twins for CPU tensors; there is no fallback
     on the card.
     """
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("fused_attention: dropout needs a seed")
+    if not (use_pallas and bias is not None and q.shape[1] >= 8):
+        return plain_attention(q, k, v, bias, scale, dropout_rate, seed)[0]
     # imported here: the wrappers build their twins from the functions above
     from . import attention_cuda, attention_dropout_cuda, \
         attention_head_major_cuda
@@ -73,8 +120,6 @@ def fused_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
     b, lq, h, d = q.shape
     lk = k.shape[1]
     bias = _bias2(bias, b, lk)
-    if dropout_rate > 0.0 and seed is None:
-        raise ValueError("fused_attention: dropout needs a seed")
     if not natural:
         qh, kh, vh = (x.permute(2, 0, 1, 3).contiguous() for x in (q, k, v))
         if dropout_rate > 0.0:

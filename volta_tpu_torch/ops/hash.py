@@ -46,6 +46,17 @@ def hash_bits(index: torch.Tensor, seed: int) -> torch.Tensor:
     return fmix32((_mul32(index & _M32, GOLDEN) + (int(seed) & _M32)) & _M32)
 
 
+def seeded_bits(shape, seed: int, device) -> torch.Tensor:
+    """Raw uint32 draws (held in int64) of ``shape`` from a
+    ``torch.Generator`` on ``device`` seeded with the uint32 ``seed``: the
+    draws of ``int_threshold_dropout`` and of the plain attention route's
+    dropout. The generator is made here, so a seed always gives the same
+    draws and the global generator is neither read nor moved."""
+    gen = torch.Generator(device=device).manual_seed(int(seed) & _M32)
+    return torch.randint(0, 2**32, tuple(shape), generator=gen,
+                         dtype=torch.int64, device=device)
+
+
 def hash_keep(index: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """Keep bits of the elements at linear ``index`` (int64): their draw
     ``hash_bits(index, seed)`` < threshold."""

@@ -24,6 +24,16 @@ the reference's tar takes the schedule's position from its
 parameter, so it is not this. The update runs as
 ``torch._foreach_*`` ops over all parameters at once and reads nothing back
 to the host.
+
+With ``grad_accum_steps`` K > 1 the chain sits inside ``optax.MultiSteps``
+(:363-364): each call folds its gradients into their running mean,
+acc <- acc + (g - acc) / (n + 1) as optax's ``use_grad_mean`` does, and
+only every K-th call clips that mean and takes one AdamW update and one
+schedule tick; the parameters are untouched in between. Parameters named
+in ``frozen`` (``train_utils.apply_freeze``) have their gradient zeroed
+before all of it, as ``optax.masked(optax.set_to_zero())`` ahead of the
+chain does (volta_tpu/train_utils.py:199-207): they still take weight decay
+and what momentum they have.
 """
 
 from __future__ import annotations
@@ -119,20 +129,26 @@ def _decays(names) -> bool:
                    for n in names)
 
 
+def flax_paths(model: nn.Module) -> Dict[str, list]:
+    """Each parameter's name -> its path in the Flax tree: the port's names
+    are the Flax tree's with ``weight`` for ``scale`` / ``kernel`` /
+    ``embedding``."""
+    out = {}
+    for mname, module in model.named_modules():
+        for pname, _ in module.named_parameters(recurse=False):
+            out[f"{mname}.{pname}" if mname else pname] = (
+                mname.split(".") if mname else []) + [
+                _flax_leaf(module, pname)]
+    return out
+
+
 def no_decay_mask(model: nn.Module) -> Dict[str, bool]:
     """True where weight decay applies, by parameter name: bias and
     LayerNorm weight/bias are excluded, except the reference's name-based
     blind spots (``embeddings.feat_ln`` / ``loc_ln`` weights, the
-    ``clf_*.ln`` weights), which it decays and so does this. The port's
-    names are the Flax tree's with ``weight`` for ``scale`` / ``kernel`` /
-    ``embedding``, so the JAX rule applies to the translated path."""
-    out = {}
-    for mname, module in model.named_modules():
-        for pname, _ in module.named_parameters(recurse=False):
-            path = (mname.split(".") if mname else []) + [
-                _flax_leaf(module, pname)]
-            out[f"{mname}.{pname}" if mname else pname] = _decays(path)
-    return out
+    ``clf_*.ln`` weights), which it decays and so does this. The JAX rule
+    applies to the parameter's Flax path (``flax_paths``)."""
+    return {n: _decays(path) for n, path in flax_paths(model).items()}
 
 
 # ------------------------------------------------------------------- adamw
@@ -140,7 +156,9 @@ class AdamW:
     """AdamW over ``named_params`` with the optax chain above. ``schedule``
     maps the update count to the learning rate (a float is a constant);
     ``decay`` maps names to whether weight decay applies (all, if None);
-    ``clip_norm`` enables the global-norm clip."""
+    ``clip_norm`` enables the global-norm clip; ``grad_accum_steps`` K
+    makes every K-th ``step`` an update of the mean gradient; ``frozen``
+    holds the indices of the parameters whose gradient is zeroed."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Union[Schedule, float], *, b1: float = 0.9,
@@ -148,7 +166,7 @@ class AdamW:
                  weight_decay: float = 0.01,
                  decay: Optional[Dict[str, bool]] = None,
                  clip_norm: Optional[float] = None,
-                 correct_bias: bool = False):
+                 correct_bias: bool = False, grad_accum_steps: int = 1):
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -164,6 +182,11 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
         self.adam_count = 0
+        self.frozen = set()
+        self.accum_steps = int(grad_accum_steps)
+        self.mini_step = 0  # gradients in the running mean, < accum_steps
+        self.acc = [torch.zeros_like(p) for p in self.params] \
+            if self.accum_steps > 1 else None
 
     def lr(self, count: Optional[int] = None) -> float:
         return self.schedule(self.count if count is None else count)
@@ -174,10 +197,30 @@ class AdamW:
 
     @torch.no_grad()
     def step(self):
-        """One update from the parameters' ``.grad`` (a parameter without
-        one counts as a zero gradient, as in the JAX step)."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        """One micro-step from the parameters' ``.grad`` (a parameter
+        without one counts as a zero gradient, as in the JAX step): an
+        update, or with K > 1 a fold into the running mean that updates on
+        every K-th call."""
+        grads = [p.grad if p.grad is not None and i not in self.frozen
+                 else torch.zeros_like(p) for i, p in enumerate(self.params)]
+        if self.acc is not None:
+            # optax.MultiSteps' Welford mean, divided by a tensor: CUDA's
+            # division by a Python float multiplies by its reciprocal
+            n = self.mini_step
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, torch.tensor(
+                float(n + 1), device=self.params[0].device))
+            torch._foreach_add_(self.acc, diff)
+            self.mini_step = (n + 1) % self.accum_steps
+            if self.mini_step:
+                return
+            grads = self.acc
+        self._update(grads)
+        if self.acc is not None:
+            torch._foreach_zero_(self.acc)
+
+    def _update(self, grads):
+        """clip -> AdamW on ``grads``; one schedule tick."""
         if self.clip_norm is not None:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
@@ -206,19 +249,28 @@ class AdamW:
         self.adam_count += 1
 
     def state_dict(self) -> Dict:
-        return {"count": self.count, "adam_count": self.adam_count,
-                "mu": dict(zip(self.names, self.mu)),
-                "nu": dict(zip(self.names, self.nu))}
+        out = {"count": self.count, "adam_count": self.adam_count,
+               "mu": dict(zip(self.names, self.mu)),
+               "nu": dict(zip(self.names, self.nu))}
+        if self.acc is not None:
+            out.update(mini_step=self.mini_step,
+                       acc=dict(zip(self.names, self.acc)))
+        return out
 
     def load_state_dict(self, state: Dict):
-        """Restore the counts and the moments, each moment by its
-        parameter's name (a name missing from ``state`` raises)."""
+        """Restore the counts, the moments and, with K > 1, the running
+        mean, each tensor by its parameter's name (a name missing from
+        ``state`` raises)."""
         self.count = int(state["count"])
         self.adam_count = int(state.get("adam_count", self.count))
+        self.mini_step = int(state.get("mini_step", 0))
         with torch.no_grad():
             for i, n in enumerate(self.names):
                 self.mu[i].copy_(state["mu"][n])
                 self.nu[i].copy_(state["nu"][n])
+                if self.acc is not None:
+                    self.acc[i].copy_(state["acc"][n] if "acc" in state
+                                      else torch.zeros_like(self.acc[i]))
 
 
 def build_optimizer(name: str, schedule, model: nn.Module, *,
@@ -230,16 +282,13 @@ def build_optimizer(name: str, schedule, model: nn.Module, *,
                     lr_scales=None,
                     skip_disconnected_params: bool = False) -> AdamW:
     """The optimizer of ``volta_tpu.optimization.build_optimizer`` for
-    ``model``'s parameters: clip -> AdamW (+ the no-decay mask). Only the
-    AdamW branch is ported; the rest raises."""
+    ``model``'s parameters: clip -> AdamW (+ the no-decay mask), inside
+    the K-step accumulation with ``grad_accum_steps``. Only the AdamW
+    branch is ported; the rest raises."""
     if name != "adamw":
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet (ROADMAP.md Queue 1 "
             "item 8, RAdam and the other optimizers)")
-    if grad_accum_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation is not ported yet (ROADMAP.md Queue 1 "
-            "item 5)")
     if state_dtype is not None or lr_scales is not None \
             or skip_disconnected_params:
         raise NotImplementedError(
@@ -253,4 +302,5 @@ def build_optimizer(name: str, schedule, model: nn.Module, *,
         kw["eps"] = float(eps)
     return AdamW(model.named_parameters(), schedule,
                  weight_decay=weight_decay, decay=no_decay_mask(model),
-                 clip_norm=clip_norm, correct_bias=correct_bias, **kw)
+                 clip_norm=clip_norm, correct_bias=correct_bias,
+                 grad_accum_steps=grad_accum_steps, **kw)

@@ -211,6 +211,35 @@ def process_batch(task_cfg: Dict[str, Any], batch: Dict[str, Any]
     return inputs, info
 
 
+def process_row_index(task_cfg: Dict[str, Any], batch: Dict[str, Any]
+                      ) -> Dict[str, Any]:
+    """Per-row provenance of a process-expanded model batch, a copy of the
+    JAX package's (volta_tpu/task_utils.py:239-268): for every row of the
+    batch ``process_batch`` makes, the index of its host-batch entry
+    (``row_qid_index``, into the batch's ``question_id``), its option
+    (``row_option``: answer choice, retrieval way, NLVR2 image) and its
+    dialog round (``row_round``). numpy in and out."""
+    import numpy as np
+
+    process = task_cfg.get("process", "normal")
+    b = np.asarray(batch["features"]).shape[0]
+    q = np.asarray(batch["question"])
+    if process in ("expand", "retrieval"):
+        no = q.shape[1]
+        r = np.arange(b * no)
+        return {"row_qid_index": r // no, "row_option": r % no}
+    if process == "nlvr":
+        r = np.arange(b * 2)
+        return {"row_qid_index": r // 2, "row_option": r % 2}
+    if process == "dialog":
+        nround, no = q.shape[1], q.shape[2]
+        r = np.arange(b * nround * no)
+        return {"row_qid_index": r // (nround * no),
+                "row_round": (r // no) % nround,
+                "row_option": r % no}
+    return {"row_qid_index": np.arange(b)}
+
+
 def soft_score_with_logits(logits, targets):
     """One-hot(argmax) . soft targets (reference:
     volta/task_utils.py:429-434 compute_score_with_logits)."""

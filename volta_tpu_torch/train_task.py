@@ -20,9 +20,18 @@ when the val score improves (``eval_task --from_pretrained`` reads
 either). A run resumes from ``--resume_file`` (the reference's
 ``pytorch_ckpt_latest.tar`` or a port ``train_state.pt`` or its
 directory), else from its own ``ckpt/train_state.pt`` where one exists.
-``--device`` defaults to ``cuda`` and never falls back to the CPU. Flags of
-features not ported yet raise; the JAX-only ``--prng_impl`` and
-``--no_pallas`` do not exist here.
+``--device`` defaults to ``cuda`` and never falls back to the CPU.
+``--no_pallas`` sets the config's ``use_pallas`` false (the attention then
+runs the plain composition, as JAX's does); ``--gradient_accumulation_steps
+K`` updates once every K micro-batches of the task batch / K with their
+mean gradient (``optimization.AdamW``; the step and the logs count
+micro-steps, as JAX's); the config's ``fixed_layers`` zero their
+parameters' gradients (``train_utils.apply_freeze``); a task's
+``embed_clf`` sets its classifier from the answers' word embeddings;
+``--device_store`` keeps the training set's packed features on the card
+and ships row indices and sparse targets (``train_step
+.materialize_store_batch``). Flags of features not ported yet raise; the
+JAX-only ``--prng_impl`` does not exist here.
 """
 
 from __future__ import annotations
@@ -100,6 +109,7 @@ def parse_args(argv=None):
     # Compute
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--no_pallas", action="store_true")
     p.add_argument("--profile_steps", default=0, type=int)
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd anomaly detection")
@@ -112,9 +122,6 @@ def refuse_unported(args):
     """Raise NotImplementedError for each flag whose feature the port does
     not have yet, naming the ROADMAP.md item that owns it."""
     unported = [
-        (args.device_store, "--device_store", "Queue 1 item 5"),
-        (args.grad_acc_steps > 1, "--gradient_accumulation_steps > 1",
-         "Queue 1 item 5"),
         (args.optim.lower() == "radam", "--optim RAdam", "Queue 1 item 8"),
         (args.optimizer_state_dtype != "float32",
          "--optimizer_state_dtype bfloat16", "Queue 1 item 8"),
@@ -157,9 +164,11 @@ def main(argv=None):
     from .models.layers import init_weights
     from .optimization import SCHEDULES, build_optimizer
     from .task_utils import load_dataset, load_task_config, task_key
-    from .train_step import create_train_state, make_task_train_step
-    from .train_utils import (MetricsLogger, check_fixed_layers,
-                              save_command, set_seed)
+    from .train_step import create_train_state, make_task_train_step, \
+        store_to_device
+    from .train_utils import (MetricsLogger, apply_freeze,
+                              init_classifier_from_answers, save_command,
+                              set_seed)
 
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -168,17 +177,14 @@ def main(argv=None):
     if "roberta" in args.bert_model:
         cfg.model = "roberta"
     cfg.compute_dtype = args.compute_dtype
-    check_fixed_layers(cfg.fixed_layers)
+    if args.no_pallas:
+        cfg.use_pallas = False
     task_cfg = load_task_config(args.tasks_config_file)
     task = task_key(args.task)
     tc = task_cfg[task]
     if tc.get("fusion_method"):
         # per-task pooling override (reference: train_task.py:144-146)
         cfg.fusion_method = tc["fusion_method"]
-    if tc.get("embed_clf"):
-        raise NotImplementedError(
-            "embed_clf (classifier init from answer embeddings) is not "
-            "ported yet (ROADMAP.md Queue 1 item 5)")
 
     run_name = (f"{tc['name']}_{os.path.basename(args.config_file)}-"
                 f"{args.save_name or 'base'}")
@@ -201,6 +207,10 @@ def main(argv=None):
         report = from_pretrained(cfg, model, args.from_pretrained)
         logger.info("loaded %d tensors, %d left at init",
                     len(report["loaded"]), len(report["skipped"]))
+    if tc.get("embed_clf"):
+        # the classifier from the answers' word embeddings (reference:
+        # train_task.py:182-202)
+        init_classifier_from_answers(model, task, data["train_dataset"])
     model.to(device)
     logger.info("parameters: %d",
                 sum(p.numel() for p in model.parameters()))
@@ -215,15 +225,31 @@ def main(argv=None):
         clip_norm=args.clip_grad_norm or None,
         grad_accum_steps=args.grad_acc_steps, betas=tuple(args.adam_betas),
         eps=args.adam_epsilon, correct_bias=args.adam_correct_bias)
+    apply_freeze(optimizer, model, cfg.fixed_layers)
     state = create_train_state(model, optimizer, args.seed + 1)
-    train_step = make_task_train_step(model, optimizer, task_cfg, task)
+
+    store = None
+    train_ds = data["train_dataset"]
+    if args.device_store and hasattr(train_ds, "enable_device_store"):
+        # the packed features on the card; batches carry row indices and
+        # sparse targets (train_step.materialize_store_batch)
+        train_ds.enable_device_store(feat_dtype="float32")
+        store = store_to_device(
+            train_ds.device_store_arrays(), device,
+            torch.bfloat16 if args.compute_dtype == "bfloat16"
+            else torch.float32)
+        logger.info("device-resident feature store: %.2f GiB on the card",
+                    sum(t.numel() * t.element_size()
+                        for t in store.values()) / 2**30)
+    train_step = make_task_train_step(model, optimizer, task_cfg, task,
+                                      store=store)
     eval_step = make_task_eval_step(model, task_cfg, task)
 
     best_score, start_epoch = -1.0, 0
     src = args.resume_file or (ckpt_dir if os.path.exists(
         os.path.join(ckpt_dir, TRAIN_STATE)) else "")
     if src:
-        info = resume(cfg, state, src, steps_per_epoch)
+        info = resume(cfg, state, src, steps_per_epoch, len(train_loader))
         start_epoch, best_score = info["start_epoch"], info["best_score"]
         if info["hyperparams"]:
             logger.info("tar optimizer hyperparams (verify CLI flags "
@@ -234,7 +260,9 @@ def main(argv=None):
 
     def flush(epoch):
         for gs, loss, score in _fetch(pending, ("loss", "score")):
-            tb.step_train(epoch, gs, loss, score, optimizer.lr(gs - 1), task)
+            # the lr of the update this micro-step went into
+            tb.step_train(epoch, gs, loss, score,
+                          optimizer.lr((gs - 1) // args.grad_acc_steps), task)
             train_losses.append(loss)
         pending.clear()
 

@@ -1,14 +1,16 @@
-"""Training utilities: the metrics logger, seeding and the run's command.
+"""Training utilities: the metrics logger, seeding, the run's command,
+layer freezing and the classifier's init from answer embeddings.
 
 JAX-free counterpart of ``volta_tpu/train_utils.py`` (MetricsLogger :26-146,
-save_command :226-235, set_seed :238-241), text output only: the ``out.txt``
-train and ``VAL epoch N TASK1 loss … score …`` lines. Layer freezing
-(``fixed_layers``) is not ported yet.
+freeze_mask / apply_freeze :186-207, save_command :226-235, set_seed
+:238-241, init_classifier_from_answers :244-277), text output only: the
+``out.txt`` train and ``VAL epoch N TASK1 loss … score …`` lines.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import random
 import time
@@ -16,6 +18,8 @@ from collections import defaultdict
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 
 class MetricsLogger:
@@ -97,9 +101,59 @@ def set_seed(seed: int):
     random.seed(seed)
 
 
-def check_fixed_layers(fixed_layers: Any):
-    """Freezing is not ported yet: a non-empty ``fixed_layers`` raises."""
+def freeze_mask(model, fixed_layers: Any) -> Dict[str, bool]:
+    """True where the parameter trains: no entry of ``fixed_layers`` is a
+    substring of its Flax path joined by dots (volta_tpu/train_utils.py
+    :186-195; reference: volta/train_utils.py:250-255)."""
+    from .optimization import flax_paths
+
+    fixed = list(fixed_layers or [])
+    return {name: not any(f in ".".join(path) for f in fixed)
+            for name, path in flax_paths(model).items()}
+
+
+def apply_freeze(optimizer, model, fixed_layers: Any):
+    """Zero the gradients of the frozen parameters before the optimizer's
+    chain, as the JAX package's ``apply_freeze`` chains
+    ``optax.masked(optax.set_to_zero())`` ahead of it: a frozen parameter
+    still takes weight decay and its momentum. The reference sets
+    ``requires_grad=False`` instead (ROADMAP.md Queue 3)."""
     if fixed_layers:
-        raise NotImplementedError(
-            "fixed_layers (layer freezing) is not ported yet (ROADMAP.md "
-            "Queue 1 item 5)")
+        trainable = freeze_mask(model, fixed_layers)
+        optimizer.frozen = {i for i, n in enumerate(optimizer.names)
+                            if not trainable[n]}
+    return optimizer
+
+
+def init_classifier_from_answers(model, task: str, dataset) -> bool:
+    """Set the task classifier's last projection (``clf_<task>.dense2``)
+    from the mean word embedding of each answer's tokens, ``[UNK]``'s row
+    for an answer with none, answers in ``sorted(ans2label.items())``
+    order (volta_tpu/train_utils.py:244-277; reference: train_task.py
+    :182-202). A warning and nothing else where the head is no
+    ``SimpleClassifier`` or the widths differ. Returns whether it set."""
+    import torch
+
+    table = model.bert.embeddings.word_embeddings.weight.detach()
+    tok = dataset._tokenizer
+    rows = []
+    for answer, _label in sorted(dataset.ans2label.items()):
+        ids = tok.convert_tokens_to_ids(tok.tokenize(answer)) or \
+            tok.convert_tokens_to_ids([tok.unk_token])
+        rows.append(table[torch.as_tensor(ids, device=table.device)].mean(0))
+    means = torch.stack(rows)  # [num_labels, hidden]
+    dense2 = getattr(getattr(model, f"clf_{task}", None), "dense2", None)
+    if dense2 is None:
+        logger.warning("embed_clf: no SimpleClassifier head for %s", task)
+        return False
+    if dense2.weight.shape != means.shape:
+        logger.warning("embed_clf: classifier kernel %s != answer "
+                       "embeddings %s; skipping init",
+                       tuple(dense2.weight.shape[::-1]),
+                       tuple(means.shape[::-1]))
+        return False
+    with torch.no_grad():
+        dense2.weight.copy_(means)
+    logger.info("initialised %s classifier from %d answer embeddings", task,
+                means.shape[0])
+    return True
