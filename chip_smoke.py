@@ -9,7 +9,8 @@ the int-threshold dropout (``use_hash_dropout: false``), the checkpoints
 the two matmul decision probes, the NLVR2, RefCOCO+ and Flickr30k
 retrieval heads of ``ctrl_trainval_tasks.yml``, and the plain attention
 route with attention-map capture (``--no_pallas``, ``--dump_attn``), the
-device store, gradient accumulation, freezing and ``embed_clf``.
+device store, gradient accumulation, freezing and ``embed_clf``; then the
+other families: ViLBERT and LXMERT (dual-stream), VisualBERT and VL-BERT.
 
     python3 chip_smoke.py [--profile]
 
@@ -27,6 +28,7 @@ and each of which prints its seconds:
    the byte pack, and not its addressing, counter or compare), and the
    card's integer rate (64 INT32 lanes an SM x the SMs x the SM clock
    ``nvidia-smi`` reports), which the bounds of rows 12-14 and K10 use;
+   and the registers, stack and spills of rows 1-4 at D = 64 and 128;
 3. kernel 1 (attention forward) vs its plain twin on the card, numpy inputs
    with a random padding mask: (a) B=256, L=60, H=12, D=64 bf16 (the
    serving shape), (b) the same in fp32, (c) B=3, Lq=5, Lk=563 bf16 (the
@@ -251,11 +253,40 @@ and each of which prints its seconds:
     and ``embed_clf``: the default route's launches (K10 27 + 27 a
     micro-step), one update every two micro-steps, finite losses, the
     frozen parameters at their decay alone in the saved state;
-18. the kernels' JSON line (the attention rows also with ``body``, the
+18. the other families on synthetic VQA at full width, each config under
+    the TASK1 fields of its family's yml (``FAMILY_RUNS``), every launch
+    count derived from the config's sublayer plan (``plan_counts``: the
+    attention launches a forward, one a query stream of a dual-stream
+    sublayer; K10's a training forward: the tails, the embeddings' sites
+    and the pooled output) and held to the counts of ``FAMILY_COUNTS``:
+    (a) ctrl_vilbert_base through both CLIs at full depth, as phase 16 runs
+    a task: the eval CLI at b1024 (row 1 30 times a batch, no other
+    kernel), the train CLI one epoch at b256 with the config's dropout and
+    its val loop (rows 3 and 4 30 times a step, K10 63 + 63), one eval
+    batch held to the twins, eval items/s, train ms/step, peak memory and
+    the step's device time by kernel family; (b)-(d) vilbert_base (8 heads
+    of 128 in its 1024-wide vision stream and co-attention), ctrl_lxmert,
+    lxmert (36 regions, ``fusion_method: text``, b32), ctrl_visualbert_base,
+    ctrl_vl-bert_base and vl-bert_base (``vl-bert_vqa``, the global feature
+    last, [MASK] [CLS] appended): one eval batch of the yml's size held to
+    the twins and through the kernels with exact launches, two train steps
+    with exact launches and finite losses; after vilbert_base, rows 1-4
+    alone at its shapes ((1024 and 256) x (23 x 37, 37 x 23, 37 x 37), D =
+    128) against their twins as phase 16 holds the task shapes, with their
+    bf16 times beside SDPA's and the bound; (e) ctrl_vilbert_base's flags,
+    two b256 steps each with exact launches: the LayerNorm kernels (rows
+    10-13 at every per-stream tail), head-major (rows 5-6, its eval logits
+    equal to the natural layout's to the bit), the keep-mask kernel (row
+    14), ``remat_ff`` (bit-equal to the plain step, as phase 15 holds it)
+    and ``fuse_dual_stream`` (one K10 a joined tail); (f) ctrl_vilbert_base
+    exported as a reference ``.bin`` and read back through the eval CLI's
+    loader into other weights, its b1024 logits bit-equal;
+19. the kernels' JSON line (the attention rows also with ``body``, the
     body their wrapper runs in bf16; ``pallas`` false for K10, which
     replaces no Pallas kernel; ``bound_by`` "operations" also where the
     hash's integer operations bound a kernel, which phases 6 and 7 name;
-    ``task_heads_launches`` the launches of phase 16's CLI runs), then
+    ``task_heads_launches`` the launches of phase 16's CLI runs,
+    ``families_launches`` those of phase 18's runs), then
     ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
@@ -365,6 +396,11 @@ HASH = {"int_per_s": None, "per_element": None}
 RESOURCE_KERNELS = ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel",
                     "dropout_residual_ln_bwd_kernel", "band_sum_kernel",
                     "wg::", "keep_mask_kernel")
+# and rows 1-4 at the model paths' head dims, 64 and 128 (vilbert_base's
+# wide vision stream and co-attention)
+ATTENTION_RESOURCE = (("attention_fwd_kernel", "attention_bwd_kernel",
+                       "attention_dropout_fwd_kernel",
+                       "attention_dropout_bwd_kernel"), (", 64>", ", 128>"))
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
     "attention_fwd": ("attention_fwd.cu",
@@ -528,7 +564,8 @@ def cuobjdump():
 
 def resource_report(lib):
     """Registers, stack frame and static shared memory of every kernel of
-    RESOURCE_KERNELS, by name, from ``cuobjdump --dump-resource-usage`` of
+    RESOURCE_KERNELS and ATTENTION_RESOURCE, by name, from ``cuobjdump
+    --dump-resource-usage`` of
     the built library, with ptxas' spill stores and loads for the same
     symbol from the build log; prints one line each and returns {name:
     (registers, stack, spills, symbol)}."""
@@ -545,7 +582,10 @@ def resource_report(lib):
     for sym, regs, stack, shared in re.findall(
             r"Function (\S+):\n\s+REG:(\d+) STACK:(\d+) SHARED:(\d+)", out):
         name = short_name(sym)
-        if not any(k in name for k in RESOURCE_KERNELS):
+        names, dims = ATTENTION_RESOURCE
+        if not (any(k in name for k in RESOURCE_KERNELS) or (
+                name.split("<")[0] in names
+                and any(name.endswith(d) for d in dims))):
             continue
         spill = spills.get(sym, "spills not in the build log")
         report[name] = (int(regs), int(stack), spill, sym)
@@ -2408,8 +2448,8 @@ def task_argmax(ttype, logits, info):
     return logits.argmax(1)
 
 
-def hold_task_logits(task_cfg, task, batch_np, tag):
-    """One eval batch of ``task`` through ctrl_uniter_base with the kernels
+def hold_task_logits(task_cfg, task, batch_np, tag, config=CONFIG):
+    """One eval batch of ``task`` through ``config`` with the kernels
     and with the twins, bf16 and, on the same weights, fp32: fp32 logits
     within LOGIT_TOL_FP32; bf16 within NOISE_FACTOR times the twins'
     distance from the twins with float64 attention sums (at least
@@ -2421,7 +2461,7 @@ def hold_task_logits(task_cfg, task, batch_np, tag):
     ttype = task_cfg[task]["type"]
     one = to_device(batch_np, "cuda")
     for dtype in ("float32", "bfloat16"):
-        model = build_model(task_cfg, dtype, task=task).eval()
+        model = build_model(task_cfg, dtype, config, task=task).eval()
         fn = make_task_eval_step(model, task_cfg, task)
         out = fn(one)
         kern = out["prediction"].float()
@@ -2452,8 +2492,11 @@ def hold_task_logits(task_cfg, task, batch_np, tag):
     return model
 
 
-def run_task(root, data_dir, yml, power, task, tag, eval_cli):
-    """Phase 16 for one task of ``yml``: the eval CLI (``eval_cli``) over
+def run_task(root, data_dir, yml, power, task, tag, eval_cli,
+             config=CONFIG):
+    """Phase 16 (and 18 (a)) for one task of ``yml`` with ``config``, its
+    launches counted from its plan (``plan_counts``): the eval CLI
+    (``eval_cli``) over
     the val split at the yml's eval batch, with exact launches and one
     record an item; the train CLI, one epoch at the yml's batch with the
     config's dropout and its val loop, with exact launches and finite
@@ -2463,7 +2506,6 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli):
     import torch
 
     from volta_tpu_torch import eval_task, train_task
-    from volta_tpu_torch.config import VoltaConfig
     from volta_tpu_torch.eval_step import make_task_eval_step, to_device
     from volta_tpu_torch.ops import LAUNCHES, reset_launches
     from volta_tpu_torch.optimization import warmup_linear_schedule
@@ -2473,9 +2515,12 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli):
     task_cfg = load_task_config(yml)
     key = "TASK" + task
     tc = task_cfg[key]
+    cfg = task_config(config, tc)
+    counts = plan_counts(cfg)
+    attn = counts["attn"]
     out = {}
     if eval_cli:
-        argv = ["--config_file", CONFIG, "--tasks_config_file", yml,
+        argv = ["--config_file", config, "--tasks_config_file", yml,
                 "--task", task, "--vocab_file",
                 os.path.join(data_dir, "vocab.txt"),
                 "--output_dir", os.path.join(root, f"results_{tag}"),
@@ -2496,7 +2541,7 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli):
               f"and model set-up included), loss {summary['loss']:.4f} "
               f"score {summary['score']:.4f}, {len(results)} records, "
               f"launches {launches}", flush=True)
-        want = expect(attention_fwd=12 * n_batches)
+        want = expect(attention_fwd=attn * n_batches)
         if launches != want:
             raise RuntimeError(f"{tag} eval launches {launches}, expected "
                                f"{want}")
@@ -2506,8 +2551,7 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli):
                                f"for {n_items} items")
         out["eval"] = launches
 
-    argv = train_argv(root, data_dir, yml, CONFIG, 1, tag, task=task)
-    cfg = VoltaConfig.from_json_file(CONFIG)
+    argv = train_argv(root, data_dir, yml, config, 1, tag, task=task)
     data = load_dataset(train_task.parse_args(argv), cfg, task_cfg, task)
     n_train, n_val = len(data["train_loader"]), len(data["val_loader"])
     reset_launches()
@@ -2521,10 +2565,9 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli):
           f"{n_val} val batches, {wall:.1f} s wall (data and model set-up "
           f"included), losses {[round(l, 4) for l in losses]}, val scores "
           f"{summary['val_scores']}, launches {launches}", flush=True)
-    want = expect(attention_dropout_fwd=12 * steps,
-                  attention_dropout_bwd=12 * steps,
-                  attention_fwd=12 * n_val,
-                  **k10(K10_SITES * steps))
+    want = expect(attention_dropout_fwd=attn * steps,
+                  attention_dropout_bwd=counts["attn_bwd"] * steps,
+                  attention_fwd=attn * n_val, **k10_of(counts, steps))
     if steps != n_train or len(losses) != steps \
             or not np.all(np.isfinite(losses)) \
             or len(summary["val_scores"]) != 1:
@@ -2539,7 +2582,7 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli):
     val = [b for _, b in zip(range(per), data["val_loader"])]
     eval_np = concat_batches([{k: v for k, v in b.items()
                                if isinstance(v, np.ndarray)} for b in val])
-    model = hold_task_logits(task_cfg, key, eval_np, tag)
+    model = hold_task_logits(task_cfg, key, eval_np, tag, config)
     step = make_task_eval_step(model, task_cfg, key)
     batch = to_device(eval_np, "cuda")
     items = int(eval_np["question"].shape[0])
@@ -2662,17 +2705,17 @@ def time_task_rows(q, k, v, bias, g, scale, h, seed, train, twins=True):
     from volta_tpu_torch.ops import attention_cuda as ac
     from volta_tpu_torch.ops import attention_dropout_cuda as adc
 
-    b, l, d = q.shape[0], q.shape[1], q.shape[2] // h
+    b, lq, lk, d = q.shape[0], q.shape[1], k.shape[1], q.shape[2] // h
     sq, sk, sv, smask = sdpa_operands(q, k, v, bias, h)
     leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
-    sg = g.view(b, l, h, d).transpose(1, 2)
+    sg = g.view(b, lq, h, d).transpose(1, 2)
     library = {
         "row 1": lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=smask),
         "row 2": lambda: torch.autograd.grad(F.scaled_dot_product_attention(
             *leaves, attn_mask=smask), leaves, sg)}
-    keep = lambda: adc.keep_mask(seed, (b, h, l, l), RATE,  # noqa: E731
-                                 device="cuda")
+    keep = lambda: adc.keep_mask(seed, (b, h, lq, lk),  # noqa: E731
+                                 RATE, device="cuda")
     rows = [("row 1", lambda: ac.attention_fwd(q, k, v, bias, scale, h),
              lambda: ac.attention_fwd_ref(q, k, v, bias, scale, h), False)]
     if train:
@@ -2693,8 +2736,10 @@ def time_task_rows(q, k, v, bias, g, scale, h, seed, train, twins=True):
         plain_ms = kernel_ms(plain, iters=5) if twins else None
         lib_ms = kernel_ms(library[name], iters=30) \
             if name in library else None
-        bnd = attention_bound(b, l, l, h, d, 2, backward)
-        print(f"{name} B={b} L={l} bf16: {ms:.4f} ms, plain twin "
+        bnd = attention_bound(b, lq, lk, h, d, 2, backward)
+        where = f"L={lq}" if lq == lk else f"Lq={lq} Lk={lk}"
+        print(f"{name} B={b} {where} H={h} D={d} bf16: {ms:.4f} ms, plain "
+              "twin "
               f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
               f", SDPA "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
@@ -2703,12 +2748,12 @@ def time_task_rows(q, k, v, bias, g, scale, h, seed, train, twins=True):
               "the bound", flush=True)
 
 
-def write_config(root, name, **fields):
-    """A copy of ctrl_uniter_base's config with ``fields`` replaced, in
-    ``root``; the repo's configs stay as they are."""
+def write_config(root, name, base=CONFIG, **fields):
+    """A copy of ctrl_uniter_base's config (or ``base``) with ``fields``
+    replaced, in ``root``; the repo's configs stay as they are."""
     from volta_tpu_torch.config import VoltaConfig
 
-    cfg = VoltaConfig.from_json_file(CONFIG)
+    cfg = VoltaConfig.from_json_file(base)
     for key, val in fields.items():
         if not hasattr(cfg, key):
             raise KeyError(key)
@@ -2978,16 +3023,26 @@ def run_train(root, data_dir, yml, flagged, hm, fuse, pmask, free, hm_free):
     return out, data
 
 
+def task_config(config, tc):
+    """``config`` with the task's ``fusion_method``, as the CLIs apply it
+    (train_task.py:185-187, eval_task.py:163-165)."""
+    from volta_tpu_torch.config import VoltaConfig
+
+    cfg = VoltaConfig.from_json_file(config)
+    if tc.get("fusion_method"):
+        cfg.fusion_method = tc["fusion_method"]
+    return cfg
+
+
 def build_model(task_cfg, dtype, config=CONFIG, seed=0, task="TASK1"):
-    """ctrl_uniter_base (``config``) with ``task``'s head (VQA's by
+    """ctrl_uniter_base (or ``config``) with ``task``'s head (VQA's by
     default) on the card, random weights from ``seed``."""
     import torch
 
     from volta_tpu_torch import VoltaForVLTasks
-    from volta_tpu_torch.config import VoltaConfig
     from volta_tpu_torch.models.layers import init_weights
 
-    cfg = VoltaConfig.from_json_file(config)
+    cfg = task_config(config, task_cfg[task])
     cfg.compute_dtype = dtype
     model = VoltaForVLTasks(cfg, task_cfg, (task,))
     init_weights(model, torch.Generator().manual_seed(seed))
@@ -3476,19 +3531,19 @@ def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
     torch.cuda.empty_cache()
 
 
-def export_reload(root, data_dir, yml):
-    """Phase 15 (c): a model exported as a reference ``.bin`` and read by
-    the eval CLI's loader into a model of other random weights: its b1024
-    logits bit-equal to the source's."""
+def export_reload(root, data_dir, yml, config=CONFIG, tag="export"):
+    """Phase 15 (c) and 18 (f): a model of ``config`` exported as a
+    reference ``.bin`` and read by the eval CLI's loader into a model of
+    other random weights: its b1024 logits bit-equal to the source's."""
     import torch
 
     from volta_tpu_torch import eval_task
     from volta_tpu_torch.checkpoint import save_reference_checkpoint
     from volta_tpu_torch.eval_step import make_task_eval_step, to_device
 
-    argv = ["--config_file", CONFIG, "--tasks_config_file", yml, "--task",
+    argv = ["--config_file", config, "--tasks_config_file", yml, "--task",
             "1", "--vocab_file", os.path.join(data_dir, "vocab.txt"),
-            "--output_dir", os.path.join(root, "results_export"),
+            "--output_dir", os.path.join(root, f"results_{tag}"),
             "--num_workers", "4", "--compute_dtype", "bfloat16",
             "--device", "cuda", "--seed", "0"]
     src, task_cfg, task, data = eval_task.setup(eval_task.parse_args(argv))
@@ -3504,7 +3559,7 @@ def export_reload(root, data_dir, yml):
     with torch.no_grad():
         a = make_task_eval_step(src, task_cfg, task)(batch)["prediction"]
         b = make_task_eval_step(loaded, task_cfg, task)(batch)["prediction"]
-    print(f"export -> {os.path.getsize(path) / 2**20:.1f} MiB .bin "
+    print(f"{tag} -> {os.path.getsize(path) / 2**20:.1f} MiB .bin "
           f"({saved:.1f} s) -> eval_task loader ({load_s:.1f} s incl. data): "
           f"b{a.shape[0]} logits max abs diff "
           f"{float((a.float() - b.float()).abs().max()):.3e}", flush=True)
@@ -4235,6 +4290,378 @@ def check_capture_train_extras(root, data_dir, yml, task_yml, task_cfg,
     return rates
 
 
+# ----------------------------------------------------------------- phase 18
+# the families' configs with the yml whose TASK1 (VQA) fields phase 18 runs
+# them under, on the synthetic VQA dataroot
+FAMILY_RUNS = {
+    "ctrl_vilbert_base": "ctrl_trainval_tasks.yml",
+    "vilbert_base": "vilbert_trainval_tasks.yml",
+    "ctrl_lxmert": "ctrl_trainval_tasks.yml",
+    "lxmert": "lxmert_trainval_tasks.yml",
+    "ctrl_visualbert_base": "ctrl_trainval_tasks.yml",
+    "ctrl_vl-bert_base": "ctrl_trainval_tasks.yml",
+    "vl-bert_base": "vl-bert_trainval_tasks.yml",
+}
+# the attention launches a forward and K10's a training forward of each
+# config, counted by hand from its plan: a check of plan_counts' derivation.
+# The ViLBERTs run 30 query streams and 60 tails, the LXMERTs 34 and 58;
+# the single-stream families' K10 counts are the 24 tails, their
+# embeddings' sites (VisualBERT one, VL-BERT's obj_downsample input and
+# joint output two) and the pooled output
+FAMILY_COUNTS = {"ctrl_vilbert_base": (30, 63), "vilbert_base": (30, 63),
+                 "ctrl_lxmert": (34, 61), "lxmert": (34, 61),
+                 "ctrl_visualbert_base": (12, 26),
+                 "ctrl_vl-bert_base": (12, 27), "vl-bert_base": (12, 27)}
+# vilbert_base's rows 1-4 alone: the eval batch (1024, row 1) and the train
+# batch (256, rows 1-4) at the co-attention's and the vision stream's
+# (Lq, Lk), 8 heads of 128
+WIDE_ROWS = [(b, lq, lk, train) for b, train in ((1024, False), (256, True))
+             for lq, lk in ((23, 37), (37, 23), (37, 37))]
+
+
+def plan_counts(cfg):
+    """Launches of one forward of ``cfg``'s model at its dropout rates,
+    from its sublayer plan, and of its backward: ``attn`` the attention
+    launches (on the fused single-stream loop one an attention sublayer,
+    else one a query stream the sublayer has), ``tails`` the sublayer
+    tails (one over the joined sequence on the fused loop, with a single
+    LayerNorm or where ``fuse_dual_stream`` joins two streams, else one a
+    stream), ``ff_tails`` the feed-forwards' share of them, ``k10`` K10's
+    launches a training forward: the tails, the embeddings' dropout sites
+    and the pooled (or region) output's. The ``*_bwd`` counts leave out
+    what autograd does not run back through: where the head reads no
+    region output (``fusion_method`` text or vl-bert_vqa), the vision
+    stream after the last sublayer whose vision output a text query reads
+    (LXMERT's last layer) feeds no loss."""
+    plan = cfg.sublayer_plan()
+    fused = all(s.has_text and s.has_vision and s.shared and s.single_ln
+                and (s.kind == "ff" or (s.has_tt and s.has_tv and s.has_vt
+                                        and s.has_vv)) for s in plan)
+    out = dict.fromkeys(("attn", "tails", "ff_tails", "attn_bwd",
+                         "tails_bwd", "ff_tails_bwd"), 0)
+    live_t = True
+    live_v = fused or cfg.fusion_method not in ("text", "vl-bert_vqa")
+    for s in reversed(plan):
+        two = s.has_text and s.has_vision
+        joined = fused or s.single_ln or (cfg.fuse_dual_stream and two)
+        streams = 1 if fused else s.has_text + s.has_vision
+        tails = 1 if joined else streams
+        live = (live_t and s.has_text) + (live_v and s.has_vision)
+        tails_bwd = min(live, 1) if joined else live
+        out["tails"] += tails
+        out["tails_bwd"] += tails_bwd
+        if s.kind == "attn":
+            out["attn"] += streams
+            out["attn_bwd"] += min(live, 1) if fused else live
+            live_t, live_v = (live_t or (live_v and s.has_vt),
+                              live_v or (live_t and s.has_tv))
+        else:
+            out["ff_tails"] += tails
+            out["ff_tails_bwd"] += tails_bwd
+    emb = {"visualbert": 1, "vl-bert": 1 + (
+        cfg.v_attention_probs_dropout_prob > 0)}.get(cfg.image_embeddings, 2)
+    out["k10"] = out["tails"] + emb + 1
+    out["k10_bwd"] = out["tails_bwd"] + emb + 1
+    return out
+
+
+def k10_of(counts, steps):
+    """K10's launches in ``steps`` training steps of a plan's ``counts``."""
+    return {"hash_dropout_fwd": counts["k10"] * steps,
+            "hash_dropout_bwd": counts["k10_bwd"] * steps}
+
+
+def family_yml(root, data_dir, src):
+    """TASK1 (VQA) of ``config_tasks/<src>`` on the synthetic dataroot, in
+    ``root``: its sequence and region lengths, batch sizes, lr and, for
+    VL-BERT, its ``fusion_method`` and ``embed_clf``."""
+    import yaml
+
+    with open(os.path.join(REPO, "config_tasks", src)) as f:
+        tc = yaml.safe_load(f)["TASK1"]
+    tc.update(dataroot=data_dir,
+              features_h5path1=os.path.join(data_dir, "features.lmdb"))
+    path = os.path.join(root, "family_" + src)
+    with open(path, "w") as f:
+        yaml.safe_dump({"TASK1": tc}, f)
+    return path
+
+
+def family_data(root, data_dir, yml, config, tag):
+    """The family's VQA loaders (its config and the yml's task, the fusion
+    override applied): one eval batch of the yml's eval size and one train
+    batch, numpy."""
+    from volta_tpu_torch import train_task
+    from volta_tpu_torch.task_utils import load_dataset, load_task_config
+
+    task_cfg = load_task_config(yml)
+    tc = task_cfg["TASK1"]
+    data = load_dataset(train_task.parse_args(train_argv(
+        root, data_dir, yml, config, 1, tag)), task_config(config, tc),
+        task_cfg, "1")
+    per = tc.get("eval_batch_size", tc["batch_size"]) // tc["batch_size"]
+    arrays = lambda b: {k: v for k, v in b.items()  # noqa: E731
+                        if isinstance(v, np.ndarray)}
+    eval_np = concat_batches([arrays(b) for _, b in zip(
+        range(per), data["val_loader"])])
+    return task_cfg, eval_np, arrays(next(iter(data["train_loader"])))
+
+
+def family_steps(task_cfg, eval_np, train_np, tag, config, steps=2):
+    """Phase 18 (b)-(d): one eval batch of ``config`` held to the twins
+    (``hold_task_logits``) and through the kernels with exact launches,
+    then ``steps`` train steps with the config's dropout, exact launches,
+    finite losses. Returns the launches of both runs and ms/step."""
+    import torch
+
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+
+    counts = plan_counts(task_config(config, task_cfg["TASK1"]))
+    model = hold_task_logits(task_cfg, "TASK1", eval_np, tag, config)
+    batch = to_device(eval_np, "cuda")
+    reset_launches()
+    logits = make_task_eval_step(model, task_cfg, "TASK1")(batch)[
+        "prediction"]
+    torch.cuda.synchronize()
+    launches = {"eval": dict(LAUNCHES)}
+    want = expect(attention_fwd=counts["attn"])
+    if launches["eval"] != want or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{tag} eval b{logits.shape[0]} launches "
+                           f"{launches['eval']}, expected {want}")
+    model.train()
+    state, step = new_step(model, task_cfg, 1e-4)
+    tbatch = to_device(train_np, "cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    losses = [float(step(state, tbatch)["loss"]) for _ in range(steps)]
+    ms = (time.time() - t0) / steps * 1e3
+    launches["train"] = dict(LAUNCHES)
+    want = expect(attention_dropout_fwd=counts["attn"] * steps,
+                  attention_dropout_bwd=counts["attn_bwd"] * steps,
+                  **k10_of(counts, steps))
+    print(f"{tag}: eval b{logits.shape[0]} launches {launches['eval']}; "
+          f"{steps} train steps at b{train_np['question'].shape[0]}, "
+          f"losses {losses}, {ms:.1f} ms/step on the host clock (the first "
+          f"step's set-up included), launches {launches['train']}",
+          flush=True)
+    if launches["train"] != want or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"{tag} train launches {launches['train']}, "
+                           f"expected {want}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_family_rows():
+    """Phase 18 (b): rows 1-4 alone at vilbert_base's shapes (WIDE_ROWS,
+    H = 8, D = 128) against their twins, bf16 and fp32, as phase 16 holds
+    the task shapes; in bf16 their device times beside the twins', SDPA's
+    and the bound (``time_task_rows``)."""
+    import torch
+
+    from volta_tpu_torch.ops import attention_cuda as ac
+    from volta_tpu_torch.ops import attention_dropout_cuda as adc
+
+    h, d = 8, 128
+    scale = d ** -0.5
+    for i, (b, lq, lk, train) in enumerate(WIDE_ROWS):
+        for dt in ("bfloat16", "float32"):
+            seed = 1800 + i
+            q, k, v, bias = attention_inputs(b, lq, lk, h, d,
+                                             getattr(torch, dt), seed)
+            g = torch.randn_like(q)
+            out1 = ac.attention_fwd(q, k, v, bias, scale, h)
+            torch.cuda.synchronize()
+            ref1 = ac.attention_fwd_ref(q, k, v, bias, scale, h)
+            err1 = float((out1.float() - ref1.float()).abs().max())
+            if not bool(torch.isfinite(out1).all()) or err1 > TOL[dt]:
+                raise RuntimeError(f"row 1 disagrees at B={b} Lq={lq} "
+                                   f"Lk={lk} D={d} {dt}: {err1:.3e}")
+            line = f"row 1 {err1:.3e}"
+            if train:
+                got2 = ac.attention_bwd(q, k, v, bias, g, scale, h)
+                out3, mask = adc.attention_dropout_fwd(
+                    q, k, v, bias, scale, h, RATE, seed, return_mask=True)
+                got4 = adc.attention_dropout_bwd(q, k, v, bias, g, scale, h,
+                                                 RATE, seed)
+                torch.cuda.synchronize()
+                keep = adc.keep_mask(seed, (b, h, lq, lk), RATE,
+                                     device="cuda")
+                if not torch.equal(mask, keep):
+                    raise RuntimeError(f"row-3 mask differs from the twin's "
+                                       f"at B={b} Lq={lq} Lk={lk} {dt}")
+                where = f"at B={b} Lq={lq} Lk={lk}"
+                err2 = max(close(a, r, dt, f"row 2 d{n} {where}")
+                           for n, a, r in zip("qkv", got2,
+                                              ac.attention_bwd_ref(
+                                                  q, k, v, bias, g, scale, h,
+                                                  want_db=False)))
+                ref3 = adc.attention_dropout_fwd_ref(q, k, v, bias, scale, h,
+                                                     RATE, keep)
+                err3 = float((out3.float() - ref3.float()).abs().max())
+                if not bool(torch.isfinite(out3).all()) or err3 > TOL[dt]:
+                    raise RuntimeError(f"row 3 disagrees {where} {dt}: "
+                                       f"{err3:.3e}")
+                err4 = max(close(a, r, dt, f"row 4 d{n} {where}")
+                           for n, a, r in zip(
+                               "qkv", got4, adc.attention_dropout_bwd_ref(
+                                   q, k, v, bias, g, scale, h, RATE, keep)))
+                line += (f", row 2 {err2:.3e}, row 3 {err3:.3e} (mask "
+                         f"bit-equal, keep fraction "
+                         f"{float(mask.float().mean()):.5f}), row 4 "
+                         f"{err4:.3e}")
+                del got2, out3, mask, got4, keep, ref3
+            print(f"B={b} Lq={lq} Lk={lk} H={h} D={d} {dt} max abs diff vs "
+                  f"twins: {line}", flush=True)
+            if dt == "bfloat16":
+                time_task_rows(q, k, v, bias, g, scale, h, seed, train)
+            del q, k, v, bias, g, out1, ref1
+
+
+def family_flags(root, task_cfg, eval_np, train_np, steps=2):
+    """Phase 18 (e): ctrl_vilbert_base's flags, two b256 train steps each
+    with exact launches: the LayerNorm kernels (rows 10-13 at every
+    per-stream tail), the head-major attention (rows 5-6, its eval logits
+    equal to the natural layout's to the bit), the keep-mask kernel (row
+    14), ``remat_ff`` (bit-equal to the plain step, ``remat_steps``) and
+    ``fuse_dual_stream`` (one K10 a joined tail). Returns the launches of
+    each."""
+    import torch
+
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+    from volta_tpu_torch.models.layers import LayerNorm
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+
+    base = os.path.join(REPO, "configs", "ctrl_vilbert_base.json")
+    cfg = task_config(base, task_cfg["TASK1"])
+    c = plan_counts(cfg)
+    attn, tails = c["attn"], c["tails"]
+    rows34 = dict(attention_dropout_fwd=attn, attention_dropout_bwd=c[
+        "attn_bwd"])
+    # K10 at the embeddings' and the pooled output's sites alone
+    side = k10(c["k10"] - tails)
+    tbatch = to_device(train_np, "cuda")
+    out = {}
+    flags = {
+        "LayerNorm kernels": (dict(use_pallas_layernorm=True,
+                                   use_fused_residual_ln=True), None),
+        "head-major": (dict(attn_natural_layout=False), dict(
+            attention_dropout_head_major_fwd=attn,
+            attention_dropout_head_major_bwd=c["attn_bwd"],
+            **k10_of(c, 1))),
+        "keep-mask kernel": (dict(use_pallas_dropout_mask=True), dict(
+            rows34, keep_mask=tails, **side)),
+        "fuse_dual_stream": (dict(fuse_dual_stream=True), None),
+    }
+    for name, (fields, per_step) in flags.items():
+        config = write_config(root, f"ctrl_vilbert_base_{len(out)}.json",
+                              base=base, **fields)
+        model = build_model(task_cfg, "bfloat16", config).train()
+        if name == "LayerNorm kernels":
+            # the LayerNorms outside the tails (the embeddings', the
+            # classifier's) on rows 10-11, every tail on rows 12-13
+            plain_lns = sum(isinstance(m, LayerNorm) and not n.endswith(
+                "out_ln") for n, m in model.named_modules())
+            per_step = dict(rows34, layer_norm_fwd=plain_lns,
+                            layer_norm_bwd=plain_lns,
+                            dropout_residual_ln_fwd=tails,
+                            dropout_residual_ln_bwd=c["tails_bwd"], **side)
+        if name == "fuse_dual_stream":
+            fc = plan_counts(task_config(config, task_cfg["TASK1"]))
+            if fc["tails"] >= tails:
+                raise RuntimeError(f"fuse_dual_stream joins no tail: {fc}")
+            per_step = dict(rows34, **k10_of(fc, 1))
+        state, step = new_step(model, task_cfg, 1e-4)
+        reset_launches()
+        losses = [float(step(state, tbatch)["loss"]) for _ in range(steps)]
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        want = expect(**{k: n * steps for k, n in per_step.items()})
+        print(f"ctrl_vilbert_base {name}: {steps} b256 steps, losses "
+              f"{losses}, launches {launches}", flush=True)
+        if launches != want or not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"{name}: launches {launches}, expected "
+                               f"{want}")
+        if name == "head-major":
+            # as phase 11 holds the head-major model: its logits on the
+            # natural layout, the same weights, equal to the bit
+            model.eval()
+            fn = make_task_eval_step(model, task_cfg, "TASK1")
+            one = to_device({k: v[:256] for k, v in eval_np.items()}, "cuda")
+            hm = fn(one)["prediction"]
+            with natural_layout(model):
+                nat = fn(one)["prediction"]
+            print(f"ctrl_vilbert_base head-major vs natural layout, eval "
+                  f"b256 bf16: max abs diff "
+                  f"{float((hm.float() - nat.float()).abs().max()):.3e} "
+                  "(tol 0)", flush=True)
+            if not torch.equal(hm, nat):
+                raise RuntimeError("the head-major dual-stream model "
+                                   "disagrees with the natural layout")
+        out[name] = launches
+        del model, state, step
+        torch.cuda.empty_cache()
+    remat = write_config(root, "ctrl_vilbert_base_remat.json", base=base,
+                         remat_ff=True)
+    plain = dict(rows34, **k10_of(c, 1))
+    # the backward's recomputation replays each feed-forward tail's K10
+    # forward
+    counts = {"plain": plain, "remat_ff": dict(
+        plain, hash_dropout_fwd=c["k10"] + c["ff_tails_bwd"])}
+    remat_steps(task_cfg, tbatch, base, remat, counts, "ctrl_vilbert_base")
+    out["remat_ff"] = expect(**{k: 2 * n for k, n in
+                                counts["remat_ff"].items()})
+    return out
+
+
+def check_families(root, data_dir, power):
+    """Phase 18: the other families at full width on synthetic VQA, each
+    config's launches counted from its plan and held to FAMILY_COUNTS.
+    Returns the launches of every run and (a)'s rates."""
+    from volta_tpu_torch.config import VoltaConfig
+
+    for name, (attn, sites) in FAMILY_COUNTS.items():
+        cfg = VoltaConfig.from_json_file(os.path.join(REPO, "configs",
+                                                      name + ".json"))
+        if FAMILY_RUNS[name] == "vl-bert_trainval_tasks.yml":
+            cfg.fusion_method = "vl-bert_vqa"
+        got = plan_counts(cfg)
+        if (got["attn"], got["k10"]) != (attn, sites):
+            raise RuntimeError(f"{name}: the plan gives {got}, expected "
+                               f"{attn} attention and {sites} K10 launches")
+    ymls = {src: family_yml(root, data_dir, src)
+            for src in set(FAMILY_RUNS.values())}
+    config = lambda n: os.path.join(REPO, "configs", n + ".json")  # noqa
+    launches = {}
+    # (a) ctrl_vilbert_base through both CLIs, at full depth
+    run = run_task(root, data_dir, ymls[FAMILY_RUNS["ctrl_vilbert_base"]],
+                   power, "1", "ctrl_vilbert_base", True,
+                   config=config("ctrl_vilbert_base"))
+    launches["ctrl_vilbert_base"] = {k: run[k] for k in ("eval", "train")}
+    # (b)-(d) one eval batch and two train steps of every other family
+    for name in ("vilbert_base", "ctrl_lxmert", "lxmert",
+                 "ctrl_visualbert_base", "ctrl_vl-bert_base",
+                 "vl-bert_base"):
+        yml = ymls[FAMILY_RUNS[name]]
+        task_cfg, eval_np, train_np = family_data(root, data_dir, yml,
+                                                  config(name), name)
+        launches[name] = family_steps(task_cfg, eval_np, train_np, name,
+                                      config(name))
+        if name == "vilbert_base":
+            check_family_rows()
+    # (e) the flags, (f) the round trip, on ctrl_vilbert_base
+    yml = ymls[FAMILY_RUNS["ctrl_vilbert_base"]]
+    task_cfg, eval_np, train_np = family_data(
+        root, data_dir, yml, config("ctrl_vilbert_base"), "flags")
+    launches["ctrl_vilbert_base flags"] = family_flags(root, task_cfg,
+                                                       eval_np, train_np)
+    export_reload(root, data_dir, yml, config("ctrl_vilbert_base"),
+                  "ctrl_vilbert_base export")
+    return launches, run["rates"]
+
+
 def profile_device(fn, call_ms, what, calls=3, top=40):
     """Device time of ``fn()`` (a train step or an eval forward) by kernel
     (torch.profiler) over ``calls`` calls after the timing runs, and the
@@ -4394,6 +4821,9 @@ def main(argv):
             rates.update(check_capture_train_extras(
                 root, data_dir, yml, task_yml, task_cfg, batch, power,
                 free, "--profile" in argv))
+        with phase("18 the other families"):
+            family_launches, family_rates = check_families(root, data_dir,
+                                                           power)
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -4431,8 +4861,8 @@ def main(argv):
     print(f"plain route vs kernel route [{power}]: train b256 default "
           f"{rates['plain route'][1]:.2f} vs {rates['kernel route'][1]:.2f} "
           "ms/step", flush=True)
-    for tag, run in task_runs.items():
-        r = run["rates"]
+    for tag, r in [(t, run["rates"]) for t, run in task_runs.items()] + [
+            ("ctrl_vilbert_base VQA", family_rates)]:
         print(f"{tag} [{power}]: eval {r['eval_items_per_s']:.1f} items/s, "
               f"train {r['train_ms']:.2f} ms/step", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
@@ -4496,6 +4926,10 @@ def main(argv):
              "task_heads_launches": sum(
                  run[k][name] for run in task_runs.values()
                  for k in ("eval", "train") if k in run),
+             # phase 18's: every run of the other families
+             "families_launches": sum(
+                 runs[name] for family in family_launches.values()
+                 for runs in family.values()),
              "pallas": name not in NOT_PALLAS,
              **({"body": bodies[name]} if name in bodies else {})}
             for name, (src, replaces) in KERNELS.items()]

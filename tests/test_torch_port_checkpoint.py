@@ -13,7 +13,8 @@ without the ``bert.`` prefix, with a pooler and MLM keys nothing reads)
 loads alike through both, by ``from_hf`` and by detection. The ``module.``
 prefix, ``gamma``/``beta``, the token-type resize and the strict-mode
 errors behave as in JAX; ``from_pretrained`` detects each format the port
-reads and refuses the JAX package's own saves and RoBERTa.
+reads, reads them for a RoBERTa config too, and refuses the JAX package's
+own saves.
 """
 
 import dataclasses
@@ -270,9 +271,12 @@ def test_from_pretrained_detects_each_format(pcfg, params, ref_sd, tmp_path):
     (tmp_path / "flax" / "flax_model.msgpack").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="item 12"):
         ck.from_pretrained(pcfg, fresh(pcfg), str(tmp_path / "flax"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ck.from_pretrained(dataclasses.replace(pcfg, model="roberta"),
-                           fresh(pcfg), str(tmp_path / "ref.bin"))
+    # a RoBERTa config reads the same file, as JAX's importer does
+    loads_roberta = fresh(pcfg)
+    report = ck.from_pretrained(dataclasses.replace(pcfg, model="roberta"),
+                                loads_roberta, str(tmp_path / "ref.bin"))
+    assert report["skipped"] == []
+    assert_state_equal(loads_roberta.state_dict(), want)
     # the port's own names, a key short: strict, so it raises
     own = src.state_dict()
     own.pop("clf_TASK1.dense2.bias")

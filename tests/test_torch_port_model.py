@@ -227,15 +227,25 @@ def test_full_logits_and_loss_match(flax_params, dtype, use_pallas):
     assert float(tscore) == float(jscore2)
 
 
-def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="dual-stream"):
-        VoltaForVLTasks(zoo.build("ctrl_vilbert_base"), TASK_CFG, ("TASK1",))
-    with pytest.raises(NotImplementedError, match="visualbert"):
-        VoltaForVLTasks(zoo.build("ctrl_visualbert_base"), TASK_CFG,
-                        ("TASK1",))
+def test_unported_configs_raise(tmp_path):
+    """What the port still refuses: ``use_scan``, the JAX package's own
+    Flax msgpack and Orbax saves, and a head type the JAX module does not
+    know. Every family's config builds (tests/test_torch_port_families.py
+    holds each against JAX)."""
+    from volta_tpu_torch import checkpoint as ck
+    from volta_tpu_torch.config import VoltaConfig
+
     cfg = dataclasses.replace(small_cfg(), use_scan=True)
     with pytest.raises(NotImplementedError, match="use_scan"):
         VoltaForVLTasks(cfg, TASK_CFG, ("TASK1",))
+    pcfg = VoltaConfig.from_dict(small_cfg().to_dict())
+    model = VoltaForVLTasks(pcfg, TASK_CFG, ("TASK1",))
+    for name, leaf in (("flax", "flax_model.msgpack"),
+                       ("orbax", "_CHECKPOINT_METADATA")):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / leaf).write_bytes(b"")
+        with pytest.raises(NotImplementedError, match="Orbax"):
+            ck.from_pretrained(pcfg, model, str(tmp_path / name))
     # every head type of the JAX module is ported; an unknown one raises
     # as the JAX module's does
     VoltaForVLTasks(small_cfg(), {"TASK8": {"type": "VL-logit"}}, ("TASK8",))

@@ -27,7 +27,7 @@ apply to the Flax path of each parameter, and its reports name the same
 Flax paths. Reference tensors are already in torch's layout: nothing is
 transposed, the moments neither. The JAX package's own saves (Flax msgpack
 bundles, Orbax directories) are not read here (``convert.py`` bridges Flax
-params), nor is the RoBERTa text path.
+params).
 """
 
 from __future__ import annotations
@@ -734,12 +734,8 @@ def from_pretrained(cfg: VoltaConfig, model: nn.Module, path: str, *,
         ``import_state_dict``;
       * an http(s)/s3 URL of one, through ``cached_path``.
     A Flax msgpack bundle or an Orbax directory (the JAX package's own
-    saves) raises, and so does a RoBERTa config. Returns the report:
+    saves) raises. Returns the report:
     ``loaded`` / ``skipped`` / ``unused``."""
-    if cfg.model == "roberta":
-        raise NotImplementedError(
-            "the RoBERTa text path is not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
     if "://" in path:
         path = cached_path(path, cache_dir)
     if os.path.isdir(path):

@@ -3,7 +3,8 @@
 The port's submodules carry the Flax tree's names, so the bridge is a
 generic walk: ``a/b/c/kernel`` becomes ``a.b.c.weight`` transposed (Flax
 keeps Dense kernels as [in, out], torch as [out, in]), LayerNorm ``scale``
-and Embed ``embedding`` become ``weight``, ``bias`` stays ``bias``.
+and Embed ``embedding`` become ``weight``, ``bias`` stays ``bias``, and a
+module's raw parameters (VL-BERT's mask embeddings) keep their names.
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ import torch
 from torch import nn
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias"}
+         "bias": "bias",
+         # VL-BERT's raw parameters keep their names
+         "object_mask_visual_embedding": "object_mask_visual_embedding",
+         "object_mask_word_embedding": "object_mask_word_embedding"}
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

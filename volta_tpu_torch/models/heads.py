@@ -1,12 +1,13 @@
 """Poolers and the classifier of the VQA and NLVR2 heads.
 
 Counterpart of ``volta_tpu/models/heads.py`` (heads.py:27-67,118-171):
-``TextPooler``, ``ImagePooler``, ``fuse_pooled`` and ``SimpleClassifier``.
-The pretraining heads and the VL-BERT pooler are not ported yet.
+``TextPooler``, ``VLBertTextPooler``, ``ImagePooler``, ``fuse_pooled`` and
+``SimpleClassifier``. The pretraining heads are not ported yet.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -25,6 +26,23 @@ class TextPooler(nn.Module):
 
     def forward(self, hidden):
         return F.relu(self.dense(hidden[:, 0]))
+
+
+class VLBertTextPooler(nn.Module):
+    """VL-BERT VQA's pooler (``fusion_method: vl-bert_vqa``): the hidden
+    state of the [MASK] slot at text_end - 2, clipped into the sequence,
+    dense + ReLU (reference: volta/encoders.py:610-623)."""
+
+    def __init__(self, cfg: VoltaConfig):
+        super().__init__()
+        self.dense = Dense(cfg.hidden_size, cfg.pooler_size,
+                           cfg.initializer_range, compute_dtype(cfg))
+
+    def forward(self, hidden, text_end):
+        """``text_end`` [B]: the count of non-pad text tokens."""
+        idx = (text_end - 2).clamp(0, hidden.shape[1] - 1)
+        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        return F.relu(self.dense(hidden[rows, idx]))
 
 
 class ImagePooler(nn.Module):

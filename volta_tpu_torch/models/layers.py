@@ -217,7 +217,30 @@ def init_weights(module: nn.Module,
     for m in module.modules():
         if isinstance(m, (Dense, Embed, LayerNorm)):
             m.reset_parameters(generator)
+        elif hasattr(m, "reset_own_parameters"):
+            m.reset_own_parameters(generator)  # a module's raw parameters
     return module
+
+
+def residual_ln_seg(o, res, w_t, b_t, w_v, b_v, lt: int, rate: float,
+                    seed: Optional[int], hash_mask: bool = True,
+                    eps: float = LN_EPS) -> torch.Tensor:
+    """One dropout + residual + LayerNorm chain over a [text ‖ vision]
+    sequence whose segments own different LayerNorm affines, the JAX
+    package's ``residual_ln_seg`` (volta_tpu/models/layers.py:175-203):
+    one dropout over the concatenation (``hash_dropout``, or
+    ``int_threshold_dropout`` without ``hash_mask``) for ``seed``, float32
+    statistics a token, then text rows take (w_t, b_t) and the rest
+    (w_v, b_v); output in the sum's dtype."""
+    if seed is not None and rate > 0.0:
+        o = hash_dropout(o, seed, rate) if hash_mask \
+            else int_threshold_dropout(o, seed, rate)
+    s = o + res
+    dim, lv = s.shape[-1], s.shape[-2] - lt
+    y = F.layer_norm(s.float(), (dim,), eps=eps)
+    seg = lambda a, b: torch.cat([  # noqa: E731
+        a.float().expand(lt, dim), b.float().expand(lv, dim)])
+    return (y * seg(w_t, w_v) + seg(b_t, b_v)).to(s.dtype)
 
 
 # ------------------------------------------------------------------ dropout

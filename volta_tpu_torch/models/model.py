@@ -1,9 +1,10 @@
 """Backbone and task wrapper.
 
 Counterpart of ``volta_tpu/models/model.py``: ``VoltaModel`` (model.py:30-108)
-with the shared-embedding branch, ``VLogitMLP`` (:140-151) and
-``VoltaForVLTasks`` (:156-246) with every head type of the JAX module:
-``VL-classifier`` / ``VL-classifier-GQA`` and ``VL-binary-classifier``
+with the shared and the dual-stream embeddings and every pooler (the
+VL-BERT [MASK] pooler under ``fusion_method: vl-bert_vqa``), ``VLogitMLP``
+(:140-151) and ``VoltaForVLTasks`` (:156-246) with every head type of the
+JAX module: ``VL-classifier`` / ``VL-classifier-GQA`` and ``VL-binary-classifier``
 (``SimpleClassifier``, the binary one over the two images' pooled outputs
 side by side), ``VL-tri-classifier`` and ``VL-logit`` (one ``Dense``), and
 ``V-logit`` / ``V-logit-mc`` (a ``Dense`` or, with ``num_clf_layers: 2``,
@@ -12,9 +13,10 @@ side by side), ``VL-tri-classifier`` and ``VL-logit`` (one ``Dense``), and
 whether dropout runs: in eval mode the forward is the JAX package's
 ``deterministic=True`` path; in training mode every dropout site of the JAX
 train path runs, each with its own uint32 seed from ``DropoutSeeds`` over
-the forward's ``dropout_seed``, drawn in call order: the encoder's, the
-pooled output's, then the region outputs' and ``VLogitMLP``'s. Submodule
-names follow the Flax tree (``bert.embeddings``, ``bert.encoder``,
+the forward's ``dropout_seed``, drawn in call order: the embeddings'
+(text, then vision), the encoder's, the pooled output's, then the region
+outputs' and ``VLogitMLP``'s. Submodule names follow the Flax tree
+(``bert.embeddings``, ``bert.v_embeddings``, ``bert.encoder``,
 ``bert.t_pooler``, ``clf_TASK1``, ``clf_TASK10.dense1``) so that
 ``convert.state_dict_from_flax`` is a plain walk.
 
@@ -35,28 +37,37 @@ from torch import nn
 
 from ..config import VoltaConfig
 from ..ops.attention import additive_mask
-from .embeddings import build_embeddings
+from .embeddings import DUAL_EMBEDDINGS, SHARED_EMBEDDINGS, \
+    TextEmbeddings, compute_dtype
 from .encoder import GatedEncoder
-from .embeddings import compute_dtype
-from .heads import ImagePooler, SimpleClassifier, TextPooler, fuse_pooled
+from .heads import ImagePooler, SimpleClassifier, TextPooler, \
+    VLBertTextPooler, fuse_pooled
 from .layers import Dense, DropoutSeeds, gelu, hash_dropout, site_seed
 
 
 class VoltaModel(nn.Module):
     """Gated bimodal backbone (reference: volta/encoders.py:918-1017).
-    Returns (seq_t, seq_v, pooled_t, pooled_v)."""
+    Returns (seq_t, seq_v, pooled_t, pooled_v). The single-stream families
+    (``SHARED_EMBEDDINGS``) embed both modalities in one module named
+    ``embeddings``; the dual-stream ones have ``embeddings`` (the text,
+    ``TextEmbeddings``) and ``v_embeddings`` (``DUAL_EMBEDDINGS``), as the
+    JAX module names them (model.py:40-50)."""
 
     def __init__(self, cfg: VoltaConfig):
         super().__init__()
-        if cfg.fusion_method == "vl-bert_vqa":
-            raise NotImplementedError(
-                "the VL-BERT [MASK] pooler is not ported yet")
         self.cfg = cfg
-        self.embeddings = build_embeddings(cfg)
+        self.is_shared = cfg.image_embeddings in SHARED_EMBEDDINGS
+        if self.is_shared:
+            self.embeddings = SHARED_EMBEDDINGS[cfg.image_embeddings](cfg)
+        else:
+            self.embeddings = TextEmbeddings(cfg)
+            self.v_embeddings = DUAL_EMBEDDINGS[cfg.image_embeddings](cfg)
         self.encoder = GatedEncoder(cfg)
-        if cfg.fusion_method != "none":
+        if cfg.fusion_method == "vl-bert_vqa":
+            self.t_pooler = VLBertTextPooler(cfg)
+        elif cfg.fusion_method != "none":
             self.t_pooler = TextPooler(cfg)
-        if cfg.fusion_method not in ("none", "text"):
+        if cfg.fusion_method not in ("none", "text", "vl-bert_vqa"):
             if cfg.pooler_size != cfg.v_pooler_size:
                 raise ValueError("pooler_size != v_pooler_size")
             self.v_pooler = ImagePooler(cfg)
@@ -76,14 +87,21 @@ class VoltaModel(nn.Module):
             image_attention_mask = torch.ones(
                 image_feat.shape[:2], dtype=input_ids.dtype,
                 device=input_ids.device)
-        t_emb, v_emb = self.embeddings(input_ids, image_feat, image_loc,
-                                       token_type_ids, seeds)
+        if self.is_shared:
+            t_emb, v_emb = self.embeddings(input_ids, image_feat, image_loc,
+                                           token_type_ids, seeds)
+        else:
+            t_emb = self.embeddings(input_ids, token_type_ids, seeds)
+            v_emb = self.v_embeddings(image_feat, image_loc, seeds)
         seq_t, seq_v, *rest = self.encoder(
             t_emb, v_emb, additive_mask(attention_mask),
             additive_mask(image_attention_mask), seeds,
             output_all_layers=output_all_layers, output_probs=capture)
-        pooled_t = None if fusion == "none" else self.t_pooler(seq_t)
-        pooled_v = None if fusion in ("none", "text") \
+        if fusion == "vl-bert_vqa":
+            pooled_t = self.t_pooler(seq_t, (input_ids != 0).sum(1))
+        else:
+            pooled_t = None if fusion == "none" else self.t_pooler(seq_t)
+        pooled_v = None if fusion in ("none", "text", "vl-bert_vqa") \
             else self.v_pooler(seq_v)
         if not (output_all_layers or output_probs):
             return seq_t, seq_v, pooled_t, pooled_v

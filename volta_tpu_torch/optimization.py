@@ -104,8 +104,8 @@ def _flax_leaf(module: nn.Module, pname: str) -> str:
     """The Flax leaf name of parameter ``pname`` of ``module``."""
     from .models.layers import Dense, Embed, LayerNorm
 
-    if pname == "bias":
-        return "bias"
+    if pname == "bias" or pname in getattr(module, "RAW_PARAMS", ()):
+        return pname
     for cls, leaf in ((LayerNorm, "scale"), (Dense, "kernel"),
                       (Embed, "embedding")):
         if isinstance(module, cls):
