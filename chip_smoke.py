@@ -10,7 +10,9 @@ the two matmul decision probes, the NLVR2, RefCOCO+ and Flickr30k
 retrieval heads of ``ctrl_trainval_tasks.yml``, and the plain attention
 route with attention-map capture (``--no_pallas``, ``--dump_attn``), the
 device store, gradient accumulation, freezing and ``embed_clf``; then the
-other families: ViLBERT and LXMERT (dual-stream), VisualBERT and VL-BERT.
+other families: ViLBERT and LXMERT (dual-stream), VisualBERT and VL-BERT;
+then the pretraining path on Conceptual Captions, with K8 (the NCE
+negatives' scores).
 
     python3 chip_smoke.py [--profile]
 
@@ -281,13 +283,45 @@ and each of which prints its seconds:
     and ``fuse_dual_stream`` (one K10 a joined tail); (f) ctrl_vilbert_base
     exported as a reference ``.bin`` and read back through the eval CLI's
     loader into other weights, its b1024 logits bit-equal;
-19. the kernels' JSON line (the attention rows also with ``body``, the
-    body their wrapper runs in bf16; ``pallas`` false for K10, which
-    replaces no Pallas kernel; ``bound_by`` "operations" also where the
+19. pretraining at examples/ctrl_uniter/concap/train.sh's width
+    (``check_pretraining``): (a) a synthetic Conceptual Captions dataroot
+    (1024 train and 256 valid images of 10-36 boxes, 2048-d features,
+    1601-way class probabilities, the 30522-token vocab; the port's LMDB
+    writer and msgpack codec, ``write_synth_cc``), ``train_concap.main``
+    with train.sh's flags and ``--in_memory True`` for two epochs (8 b256
+    steps, objective 1, KL, and the validation) with exact launches (rows
+    3-4 12 a step, K10 27 + 27, row 1 12 a val batch) and its CC lines;
+    the same step timed alone (3 x 10 steps, median), its peak, idle share
+    and device ms by kernel family, the MLM decoder and its log-softmax
+    timed alone; ``train_task --from_pretrained`` of its checkpoint for
+    one VQA epoch (the trunk loaded, the ``cls`` heads unused, the VQA head
+    at init); (b) the b256 step held to the twins: fp32 losses and
+    parameters after one update as phase 13 holds the fine-tuning step,
+    bf16 gradients within NOISE_FACTOR times the twins' distance from
+    float64 attention sums (at least GRAD_TOL), exact launches; (c) K8
+    against its twins forward and backward in bf16 and fp32 at b256 and
+    b512 x 36 regions (the dense twin) and b256 against the blockwise twin
+    (fp32 within 1e-5 of the largest, bf16 scores equal to the twin with
+    float64 sums but for at most 1 in 10^4 rounding flips, the flips
+    against the float32 twin printed), with its bf16 time beside the
+    twin's, torch's all-pairs matmul + gather and the bound; a b256 bf16
+    NCE step (``visual_target_weights {"2": 1}``) held as (b) with K8 once
+    forward and once backward, its ms/step against the same step with
+    K8's twins, in turns; (d) one bf16 step's gradients each of lxmert.json
+    (criteria 3-5, ``fusion_method: text``) and vl-bert_base.json
+    (criterion 6, no ITM head, the global row last) at 4 layers a stream
+    (``cut_config``), held as (b) with the launches of their plans
+    (``pretrain_counts``); (e) the CLI's model exported as a reference
+    ``.bin`` and read back into other weights bit for bit;
+20. the kernels' JSON line (the attention rows also with ``body``, the
+    body their wrapper runs in bf16; ``pallas`` false for K10 and K8, which
+    replace no Pallas kernel; ``bound_by`` "operations" also where the
     hash's integer operations bound a kernel, which phases 6 and 7 name;
     ``task_heads_launches`` the launches of phase 16's CLI runs,
-    ``families_launches`` those of phase 18's runs), then
-    ``{"ok": true, "device": ...}`` last.
+    ``families_launches`` those of phase 18's runs,
+    ``pretrain_cli_launches`` those of phase 19's CLI run; K8's
+    ``launches`` from phase 19's NCE step), then ``{"ok": true,
+    "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -432,10 +466,15 @@ KERNELS = {
     "hash_dropout_bwd": ("hash_dropout.cu", "volta_tpu/models/layers.py:226"),
     "wgrad": ("matmul.cu", "tools/wgrad_probe.py:36"),
     "matmul_bias_act": ("matmul.cu", "tools/pallas_ffn_probe.py:46"),
+    "nce_scores_fwd": ("nce_scores.cu", "volta_tpu/losses.py:240"),
+    "nce_scores_bwd": ("nce_scores.cu", "volta_tpu/losses.py:240"),
 }
 # K10: the JAX package's hash_dropout, which XLA fuses and no Pallas kernel
-# computes; its backward is the same kernel on the cotangent
-NOT_PALLAS = ("hash_dropout_fwd", "hash_dropout_bwd")
+# computes; its backward is the same kernel on the cotangent. K8: the NCE
+# negatives' scores of nce_2048 (dense, volta_tpu/losses.py:299-317, and
+# blockwise, _chunked_neg_scores :144-176), an XLA einsum and gather there
+NOT_PALLAS = ("hash_dropout_fwd", "hash_dropout_bwd", "nce_scores_fwd",
+              "nce_scores_bwd")
 # the probes' shapes: the b256 train step's tokens, hidden and FFN widths
 PROBE = (15360, 768, 3072)
 PROBE_ITERS = 3
@@ -451,6 +490,11 @@ KERNEL_FAMILIES = (
     ("band column sums (rows 11, 13)", ("band_sum_kernel",)),
     ("keep-mask kernel (row 14)", ("keep_mask_kernel",)),
     ("hash dropout kernel (K10)", ("hash_dropout_kernel",)),
+    ("NCE scores kernel (K8)", ("nce_scores_",)),
+    # every softmax outside the attention kernels: the plain attention
+    # route's, the task heads', the MLM's log-softmax over 30522 words and
+    # the KL's over 1601 classes
+    ("softmax / log-softmax", ("SoftMax", "softmax")),
     ("index sorts, gathers, scatters (int64)", (
         "RadixSort", "DeviceUniqueByKey", "DeviceScan", "krn_partial",
         "partial_segments", "compute_grad_weight", "embedding_backward",
@@ -1889,6 +1933,7 @@ def twin_swaps():
     from volta_tpu_torch.ops import hash_dropout as hd
     from volta_tpu_torch.ops import layernorm as ln
     from volta_tpu_torch.ops import matmul as mm
+    from volta_tpu_torch.ops import nce
 
     def keep(q, k, heads, rate, seed):
         return adc.keep_mask(seed, (q.shape[0], heads, q.shape[1],
@@ -1941,7 +1986,9 @@ def twin_swaps():
             (hd, "hash_dropout_fwd", hd.hash_dropout_ref),
             (hd, "hash_dropout_bwd", hd.hash_dropout_ref),
             (mm, "wgrad", mm.wgrad_ref),
-            (mm, "matmul_bias_act", mm.matmul_bias_act_ref)]
+            (mm, "matmul_bias_act", mm.matmul_bias_act_ref),
+            (nce, "nce_scores_fwd", nce.dense_neg_scores),
+            (nce, "nce_scores_bwd", nce.nce_scores_bwd_ref)]
 
 
 @contextlib.contextmanager
@@ -4662,6 +4709,723 @@ def check_families(root, data_dir, power):
     return launches, run["rates"]
 
 
+# ----------------------------------------------------------------- phase 19
+# Conceptual Captions at examples/ctrl_uniter/concap/train.sh's width: b256,
+# 38 tokens, 36 regions (+ the global row), 2048-d features, 1601-way class
+# probabilities; 1024 train and 256 valid images of 10-36 boxes
+CC_IMAGES, CC_BOXES = (1024, 256), (10, 36)
+CC_SEQ, CC_REGIONS, CC_BATCH = 38, 36, 256
+# K8 at the b256 and b512 steps' queries (127 negatives of 2048-d rows),
+# the dense twin, and the b256 one against the blockwise twin
+K8_SHAPES = ((256, 36, None), (512, 36, None), (256, 36, 4096))
+K8_DIM, K8_NEG = 2048, 128
+# bf16 scores that may differ from the twin's by one rounding flip (the
+# twin's float32 sum against the kernel's exact one), a share of all
+K8_FLIPS = 1e-4
+# fp32 scores and gradients, and bf16 gradients, relative to the largest
+K8_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# lxmert.json and vl-bert_base.json at 4 layers a stream: the sublayers
+# kept (LXMERT's first two text-and-vision layers and first two cross
+# blocks; VL-BERT's first four layers)
+PRETRAIN_CUTS = {"lxmert": (0, 1, 2, 3, 18, 19, 20, 21, 22, 23),
+                 "vl-bert_base": tuple(range(8))}
+
+def write_synth_cc(out, n_train, n_valid, seed):
+    """A synthetic Conceptual Captions dataroot in the reference's formats,
+    through the port's LMDB writer and msgpack codec: tensorpack-style
+    ``{training,validation}_feat_all.lmdb`` of the 13-field records (10-36
+    boxes of 2048-d non-negative float32 features, 1601-way class and
+    401-way attribute distributions, labels and confidences, boxes in a
+    640 x 480 image, a caption of WORD_STEMS), ``caption_{train,valid}
+    .json`` and the 30522-token vocab. Returns (features, annotations)."""
+    from volta_tpu_torch.data import lmdbx, serialization
+
+    rng = np.random.RandomState(seed)
+    feats_dir, ann_dir = (os.path.join(out, d)
+                          for d in ("imgfeats", "annotations"))
+    os.makedirs(feats_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    for split, n, lmdb_name in (("train", n_train, "training_feat_all"),
+                                ("valid", n_valid, "validation_feat_all")):
+        items, keys, captions = [], [], {}
+        for i in range(n):
+            nb = int(rng.randint(CC_BOXES[0], CC_BOXES[1] + 1))
+            logits = rng.randn(nb, 1601).astype(np.float32) * 2
+            cls = np.exp(logits - logits.max(1, keepdims=True))
+            attr = rng.rand(nb, 401).astype(np.float32)
+            words = [WORD_STEMS[int(j)] for j in
+                     rng.randint(0, len(WORD_STEMS), rng.randint(6, 20))]
+            caption = "a " + " ".join(words) + " ."
+            rec = [np.abs(rng.randn(nb, 2048) * 0.5).astype(np.float32),
+                   cls / cls.sum(1, keepdims=True),
+                   rng.randint(0, 1600, nb).astype(np.int64),
+                   rng.rand(nb).astype(np.float32),
+                   rng.randint(0, 400, nb).astype(np.int64),
+                   rng.rand(nb).astype(np.float32),
+                   attr / attr.sum(1, keepdims=True), synth_boxes(rng, nb),
+                   nb, 480, 640, i, caption]
+            keys.append(serialization.tensorpack_key(i))
+            items.append((keys[-1], serialization.dumps(rec)))
+            captions[str(i)] = caption
+        items.append((b"__keys__", serialization.dumps(keys)))
+        lmdbx.write(os.path.join(feats_dir, lmdb_name + ".lmdb"), items)
+        del items
+        with open(os.path.join(ann_dir, f"caption_{split}.json"), "w") as f:
+            json.dump(captions, f)
+    write_synth_vocab(os.path.join(out, "vocab.txt"))
+    return feats_dir, ann_dir
+
+
+def concap_argv(root, cc_dir, epochs, config=CONFIG):
+    """train.sh's flags (examples/ctrl_uniter/concap/train.sh) on the
+    synthetic dataroot, for ``epochs`` epochs, on the card, bf16."""
+    return ["--config_file", config,
+            "--annotations_path", os.path.join(cc_dir, "annotations"),
+            "--features_path", os.path.join(cc_dir, "imgfeats"),
+            "--vocab_file", os.path.join(cc_dir, "vocab.txt"),
+            "--output_dir", os.path.join(root, "cc_save"),
+            "--logdir", os.path.join(root, "cc_logs"),
+            "--adam_epsilon", "1e-6", "--adam_betas", "0.9", "0.999",
+            "--train_batch_size", str(CC_BATCH), "--max_seq_length",
+            str(CC_SEQ), "--learning_rate", "1e-4", "--weight_decay", "0.01",
+            "--warmup_proportion", "0.1", "--clip_grad_norm", "5.0",
+            "--objective", "1", "--num_train_epochs", str(epochs),
+            "--gradient_accumulation_steps", "1", "--in_memory", "True",
+            "--num_workers", "4", "--seed", "0"]
+
+
+def cut_config(root, name, keep):
+    """configs/<name>.json with only the sublayers ``keep``, renumbered in
+    order, written into ``root``; BERT layers whose sublayer is cut drop
+    out of the layer maps."""
+    with open(os.path.join(REPO, "configs", name + ".json")) as f:
+        cfg = json.load(f)
+    new = {old: i for i, old in enumerate(sorted(keep))}
+    for key, val in list(cfg.items()):
+        if key.endswith("_sublayers"):
+            cfg[key] = [new[i] for i in val if i in new]
+        elif key.startswith("bert_layer2"):
+            cfg[key] = {k: new[v] for k, v in val.items() if v in new}
+        elif key.startswith("sublayer2"):
+            cfg[key] = {str(new[int(k)]): v for k, v in val.items()
+                        if int(k) in new}
+    path = os.path.join(root, f"{name}_cut.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def pretrain_counts(cfg):
+    """``plan_counts`` of the pretraining model: the MLM head reads every
+    text output and the region heads every region output, so both streams
+    feed a loss whatever the fusion; the pooled output's K10 runs unless
+    ``fusion_method`` is none (no pooled output)."""
+    import dataclasses
+
+    counts = plan_counts(dataclasses.replace(cfg, fusion_method="mul"))
+    pooled = cfg.fusion_method != "none"
+    counts["k10"] += pooled - 1
+    counts["k10_bwd"] += pooled - 1
+    return counts
+
+
+def pretrain_launches(counts, steps, val_batches=0, nce=0):
+    return expect(attention_dropout_fwd=counts["attn"] * steps,
+                  attention_dropout_bwd=counts["attn_bwd"] * steps,
+                  attention_fwd=counts["attn"] * val_batches,
+                  nce_scores_fwd=nce * steps, nce_scores_bwd=nce * steps,
+                  **k10_of(counts, steps))
+
+
+_CC_SETS = {}
+
+
+def cc_dataset(cc_dir, feat_dtype, num_locs):
+    """The packed training set at train.sh's lengths (objective 1), packed
+    once a dtype and box width (``num_locs``: 5, or LXMERT's 4); a
+    batch's global row follows the dataset's ``add_global_imgfeat``, which
+    ``cc_batch_on_card`` sets."""
+    from volta_tpu_torch.data.datasets.concap import ConceptCapDataset
+    from volta_tpu_torch.data.tokenization import BertTokenizer
+
+    key = (cc_dir, feat_dtype, num_locs)
+    if key not in _CC_SETS:
+        ds = ConceptCapDataset(
+            os.path.join(cc_dir, "imgfeats", "training_feat_all.lmdb"),
+            os.path.join(cc_dir, "annotations", "caption_train.json"),
+            BertTokenizer(os.path.join(cc_dir, "vocab.txt")),
+            seq_len=CC_SEQ, region_len=CC_REGIONS, objective=1,
+            num_locs=num_locs, seed=0)
+        ds.enable_packed(cache=False, feat_dtype=feat_dtype)
+        _CC_SETS[key] = ds
+    return _CC_SETS[key]
+
+
+def pretrain_model(cfg, dtype, seed=0):
+    import torch
+
+    from volta_tpu_torch.models import VoltaForVLPreTraining
+    from volta_tpu_torch.models.layers import init_weights
+
+    cfg.compute_dtype = dtype
+    model = VoltaForVLPreTraining(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.cuda()
+
+
+def pretrain_grads(model, cfg, batch, objective=1):
+    """(loss, every gradient in float32) of one pretraining batch: the
+    step's forward (dropout seed 0, the NCE generator seeded 0) and its
+    backward, no optimizer."""
+    import torch
+
+    from volta_tpu_torch.train_step import _nce_generator, _pretrain_losses
+
+    lm, il = batch["lm_label_ids"], batch["image_label"]
+    if objective == 1:
+        keep = (batch["is_match"] == 0)[:, None]
+        lm, il = torch.where(keep, lm, -1), torch.where(keep, il, -1)
+    terms = _pretrain_losses(model, cfg, batch, lm, il,
+                             _nce_generator(cfg, "cuda", 0), dropout_seed=0)
+    loss = sum(terms)
+    loss.backward()
+    out = {n: p.grad.float().clone() for n, p in model.named_parameters()
+           if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), out
+
+
+def cc_batch_on_card(cc_dir, cfg, feat_dtype, n=CC_BATCH):
+    """The first ``n`` images as a batch of ``cfg``'s layout (its global
+    row) on the card, the features and soft targets in ``feat_dtype``."""
+    from volta_tpu_torch.eval_step import to_device
+
+    ds = cc_dataset(cc_dir, feat_dtype, cfg.num_locs)
+    ds.add_global_imgfeat = cfg.add_global_imgfeat
+    return to_device(ds.get_batch(np.arange(n)), "cuda")
+
+
+def hold_pretrain_grads(tag, cfg, batch, want):
+    """bf16 gradients of one batch through the kernels (exact launches
+    ``want``) against the twins, within NOISE_FACTOR times the twins'
+    distance from the twins with float64 attention sums, at least
+    GRAD_TOL, as phase 13 holds the fine-tuning step."""
+    import torch
+
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+
+    model = pretrain_model(cfg, "bfloat16").train()
+    reset_launches()
+    lk, gk = pretrain_grads(model, cfg, batch)
+    counts = dict(LAUNCHES)
+    if counts != want:
+        raise RuntimeError(f"{tag} gradients launched {counts}, expected "
+                           f"{want}")
+    with twins():
+        lt, gt = pretrain_grads(model, cfg, batch)
+    with twins(), float64_attention():
+        l64, g64 = pretrain_grads(model, cfg, batch)
+    (noise, nworst), (diff, worst) = (grad_distance(g64, gt),
+                                      grad_distance(gk, gt))
+    tol = max(GRAD_TOL, NOISE_FACTOR * noise)
+    print(f"bf16 pretraining gradients ({tag}): kernels vs plain twins "
+          f"{diff:.3e} at {worst} (tol {tol:.3e}), twins vs float64 "
+          f"attention sums {noise:.3e} at {nworst}; loss {lk:.6f} / "
+          f"{lt:.6f} / {l64:.6f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if not (np.isfinite(lk) and all(bool(torch.isfinite(g).all())
+                                    for g in gk.values())):
+        raise RuntimeError(f"non-finite {tag} gradients")
+    if diff > tol:
+        raise RuntimeError(f"{tag} gradients disagree with the twins")
+    del model
+    torch.cuda.empty_cache()
+
+
+def fp32_pretrain_step(cfg, batch, want):
+    """Phase 19 (b): one fp32 pretrain step (objective 1) through the
+    kernels (exact launches ``want``) and through the twins from the same
+    weights and seeds: losses within 1e-5, parameters within STEP_TOL of
+    the largest update, as phase 13 holds the fine-tuning step."""
+    import torch
+
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import build_optimizer
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_pretrain_step
+
+    model = pretrain_model(cfg, "float32").train()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    res = {}
+    for route, ctx in (("kernel", contextlib.nullcontext), ("twin", twins)):
+        model.load_state_dict(init)
+        opt = build_optimizer("adamw", 1e-4, model, clip_norm=5.0)
+        state = create_train_state(model, opt, seed=11)
+        step = make_pretrain_step(model, opt, cfg, objective=1)
+        reset_launches()
+        with ctx():
+            m = step(state, batch)
+        res[route] = ({k: float(v) for k, v in m.items()},
+                      {k: v.clone() for k, v in model.state_dict().items()},
+                      dict(LAUNCHES))
+    (mk, pk, counts), (mt, pt, _) = res["kernel"], res["twin"]
+    if counts != want:
+        raise RuntimeError(f"fp32 pretrain step launched {counts}, "
+                           f"expected {want}")
+    upd = max(float((pk[n] - init[n]).abs().max()) for n in pk)
+    diff = max(float((pk[n] - pt[n]).abs().max()) for n in pk)
+    print(f"fp32 pretrain step b{CC_BATCH}, kernels vs twins: {mk} vs {mt}, "
+          f"params max abs diff {diff:.3e} (largest update {upd:.3e}, tol "
+          f"{STEP_TOL:g} of it)", flush=True)
+    if not (all(abs(mk[k] - mt[k]) <= 1e-5 * max(abs(mt[k]), 1e-12)
+                for k in mk) and diff <= STEP_TOL * upd
+            and np.isfinite(mk["loss"])):
+        raise RuntimeError("fp32 pretrain step disagrees with the twins")
+    del model, init, res
+    torch.cuda.empty_cache()
+
+
+def k8_only_twin():
+    """K8's plain twins in its wrappers' place, every other kernel kept."""
+    from volta_tpu_torch.ops import nce
+
+    return swapped([(nce, "nce_scores_fwd", nce.dense_neg_scores),
+                    (nce, "nce_scores_bwd", nce.nce_scores_bwd_ref)])
+
+
+@contextlib.contextmanager
+def swapped(swaps):
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def embedding_bag_bwd(g, flat, idx):
+    """K8's backward as one torch call: each query's sampled rows of flat
+    summed with weights g rounded to flat's dtype, [Q, d]."""
+    import torch.nn.functional as F
+
+    q = idx.numel() // idx.shape[-1]
+    return F.embedding_bag(idx.reshape(q, -1), flat, mode="sum",
+                           per_sample_weights=g.reshape(q, -1).to(flat.dtype))
+
+
+def library_neg_scores(pred, flat, neg_idx):
+    """What JAX runs in K8's place, in torch calls: the all-pairs product
+    in the inputs' dtype (float32 sums, the scores rounded to that dtype),
+    the sampled scores gathered, as float32."""
+    import torch
+
+    return torch.gather(torch.matmul(pred, flat.t()), -1,
+                        neg_idx.long()).float()
+
+
+def library_neg_scores_bwd(g, pred_shape, flat, neg_idx):
+    """Its transpose as JAX's vjp takes it: g rounded to flat's dtype,
+    scattered into the [Q, M] score cotangent in that dtype, times flat in
+    that dtype (float32 sums)."""
+    import torch
+
+    q = neg_idx.numel() // neg_idx.shape[-1]
+    gs = g.reshape(q, -1).to(flat.dtype)
+    full = gs.new_zeros((q, flat.shape[0])).scatter_add_(
+        1, neg_idx.reshape(q, -1).long(), gs)
+    return torch.matmul(full, flat).view(pred_shape)
+
+
+def k8_only_library():
+    """JAX's composition (``library_neg_scores``) in K8's wrappers' place,
+    every other kernel kept."""
+    from volta_tpu_torch.ops import nce
+
+    return swapped([(nce, "nce_scores_fwd", library_neg_scores),
+                    (nce, "nce_scores_bwd", library_neg_scores_bwd)])
+
+
+def check_k8():
+    """Phase 19 (c): K8 forward and backward against its twins, bf16 and
+    fp32, at K8_SHAPES on JAX's sampled negatives (``sample_negatives``):
+    fp32 scores and gradients within K8_TOL of the largest; bf16 gradients
+    within K8_TOL; bf16 scores equal to the twin's with its sums in float64
+    but for at most K8_FLIPS rounding flips (the count against the float32
+    twin printed beside). Times at b256 bf16 (``kernel_ms``): K8, the dense
+    twin, and torch's all-pairs bf16 matmul + gather, the composition K8
+    replaces; the bound: pred, flat, the indices and the scores once over
+    the memory rate, or the products' FMAs over the fp32 rate (the
+    backward's bytes and FMAs are as many). The backward's library call is
+    ``embedding_bag``'s weighted sum of the sampled rows, g rounded to
+    flat's dtype as the kernel rounds it."""
+    import torch
+
+    from volta_tpu_torch.losses import sample_negatives
+    from volta_tpu_torch.ops import nce
+
+    out = {}
+    for b, r, chunk in K8_SHAPES:
+        gen = torch.Generator("cuda").manual_seed(b + r)
+        idx = sample_negatives(b, r, K8_NEG, gen, "cuda")
+        rng = np.random.RandomState(b)
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            pred = torch.from_numpy((rng.randn(b, r, K8_DIM) * 0.05).astype(
+                np.float32)).cuda().to(dtype)
+            flat = torch.from_numpy(np.abs(rng.randn(b * r, K8_DIM) * 0.5)
+                                    .astype(np.float32)).cuda().to(dtype)
+            g = torch.from_numpy(rng.randn(b, r, idx.shape[-1]).astype(
+                np.float32)).cuda()
+            got = nce.nce_scores_fwd(pred, flat, idx)
+            dgot = nce.nce_scores_bwd(g, pred.shape, flat, idx)
+            ref = nce.neg_scores_ref(pred, flat, idx, chunk)
+            dref = nce.nce_scores_bwd_ref(g, pred.shape, flat, idx)
+            # the twin with its sums in float64, rounded as the kernel
+            # rounds
+            s64 = torch.gather(torch.matmul(pred.double(), flat.double().t()),
+                               -1, idx).float()
+            ref64 = s64.to(dtype).float()
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            derr = float((dgot.float() - dref.float()).abs().max()) / float(
+                dref.float().abs().max())
+            what = f"K8 b{b} r{r} d{K8_DIM} {dt}" + (
+                f", blockwise twin of {chunk}" if chunk else "")
+            if dt == "float32":
+                ok = err <= K8_TOL[dt] * scale
+                note = f"scores max abs diff {err:.3e} of {scale:.3e}"
+            else:
+                flips = int((got != ref64).sum())
+                flips32 = int((got != ref).sum())
+                share = flips / got.numel()
+                ok = share <= K8_FLIPS and err <= 2 ** -7 * scale
+                note = (f"scores: {flips} flips of {got.numel()} against the "
+                        f"float64-sum twin ({share:.2e}, limit "
+                        f"{K8_FLIPS:g}), {flips32} against the float32 twin "
+                        f"({flips32 / got.numel():.2e}), max abs diff "
+                        f"{err:.3e} of {scale:.3e}")
+            ok = ok and derr <= K8_TOL[dt] and bool(torch.isfinite(got).all())
+            print(f"{what}: {note}; gradient rel diff {derr:.3e} (tol "
+                  f"{K8_TOL[dt]:g})", flush=True)
+            if not ok:
+                raise RuntimeError(f"{what} disagrees with its twin")
+            if (b, chunk, dt) == (256, None, "bfloat16"):
+                n = idx.numel()
+                # forward: pred, flat, the indices and the scores; backward:
+                # the cotangent, the indices, flat and d pred, as many
+                nbytes = (pred.numel() + flat.numel()) * 2 + n * 4 * 2
+                fwd_b = bwd_b = bound(nbytes, 2 * n * K8_DIM, "fp32")
+                idx32 = idx.to(torch.int32)
+                t = {"fwd": kernel_ms(lambda: nce.nce_scores_fwd(
+                         pred, flat, idx32), iters=20),
+                     "bwd": kernel_ms(lambda: nce.nce_scores_bwd(
+                         g, pred.shape, flat, idx32), iters=20),
+                     "fwd plain": kernel_ms(lambda: nce.dense_neg_scores(
+                         pred, flat, idx), iters=10),
+                     "bwd plain": kernel_ms(lambda: nce.nce_scores_bwd_ref(
+                         g, pred.shape, flat, idx), iters=10),
+                     "fwd library": kernel_ms(lambda: torch.gather(
+                         torch.matmul(pred, flat.t()), -1, idx), iters=10),
+                     "bwd library": kernel_ms(lambda: embedding_bag_bwd(
+                         g, flat, idx), iters=20)}
+                bag_err = float((embedding_bag_bwd(g, flat, idx).float()
+                                 - dgot.float().view(-1, K8_DIM)).abs().max())
+                print(f"K8 b{b} r{r} bf16 [{card_line()}]: forward "
+                      f"{t['fwd']:.4f} ms (bound {fwd_b[0]:.4f} ms by "
+                      f"{fwd_b[1]}, {fwd_b[0] / t['fwd']:.2f} of it), "
+                      f"backward {t['bwd']:.4f} ms (bound {bwd_b[0]:.4f}, "
+                      f"{bwd_b[0] / t['bwd']:.2f}); twins {t['fwd plain']:.4f}"
+                      f" / {t['bwd plain']:.4f} ms; torch all-pairs bf16 "
+                      f"matmul + gather {t['fwd library']:.4f} ms, "
+                      f"embedding_bag (weighted sum) {t['bwd library']:.4f} "
+                      f"ms, max abs diff to K8's gradient {bag_err:.3e}",
+                      flush=True)
+                shapes = f"[{b}x{r}, {K8_DIM}] x {idx.shape[-1]} bf16"
+                out["nce_scores_fwd"] = {
+                    "ms": t["fwd"], "plain_ms": t["fwd plain"],
+                    "library_ms": t["fwd library"], "bound": fwd_b,
+                    "max_abs_err": err, "shapes": shapes}
+                out["nce_scores_bwd"] = {
+                    "ms": t["bwd"], "plain_ms": t["bwd plain"],
+                    "library_ms": t["bwd library"], "bound": bwd_b,
+                    "max_abs_err": float((dgot.float() - dref.float())
+                                         .abs().max()), "shapes": shapes}
+            del pred, flat, g, got, dgot, ref, dref, s64, ref64
+        torch.cuda.empty_cache()
+    return out
+
+
+def nce_step(cc_dir, power):
+    """Phase 19 (c): one b256 bf16 NCE step (ctrl_uniter_base with
+    visual_target_weights {"2": 1}) held to the twins as (b), with K8 once
+    forward and once backward; its ms against the same step with K8's twins
+    (the float32 all-pairs matmul + gather) and with JAX's bf16 composition
+    in K8's place (``k8_only_library``) in turns, and the device time of
+    each by kernel family. Returns K8's launches of one step."""
+    import torch
+
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import build_optimizer
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_pretrain_step
+
+    cfg = VoltaConfig.from_json_file(CONFIG)
+    cfg.visual_target_weights = {"2": 1.0}
+    batch = cc_batch_on_card(cc_dir, cfg, "bfloat16")
+    counts = pretrain_counts(cfg)
+    hold_pretrain_grads("NCE through K8", cfg, batch,
+                        pretrain_launches(counts, 1, nce=1))
+    model = pretrain_model(cfg, "bfloat16").train()
+    opt = build_optimizer("adamw", 1e-4, model, clip_norm=5.0)
+    state = create_train_state(model, opt, seed=11)
+    step = make_pretrain_step(model, opt, cfg, objective=1)
+    reset_launches()
+    step(state, batch)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in ("nce_scores_fwd", "nce_scores_bwd")}
+    if launches != {"nce_scores_fwd": 1, "nce_scores_bwd": 1}:
+        raise RuntimeError(f"NCE step launched K8 {launches}")
+    routes = (("K8", contextlib.nullcontext), ("twin", k8_only_twin),
+              ("library", k8_only_library))
+    runs = {name: [] for name, _ in routes}
+    # turns K8, twin, library, library, twin, K8 (twice), so that drift in
+    # the card's or the host's speed falls on every route alike
+    for name, route in (routes + routes[::-1]) * 2:
+        with route():
+            runs[name].append(cuda_ms(lambda: step(state, batch), iters=3,
+                                      warmup=1))
+    ms = {name: float(np.median(v)) for name, v in runs.items()}
+    print(f"NCE pretrain step b{CC_BATCH} bf16 [{power}]: K8 "
+          f"{ms['K8']:.2f} ms/step, its twins (float32 all-pairs matmul + "
+          f"gather) {ms['twin']:.2f}, JAX's composition (bf16 all-pairs "
+          f"matmul + gather, scatter + bf16 matmul) {ms['library']:.2f} "
+          f"(turns {runs})", flush=True)
+    # device time by family on every route: the wall times above are
+    # paced by the host where it is slower than the card
+    dev = {"K8": profile_device(lambda: step(state, batch), ms["K8"],
+                                "NCE pretrain step", top=10)}
+    for name, route, what in (("twin", k8_only_twin, "K8's twins"),
+                              ("library", k8_only_library,
+                               "JAX's composition in K8's place")):
+        with route():
+            dev[name] = profile_device(lambda: step(state, batch), ms[name],
+                                       f"NCE pretrain step, {what}", top=10)
+    print(f"NCE pretrain step device ms [{power}]: K8 {dev['K8']:.3f}, "
+          f"twins {dev['twin']:.3f} (K8 - twins {dev['K8'] - dev['twin']:+.3f}"
+          f"), JAX's composition {dev['library']:.3f} (K8 - composition "
+          f"{dev['K8'] - dev['library']:+.3f})", flush=True)
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mlm_head_ms(batch_rows, power):
+    """The MLM decoder and its log-softmax alone at the step's shape: the
+    tied [rows, 768] x [768, 30522] bf16 product, the float32 log-softmax
+    cross entropy and their backward, ms (CUDA events)."""
+    import torch
+
+    from volta_tpu_torch.losses import cross_entropy_ignore
+
+    x = torch.randn(batch_rows, 768, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    table = torch.randn(30522, 768, device="cuda") * 0.02
+    table.requires_grad_()
+    bias = torch.zeros(30522, device="cuda", requires_grad=True)
+    labels = torch.randint(-1, 30522, (batch_rows,), device="cuda")
+
+    def run():
+        logits = torch.nn.functional.linear(x, table.to(x.dtype),
+                                            bias.to(x.dtype))
+        cross_entropy_ignore(logits, labels).backward()
+
+    ms = cuda_ms(run, iters=10, warmup=2)
+    print(f"MLM decoder + log-softmax, forward and backward, {batch_rows} "
+          f"rows [{power}]: {ms:.3f} ms", flush=True)
+    return ms
+
+
+def pretrain_cli(root, cc_dir, power, profile):
+    """Phase 19 (a): the train CLI (train.sh's flags, --in_memory, two
+    epochs of 4 steps and their validation) with exact launches, its CC
+    lines and val losses; then ms/step of the same step (3 x 10 steps,
+    median), peak, idle share and device ms by family. Returns the CLI's
+    launches and its checkpoint."""
+    import torch
+
+    from volta_tpu_torch import train_concap
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import build_optimizer, \
+        warmup_linear_schedule
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_pretrain_step
+
+    cfg = VoltaConfig.from_json_file(CONFIG)
+    counts = pretrain_counts(cfg)
+    reset_launches()
+    t0 = time.time()
+    summary = train_concap.main(concap_argv(root, cc_dir, 2))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(LAUNCHES)
+    steps = summary["steps"]
+    with open(os.path.join(summary["log_dir"], "out.txt")) as f:
+        lines = [ln.strip() for ln in f if " CC masked_t " in ln]
+    print(f"train_concap.main: {steps} steps at b{CC_BATCH}, {wall:.1f} s "
+          f"wall (packing, model set-up and checkpoints included), val "
+          f"losses {summary['val_losses']}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for ln in lines:
+        print(f"  {ln}", flush=True)
+    want = pretrain_launches(counts, steps, val_batches=2)
+    per_epoch = CC_IMAGES[0] // CC_BATCH
+    if steps != 2 * per_epoch or not lines or len(summary["train_losses"]) \
+            != steps or not np.all(np.isfinite(summary["train_losses"])) \
+            or len(summary["val_losses"]) != 2 \
+            or not np.all(np.isfinite(summary["val_losses"])):
+        raise RuntimeError(f"train_concap: {summary}")
+    if launches != want:
+        raise RuntimeError(f"train_concap launched {launches}, expected "
+                           f"{want}")
+    ckpt = os.path.join(summary["run_dir"], "ckpt", "train_state.pt")
+
+    # the same step timed alone
+    batch = cc_batch_on_card(cc_dir, cfg, "bfloat16")
+    model = pretrain_model(cfg, "bfloat16").train()
+    opt = build_optimizer("adamw", warmup_linear_schedule(1e-4, 10, 1000),
+                          model, clip_norm=5.0, betas=(0.9, 0.999))
+    state = create_train_state(model, opt, seed=11)
+    step = make_pretrain_step(model, opt, cfg, objective=1)
+    mss, peaks = [], []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        mss.append(cuda_ms(lambda: step(state, batch), iters=10, warmup=2))
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+    ms = float(np.median(mss))
+    print(f"pretrain step b{CC_BATCH} L {CC_SEQ}+{CC_REGIONS + 1} bf16 "
+          f"(KL, objective 1): median {ms:.2f} ms/step, "
+          f"{CC_BATCH / ms * 1e3:.1f} pairs/s (runs "
+          f"{', '.join(f'{m:.2f}' for m in mss)}), peak {max(peaks):.2f} GiB "
+          f"[{power}]", flush=True)
+    profile_device(lambda: step(state, batch), ms, "pretrain step",
+                   top=25 if profile else 12)
+    mlm_head_ms(CC_BATCH * CC_SEQ, power)
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return launches, ckpt, batch
+
+
+def from_pretrained_task(root, data_dir, yml, ckpt):
+    """Phase 19 (a): train_task --from_pretrained of the pretraining
+    checkpoint for one VQA epoch: its report names the trunk loaded and the
+    cls heads left out (and the VQA head at init)."""
+    import logging
+
+    from volta_tpu_torch import train_task
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    log = logging.getLogger("volta_tpu_torch.train_task")
+    log.addHandler(handler)
+    old = log.level
+    log.setLevel(logging.INFO)
+    try:
+        summary = train_task.main(train_argv(
+            root, data_dir, yml, CONFIG, 1, "from_concap")
+            + ["--from_pretrained", ckpt])
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(old)
+    report = [m for m in records if m.startswith("loaded ")]
+    print(f"train_task --from_pretrained {os.path.basename(ckpt)}: "
+          f"{report}; {summary['steps']} steps, losses "
+          f"{[round(l, 4) for l in summary['train_losses']]}, val scores "
+          f"{summary['val_scores']}", flush=True)
+    if len(report) != 1 or "['clf_TASK1']" not in report[0] \
+            or "unused ['cls']" not in report[0] \
+            or not np.all(np.isfinite(summary["train_losses"])):
+        raise RuntimeError(f"train_task --from_pretrained: {report}")
+
+
+def family_pretrain_steps(root, cc_dir):
+    """Phase 19 (d): one bf16 pretraining step's gradients of lxmert.json
+    (criteria 3-5, fusion text) and vl-bert_base.json (criterion 6, fusion
+    none: no ITM head, the global row last) at 4 layers a stream, held to
+    the twins as (b), launches from the plan."""
+    from volta_tpu_torch.config import VoltaConfig
+
+    for name, keep in PRETRAIN_CUTS.items():
+        cfg = VoltaConfig.from_json_file(cut_config(root, name, keep))
+        batch = cc_batch_on_card(cc_dir, cfg, "bfloat16")
+        hold_pretrain_grads(f"{name} at 4 layers a stream", cfg, batch,
+                            pretrain_launches(pretrain_counts(cfg), 1))
+
+
+def pretrain_export(root, ckpt):
+    """Phase 19 (e): the CLI's trained pretraining model exported as a
+    reference .bin and read back into other weights: every parameter and
+    the eval logits bit for bit."""
+    import torch
+
+    from volta_tpu_torch import checkpoint as ck
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.models import VoltaForVLPreTraining
+
+    cfg = VoltaConfig.from_json_file(CONFIG)
+    src = pretrain_model(cfg, "bfloat16", seed=0)
+    src.load_state_dict(torch.load(ckpt, map_location="cuda",
+                                   weights_only=True)["model"])
+    path = ck.save_reference_checkpoint(os.path.join(root, "pretrain.bin"),
+                                        cfg, src)
+    dst = pretrain_model(cfg, "bfloat16", seed=5)
+    report = ck.from_pretrained(cfg, dst, path)
+    same = all(torch.equal(a, b) for a, b in zip(
+        src.state_dict().values(), dst.state_dict().values()))
+    print(f"pretraining model exported to a reference .bin "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB) and read back: "
+          f"{len(report['loaded'])} tensors, skipped {report['skipped']}, "
+          f"parameters bit-equal {same}", flush=True)
+    if report["skipped"] or not same or not isinstance(
+            dst, VoltaForVLPreTraining):
+        raise RuntimeError("the pretraining .bin does not round-trip")
+
+
+def check_pretraining(root, data_dir, yml, power, profile):
+    """Phase 19. Returns K8's results and the launches of its runs."""
+    from volta_tpu_torch.config import VoltaConfig
+
+    cc_dir = os.path.join(root, "cc")
+    t0 = time.time()
+    write_synth_cc(cc_dir, *CC_IMAGES, seed=19)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+               os.walk(cc_dir) for f in fs)
+    print(f"synthetic Conceptual Captions: {CC_IMAGES[0]} train and "
+          f"{CC_IMAGES[1]} valid images, {size / 2**30:.2f} GiB, written in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    cli_launches, ckpt, batch = pretrain_cli(root, cc_dir, power, profile)
+    from_pretrained_task(root, data_dir, yml, ckpt)
+    # (b) the b256 step against the twins: fp32, then bf16 gradients
+    cfg = VoltaConfig.from_json_file(CONFIG)
+    counts = pretrain_counts(cfg)
+    fp32_pretrain_step(cfg, cc_batch_on_card(cc_dir, cfg, "float32"),
+                       pretrain_launches(counts, 1))
+    _CC_SETS.pop((cc_dir, "float32", cfg.num_locs))
+    hold_pretrain_grads("ctrl_uniter_base, KL", cfg, batch,
+                        pretrain_launches(counts, 1))
+    # (c) K8 and the NCE step, (d) two other families, (e) the export
+    results = check_k8()
+    nce_launches = nce_step(cc_dir, power)
+    family_pretrain_steps(root, cc_dir)
+    pretrain_export(root, ckpt)
+    return results, {"cli": cli_launches, "nce": nce_launches}
+
+
 def profile_device(fn, call_ms, what, calls=3, top=40):
     """Device time of ``fn()`` (a train step or an eval forward) by kernel
     (torch.profiler) over ``calls`` calls after the timing runs, and the
@@ -4702,6 +5466,7 @@ def profile_device(fn, call_ms, what, calls=3, top=40):
     for ms, count, key in rows[:top]:
         print(f"  {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} "
               f"{key[:110]}", flush=True)
+    return total
 
 
 def main(argv):
@@ -4824,6 +5589,10 @@ def main(argv):
         with phase("18 the other families"):
             family_launches, family_rates = check_families(root, data_dir,
                                                            power)
+        with phase("19 pretraining"):
+            k8, pretrain_runs = check_pretraining(root, data_dir, yml, power,
+                                                  "--profile" in argv)
+            results.update(k8)
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -4894,7 +5663,7 @@ def main(argv):
                   "hidden_masks"]["attention_dropout_hidden_masks_fwd"],
               "keep_mask": launches["keep_mask"]["keep_mask"],
               **{k: launches["dropout"][k] for k in k10(0)},
-              **probe_launches}
+              **probe_launches, **pretrain_runs["nce"]}
     # the body each attention kernel runs in bf16, as its wrapper routes it
     fwd, bwd = attention_cuda.fwd_body, attention_cuda.bwd_body
     bf16 = torch.bfloat16
@@ -4930,6 +5699,8 @@ def main(argv):
              "families_launches": sum(
                  runs[name] for family in family_launches.values()
                  for runs in family.values()),
+             # phase 19's pretraining CLI run
+             "pretrain_cli_launches": pretrain_runs["cli"][name],
              "pallas": name not in NOT_PALLAS,
              **({"body": bodies[name]} if name in bodies else {})}
             for name, (src, replaces) in KERNELS.items()]

@@ -1665,3 +1665,115 @@ def test_families_on_the_card_equal_the_cpu(cuda_device, name):
     assert LAUNCHES["attention_fwd"] == LAUNCHES["attention_bwd"] == 0
     assert torch.isfinite(loss) and all(
         bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+# ------------------------------------------------------------------- K8
+# the pretraining step's queries (b x 36 regions of 2048) and a small odd
+# shape; the b256 one also against the blockwise twin
+K8_SHAPES = [(256, 36, 2048, None), (512, 36, 2048, None),
+             (256, 36, 2048, 4096), (3, 5, 48, None)]
+
+
+def _k8_inputs(b, r, d, dtype, device, seed=0):
+    from volta_tpu_torch.losses import sample_negatives
+
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    pred = torch.from_numpy((rng.randn(b, r, d) * 0.05).astype(
+        np.float32)).to(device, dt)
+    flat = torch.from_numpy(np.abs(rng.randn(b * r, d) * 0.5).astype(
+        np.float32)).to(device, dt)
+    idx = sample_negatives(b, r, 128, torch.Generator(device).manual_seed(
+        seed), device)
+    g = torch.from_numpy(rng.randn(b, r, idx.shape[-1]).astype(
+        np.float32)).to(device)
+    return pred, flat, idx, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", K8_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:3]))
+                         + (f"_chunk{s[3]}" if s[3] else ""))
+def test_k8_matches_its_twins(cuda_device, dtype, shape):
+    """K8 forward and backward against the dense (or blockwise) twin: fp32
+    scores and gradients within 1e-5 of the largest; bf16 scores equal to
+    the twin with float64 sums rounded alike, but for at most 1 in 10^4
+    rounding flips, and within a bf16 ulp of the float32 twin; bf16
+    gradients within 2e-2 of the largest."""
+    from volta_tpu_torch.ops import nce
+
+    b, r, d, chunk = shape
+    pred, flat, idx, g = _k8_inputs(b, r, d, dtype, cuda_device)
+    got = nce.nce_scores_fwd(pred, flat, idx)
+    ref = nce.neg_scores_ref(pred, flat, idx, chunk)
+    dgot = nce.nce_scores_bwd(g, pred.shape, flat, idx)
+    dref = nce.nce_scores_bwd_ref(g, pred.shape, flat, idx)
+    assert got.dtype == torch.float32 and got.shape == idx.shape
+    assert dgot.dtype == pred.dtype and dgot.shape == pred.shape
+    scale = float(ref.abs().max())
+    derr = float((dgot.float() - dref.float()).abs().max()
+                 / dref.float().abs().max())
+    if dtype == "float32":
+        assert float((got - ref).abs().max()) <= 1e-5 * scale
+        assert derr <= 1e-5
+    else:
+        s64 = torch.gather(torch.matmul(pred.double(), flat.double().t()),
+                           -1, idx).float().to(torch.bfloat16).float()
+        assert int((got != s64).sum()) <= 1e-4 * got.numel()
+        assert float((got - ref).abs().max()) <= 2 ** -7 * scale
+        assert derr <= 2e-2
+
+
+@pytest.mark.cuda
+def test_k8_raises_on_what_it_cannot_take(cuda_device):
+    """No silent fallback: mixed dtypes, rows that are not whole 16-byte
+    vectors and CPU operands raise."""
+    from volta_tpu_torch.ops import nce
+
+    pred, flat, idx, _ = _k8_inputs(2, 3, 16, "float32", cuda_device)
+    with pytest.raises(ValueError, match="share a dtype"):
+        nce.nce_scores_fwd(pred, flat.to(torch.bfloat16), idx)
+    odd, oflat, oidx, _ = _k8_inputs(2, 3, 10, "bfloat16", cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        nce.nce_scores_fwd(odd, oflat, oidx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        nce.nce_scores_fwd(pred, flat.cpu(), idx)
+    # an index out of range scores NaN, as JAX's gather fills
+    bad = idx.clone()
+    bad[0, 0, 0] = flat.shape[0]
+    out = nce.nce_scores_fwd(pred, flat, bad)
+    assert bool(torch.isnan(out[0, 0, 0])) and bool(
+        torch.isfinite(out.view(-1)[1:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_nce_2048_launches_k8(cuda_device, dtype):
+    """nce_2048 on CUDA tensors runs K8 once forward and once backward,
+    dense size or blockwise (``score_chunk``), and its loss and gradient
+    agree with the CPU twin's for the same negatives."""
+    from volta_tpu_torch import losses
+    from volta_tpu_torch.ops import reset_launches
+
+    b, r = 8, 6
+    pred, feat, idx, _ = _k8_inputs(b, r, 2048, dtype, cuda_device, seed=3)
+    feat = feat.view(b, r, -1)
+    label = torch.from_numpy(np.where(np.random.RandomState(4).rand(b, r)
+                                      < 0.4, 1, -1)).to(cuda_device)
+    for chunk in (None, 16):
+        p = pred.clone().requires_grad_()
+        reset_launches()
+        loss = losses.nce_2048(p, 1.0, label, image_feat=feat, neg_idx=idx,
+                               score_chunk=chunk)
+        loss.backward()
+        assert (LAUNCHES["nce_scores_fwd"], LAUNCHES["nce_scores_bwd"]) \
+            == (1, 1)
+        q = pred.cpu().clone().requires_grad_()
+        ref = losses.nce_2048(q, 1.0, label.cpu(), image_feat=feat.cpu(),
+                              neg_idx=idx.cpu(), score_chunk=chunk)
+        ref.backward()
+        tol = 1e-5 if dtype == "float32" else 2e-2
+        assert abs(float(loss) - float(ref)) <= tol * abs(float(ref))
+        err = float((p.grad.float().cpu() - q.grad.float()).abs().max())
+        assert err <= tol * float(q.grad.float().abs().max())

@@ -720,6 +720,30 @@ def _is_port_state_dict(sd: Dict[str, Any]) -> bool:
     return any(re.search(r"(^|\.)encoder\.(attn|ff)_\d+\.", k) for k in sd)
 
 
+def _load_port_state_dict(model: nn.Module, obj: Dict[str, Any]
+                          ) -> Dict[str, Any]:
+    """The port's own state dict into ``model``, by top-level module
+    (``bert``, ``cls``, ``clf_TASK1``, ...), as the JAX package overlays an
+    Orbax tree (volta_tpu/checkpoint.py:788-805): every module both have is
+    loaded whole, strictly (a key missing from or extra to a module the
+    dict has raises torch's error, and so does a dict without ``bert``);
+    the model's other modules keep their values (``skipped``) and the
+    dict's other modules are ``unused``. So a pretraining checkpoint gives
+    a task model its trunk and leaves out the ``cls`` heads, and the other
+    way round."""
+    top = lambda k: k.split(".", 1)[0]  # noqa: E731
+    own = model.state_dict()
+    shared = {top(k) for k in own} & {top(k) for k in obj}
+    sub = {k: v for k, v in obj.items() if top(k) in shared}
+    if "bert" not in shared or {k for k in own if top(k) in shared} \
+            != set(sub):
+        model.load_state_dict(obj, strict=True)  # raises, naming the keys
+    model.load_state_dict(sub, strict=False)
+    return {"loaded": list(sub),
+            "skipped": [k for k in own if top(k) not in shared],
+            "unused": [k for k in obj if top(k) not in shared]}
+
+
 def from_pretrained(cfg: VoltaConfig, model: nn.Module, path: str, *,
                     from_hf: bool = False,
                     cache_dir: Optional[str] = None) -> Dict[str, Any]:
@@ -727,7 +751,8 @@ def from_pretrained(cfg: VoltaConfig, model: nn.Module, path: str, *,
     detected:
       * the port's own state dict (``torch.save(model.state_dict())``) or
         train state (``train_state.pt`` or the directory holding it),
-        loaded with ``strict=True``;
+        module by module (``_load_port_state_dict``: a pretraining model's
+        into a task model loads the trunk and leaves out the heads);
       * a reference-format ``.bin`` (or a reference tar's weights), VOLTA
         naming, or HF BERT naming where its layers are named
         ``*.attention.self.query.*`` (or with ``from_hf``), through
@@ -754,8 +779,7 @@ def from_pretrained(cfg: VoltaConfig, model: nn.Module, path: str, *,
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     if _is_port_state_dict(obj):
-        model.load_state_dict(obj, strict=True)
-        return {"loaded": list(obj), "skipped": [], "unused": []}
+        return _load_port_state_dict(model, obj)
     sd = _normalize_keys(obj)
     if not from_hf:
         # HF BERT checkpoints by their layer naming

@@ -17,6 +17,8 @@ from torch import nn
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias",
+         # the tied MLM decoder's own bias
+         "decoder_bias": "decoder_bias",
          # VL-BERT's raw parameters keep their names
          "object_mask_visual_embedding": "object_mask_visual_embedding",
          "object_mask_word_embedding": "object_mask_word_embedding"}

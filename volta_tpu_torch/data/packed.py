@@ -109,6 +109,25 @@ def pack_features(reader, image_ids: Sequence, max_regions: int,
     return PackedFeatures(feat, loc, mask, index)
 
 
+def bf16_bits(x) -> np.ndarray:
+    """The uint16 bit patterns of float32 values rounded to the nearest
+    bfloat16 (ties to even; float64 is rounded to float32 first), the
+    bytes ``x.astype(ml_dtypes.bfloat16)`` holds, without ``ml_dtypes``."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    r = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) \
+        >> np.uint32(16)
+    # NaN keeps its sign and top bits, made quiet, as ml_dtypes keeps it
+    return np.where(np.isnan(u.view(np.float32)),
+                    (u >> np.uint32(16)) | np.uint32(0x40), r).astype(
+                        np.uint16)
+
+
+def from_bf16_bits(bits) -> np.ndarray:
+    """float32 values of uint16 bfloat16 bit patterns."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32)
+            << np.uint32(16)).view(np.float32)
+
+
 def _is_ml_dtype(dt):
     return np.dtype(dt).kind == "V" or np.dtype(dt).name == "bfloat16"
 

@@ -12,13 +12,23 @@ import torch
 from .task_utils import process_batch, task_loss_and_score
 
 
+def host_tensor(val: np.ndarray) -> torch.Tensor:
+    """A numeric array as a host tensor without a copy; uint16 arrays, the
+    bfloat16 bit patterns that numpy holds without ``ml_dtypes`` (a packed
+    Conceptual Captions store's), as ``torch.bfloat16``."""
+    if val.dtype == np.uint16:
+        return torch.from_numpy(val.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(val)
+
+
 def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """Numeric arrays of a loader batch as tensors on ``device``; other
-    fields (string ids) are left on the host."""
+    fields (string ids) are left on the host. uint16 arrays are bfloat16
+    bit patterns (``host_tensor``)."""
     out = {}
     for key, val in batch.items():
         if isinstance(val, np.ndarray) and val.dtype.kind in "biuf":
-            val = torch.from_numpy(val).to(device, non_blocking=True)
+            val = host_tensor(val).to(device, non_blocking=True)
         out[key] = val
     return out
 

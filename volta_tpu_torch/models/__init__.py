@@ -1,3 +1,3 @@
-from .model import VoltaForVLTasks, VoltaModel
+from .model import VoltaForVLPreTraining, VoltaForVLTasks, VoltaModel
 
-__all__ = ["VoltaModel", "VoltaForVLTasks"]
+__all__ = ["VoltaModel", "VoltaForVLTasks", "VoltaForVLPreTraining"]

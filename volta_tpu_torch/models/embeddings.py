@@ -170,11 +170,13 @@ def coordinate_embeddings(boxes, dim):
 
 
 class XavierDense(Dense):
-    """A float32 ``Dense`` with Flax's xavier-uniform kernel init
-    (U(-a, a), a = sqrt(6 / (in + out))) and a zero bias."""
+    """A ``Dense`` (float32 compute unless ``dtype`` says otherwise) with
+    Flax's xavier-uniform kernel init (U(-a, a), a = sqrt(6 / (in + out)))
+    and a zero bias."""
 
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__(in_features, out_features, 0.0, torch.float32)
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, 0.0, dtype)
 
     def reset_parameters(self, generator=None):
         out_f, in_f = self.weight.shape

@@ -20,6 +20,9 @@ outputs' and ``VLogitMLP``'s. Submodule names follow the Flax tree
 ``bert.t_pooler``, ``clf_TASK1``, ``clf_TASK10.dense1``) so that
 ``convert.state_dict_from_flax`` is a plain walk.
 
+``VoltaForVLPreTraining`` (model.py:111-137) runs the same backbone under
+the MLM, masked-region and ITM heads (``heads.PreTrainingHeads``).
+
 Capture (model.py:61-108, 201-209): ``output_probs`` (and, on
 ``VoltaModel``, ``output_all_layers``) runs the encoder's general loop and
 adds ``extras`` ``{all_t, all_v, probs}`` to the return value; the config's
@@ -40,8 +43,8 @@ from ..ops.attention import additive_mask
 from .embeddings import DUAL_EMBEDDINGS, SHARED_EMBEDDINGS, \
     TextEmbeddings, compute_dtype
 from .encoder import GatedEncoder
-from .heads import ImagePooler, SimpleClassifier, TextPooler, \
-    VLBertTextPooler, fuse_pooled
+from .heads import ImagePooler, PreTrainingHeads, SimpleClassifier, \
+    TextPooler, VLBertTextPooler, fuse_pooled
 from .layers import Dense, DropoutSeeds, gelu, hash_dropout, site_seed
 
 
@@ -108,6 +111,44 @@ class VoltaModel(nn.Module):
         all_t, all_v, probs = rest[0]
         return seq_t, seq_v, pooled_t, pooled_v, {
             "all_t": all_t, "all_v": all_v, "probs": probs}
+
+
+class VoltaForVLPreTraining(nn.Module):
+    """Pretraining wrapper: ``VoltaModel`` (``bert``) and
+    ``PreTrainingHeads`` (``cls``) producing the MLM, masked-region and ITM
+    logits (volta_tpu/models/model.py:111-137; reference:
+    volta/encoders.py:1020-1114; the losses are ``losses
+    .pretraining_losses``). The MLM decoder reads the backbone's word table,
+    ``bert.embeddings.word_embeddings.weight``: one parameter, no copy.
+    Returns {mlm_logits, mrm_logits (a dict by objective), itm_logits (None
+    without an ITM head), pooled, extras}; ``extras`` holds ``word_table``
+    and, with ``output_probs``, the capture's ``all_t``, ``all_v`` and
+    ``probs``. In training mode the dropout sites draw their seeds from
+    ``dropout_seed`` as ``VoltaForVLTasks``' do, the pooled output's last."""
+
+    def __init__(self, cfg: VoltaConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = VoltaModel(cfg)
+        self.cls = PreTrainingHeads(cfg)
+
+    def forward(self, input_ids, image_feat, image_loc, token_type_ids=None,
+                attention_mask=None, image_attention_mask=None,
+                dropout_seed: int = None, output_probs: bool = False):
+        seeds = DropoutSeeds(dropout_seed) \
+            if self.training and dropout_seed is not None else None
+        seq_t, seq_v, pooled_t, pooled_v, *rest = self.bert(
+            input_ids, image_feat, image_loc, token_type_ids, attention_mask,
+            image_attention_mask, seeds, output_probs=output_probs)
+        table = self.bert.embeddings.word_embeddings.weight
+        t_scores, v_scores, itm, pooled = self.cls(
+            seq_t, seq_v, pooled_t, pooled_v, table, seeds)
+        extras = {"word_table": table, "all_t": None, "all_v": None,
+                  "probs": None}
+        if rest:
+            extras.update(rest[0])
+        return {"mlm_logits": t_scores, "mrm_logits": v_scores,
+                "itm_logits": itm, "pooled": pooled, "extras": extras}
 
 
 class VLogitMLP(nn.Module):

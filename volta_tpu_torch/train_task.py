@@ -120,12 +120,16 @@ def parse_args(argv=None):
 
 def refuse_unported(args):
     """Raise NotImplementedError for each flag whose feature the port does
-    not have yet, naming the ROADMAP.md item that owns it."""
+    not have yet, naming the ROADMAP.md item that owns it (this CLI's flags
+    and ``train_concap``'s)."""
     unported = [
-        (args.optim.lower() == "radam", "--optim RAdam", "Queue 1 item 8"),
+        (getattr(args, "optim", "AdamW").lower() == "radam",
+         "--optim RAdam", "Queue 1 item 8"),
         (args.optimizer_state_dtype != "float32",
          "--optimizer_state_dtype bfloat16", "Queue 1 item 8"),
         (args.skip_disconnected_params, "--skip_disconnected_params",
+         "Queue 1 item 8"),
+        (getattr(args, "trunk_lr_scale", 1.0) != 1.0, "--trunk_lr_scale",
          "Queue 1 item 8"),
         (args.profile_steps, "--profile_steps", "Queue 1 item 11"),
         (args.distributed, "--distributed", "Queue 1 item 9"),
@@ -134,6 +138,18 @@ def refuse_unported(args):
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md {item})")
+
+
+def log_pretrained(report):
+    """Log ``from_pretrained``'s report: the tensors loaded, and the
+    modules (``clf_TASK1``, ``cls``, ...) left at init and not read."""
+    def modules(names):
+        return sorted({n.split(".", 1)[0] for n in names})
+
+    logger.info("loaded %d tensors, %d left at init %s, %d unused %s",
+                len(report["loaded"]), len(report["skipped"]),
+                modules(report["skipped"]), len(report["unused"]),
+                modules(report["unused"]))
 
 
 def _fetch(pending, keys):
@@ -205,8 +221,7 @@ def main(argv=None):
     init_weights(model, torch.Generator().manual_seed(args.seed))
     if args.from_pretrained:
         report = from_pretrained(cfg, model, args.from_pretrained)
-        logger.info("loaded %d tensors, %d left at init",
-                    len(report["loaded"]), len(report["skipped"]))
+        log_pretrained(report)
     if tc.get("embed_clf"):
         # the classifier from the answers' word embeddings (reference:
         # train_task.py:182-202)

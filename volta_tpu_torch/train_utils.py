@@ -2,9 +2,11 @@
 layer freezing and the classifier's init from answer embeddings.
 
 JAX-free counterpart of ``volta_tpu/train_utils.py`` (MetricsLogger :26-146,
+its pretraining lines ``step_train_cc`` / ``show_train_cc`` :89-110,
 freeze_mask / apply_freeze :186-207, save_command :226-235, set_seed
 :238-241, init_classifier_from_answers :244-277), text output only: the
-``out.txt`` train and ``VAL epoch N TASK1 loss … score …`` lines.
+``out.txt`` train, ``CC masked_t … masked_v … itm …`` and ``VAL epoch N
+TASK1 loss … score …`` lines.
 """
 
 from __future__ import annotations
@@ -53,6 +55,28 @@ class MetricsLogger:
         a = self._acc[task]
         self._emit(f"[{time.strftime('%X')}] epoch {epoch} step {step} "
                    f"{task} loss {a['loss']/n:.4f} score {a['score']/n:.4f}")
+        self._acc[task] = defaultdict(float)
+        self._cnt[task] = 0
+
+    def step_train_cc(self, epoch: int, step: int, masked_t: float,
+                      masked_v: float, itm: float, lr: float,
+                      task: str = "TASK0"):
+        """Accumulate one pretraining step's three losses
+        (volta_tpu/train_utils.py:89-101); ``show_train_cc`` prints them."""
+        a = self._acc[task]
+        a["masked_t"] += masked_t
+        a["masked_v"] += masked_v
+        a["itm"] += itm
+        self._cnt[task] += 1
+
+    def show_train_cc(self, epoch: int, step: int, task: str = "TASK0"):
+        """The window's mean losses as the JAX CLI's ``CC`` line
+        (volta_tpu/train_utils.py:103-110)."""
+        n = max(self._cnt[task], 1)
+        a = self._acc[task]
+        self._emit(f"[{time.strftime('%X')}] epoch {epoch} step {step} CC "
+                   f"masked_t {a['masked_t']/n:.4f} "
+                   f"masked_v {a['masked_v']/n:.4f} itm {a['itm']/n:.4f}")
         self._acc[task] = defaultdict(float)
         self._cnt[task] = 0
 
