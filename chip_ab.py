@@ -22,7 +22,13 @@ checkout's kernels, and measures with chip_smoke's functions:
   and 13 at n=15360, d=768 in bf16 and fp32 and row 14 at that shape by
   ``kernel_ms``; rows 15 and 16 at the probes' shapes (n=15360, h=768,
   f=3072: row 15, row 16's first leg with the gelu and its bias-only
-  second leg) by ``kernel_ms`` over 20 calls;
+  second leg) by ``kernel_ms`` over 20 calls; K8 (the NCE negatives'
+  scores) at b256 and b512 x 36 regions, d 2048, 127 of chip_smoke's
+  sampled negatives, bf16 and fp32, forward (with its plan, where the body
+  makes one) and backward by ``kernel_ms`` over 20 calls, by the rule's
+  route and, where a side has the body rule's crossover
+  (``nce.TC_MAX_M_PER_NEG``), by each body with the crossover moved past
+  or below both shapes, so that it can be read at both sizes;
 - steps: ctrl_uniter_base's b256 bf16 train step (forward, backward, clip,
   AdamW; random weights from seed 0, one batch of chip_smoke's synthetic
   VQA data) with the config's dropout, with ``fuse_hidden_dropout``,
@@ -96,6 +102,54 @@ def measure_kernels(cs, side):
               f"{cs.kernel_ms(fn, iters=20):.4f} ms", flush=True)
 
 
+def measure_k8(cs, side):
+    """K8's forward and backward at b256 and b512 (``measure_kernels``):
+    the rule's route, then each body that the side's rule can be held to
+    (its crossover ``TC_MAX_M_PER_NEG`` past or below the shape)."""
+    import numpy as np
+    import torch
+
+    from volta_tpu_torch.losses import sample_negatives
+    from volta_tpu_torch.ops import nce
+
+    named = hasattr(nce, "TC_MAX_M_PER_NEG")
+    for b in (256, 512):
+        r, d = cs.CC_REGIONS, cs.K8_DIM
+        idx = sample_negatives(b, r, cs.K8_NEG, torch.Generator(
+            "cuda").manual_seed(b + r), "cuda").to(torch.int32)
+        rng = np.random.RandomState(b)
+        for dt in (torch.bfloat16, torch.float32):
+            pred = torch.from_numpy((rng.randn(b, r, d) * 0.05).astype(
+                np.float32)).cuda().to(dt)
+            flat = torch.from_numpy(np.abs(rng.randn(b * r, d) * 0.5).astype(
+                np.float32)).cuda().to(dt)
+            g = torch.from_numpy(rng.randn(b, r, idx.shape[-1]).astype(
+                np.float32)).cuda()
+            routes = [("rule", None)]
+            if named:
+                routes += [(body, 2 ** 31 if body == "tc" else 0)
+                           for body in ("tc", "gather")
+                           if body == "gather" or dt == torch.bfloat16]
+            for name, limit in routes:
+                swaps = [(nce, "TC_MAX_M_PER_NEG", limit)] if named \
+                    and limit is not None else []
+                with cs.swapped(swaps):
+                    route = (nce.nce_body(b * r, b * r, d, dt, idx.shape[-1])
+                             if named else "gather")
+                    bwd_args = ([nce.nce_plan(idx, b * r)] if route == "tc"
+                                else [])
+                    fwd = cs.kernel_ms(lambda: nce.nce_scores_fwd(
+                        pred, flat, idx), iters=20)
+                    bwd = cs.kernel_ms(lambda: nce.nce_scores_bwd(
+                        g, pred.shape, flat, idx, *bwd_args), iters=20)
+                print(f"{side} kernel K8 {name} ({route}) b{b} "
+                      f"{str(dt)[6:]}: forward {fwd:.4f} ms (its plan "
+                      f"included), backward {bwd:.4f} ms, together "
+                      f"{fwd + bwd:.4f} ms", flush=True)
+            del pred, flat, g
+            torch.cuda.empty_cache()
+
+
 def measure_steps(cs, side):
     import tempfile
 
@@ -154,6 +208,7 @@ def measure(side, what):
     torch.backends.cudnn.allow_tf32 = False
     if what in ("kernels", "both"):
         measure_kernels(cs, side)
+        measure_k8(cs, side)
     if what in ("steps", "both"):
         measure_steps(cs, side)
 

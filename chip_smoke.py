@@ -261,10 +261,16 @@ and each of which prints its seconds:
     attention launches a forward, one a query stream of a dual-stream
     sublayer; K10's a training forward: the tails, the embeddings' sites
     and the pooled output) and held to the counts of ``FAMILY_COUNTS``:
-    (a) ctrl_vilbert_base through both CLIs at full depth, as phase 16 runs
-    a task: the eval CLI at b1024 (row 1 30 times a batch, no other
-    kernel), the train CLI one epoch at b256 with the config's dropout and
-    its val loop (rows 3 and 4 30 times a step, K10 63 + 63), one eval
+    the runs at 4 layers a stream (ViLBERT's text stream 5), the full
+    width kept (``FAMILY_CUTS``, ``cut_config``: ViLBERT's last text-only
+    layer and first two co-attention blocks; LXMERT's first two
+    text-and-vision layers and first two cross blocks; VisualBERT's and
+    VL-BERT's first four layers), each run's launches derived from the cut
+    config's plan: (a) ctrl_vilbert_base through both CLIs, as phase 16
+    runs a task: the eval CLI at b1024 (row 1 once a query stream a
+    batch, no other kernel), the train CLI one epoch at b256 with the
+    config's dropout and its val loop (rows 3 and 4 as often, K10 a tail,
+    an embedding site and the pooled output each), one eval
     batch held to the twins, eval items/s, train ms/step, peak memory and
     the step's device time by kernel family; (b)-(d) vilbert_base (8 heads
     of 128 in its 1024-wide vision stream and co-attention), ctrl_lxmert,
@@ -300,14 +306,22 @@ and each of which prints its seconds:
     bf16 gradients within NOISE_FACTOR times the twins' distance from
     float64 attention sums (at least GRAD_TOL), exact launches; (c) K8
     against its twins forward and backward in bf16 and fp32 at b256 and
-    b512 x 36 regions (the dense twin) and b256 against the blockwise twin
-    (fp32 within 1e-5 of the largest, bf16 scores equal to the twin with
-    float64 sums but for at most 1 in 10^4 rounding flips, the flips
-    against the float32 twin printed), with its bf16 time beside the
-    twin's, torch's all-pairs matmul + gather and the bound; a b256 bf16
-    NCE step (``visual_target_weights {"2": 1}``) held as (b) with K8 once
-    forward and once backward, its ms/step against the same step with
-    K8's twins, in turns; (d) one bf16 step's gradients each of lxmert.json
+    b512 x 36 regions (the dense twin) and b256 against the blockwise twin,
+    by each body that takes the dtype (``check_k8``: the tensor-core body
+    and the gather body in bf16, the gather body in fp32; fp32 within 1e-5
+    of the largest; the gather body's bf16 scores on the other bf16
+    neighbour than the float64 sums' for at most 1e-4 of them, the
+    tensor-core body's at most twice as often as the float32 twin's or
+    torch's bf16 all-pairs product's, each within one bf16 ulp of torch's
+    product's or of the float64 sums'; two calls equal to the bit), at b256
+    the plan equal to its twin
+    and the peak memory K8's Function adds, the bf16 times of both bodies
+    at b256 and b512 beside the twins', torch's all-pairs matmul + gather,
+    JAX's composition backward, ``embedding_bag`` and the bound; a b256
+    bf16 NCE step (``visual_target_weights {"2": 1}``) held as (b) with
+    K8's plan, forward and backward once each, its ms/step against the
+    same step with K8's twins and with JAX's composition, in turns, and
+    the device ms of each; (d) one bf16 step's gradients each of lxmert.json
     (criteria 3-5, ``fusion_method: text``) and vl-bert_base.json
     (criterion 6, no ITM head, the global row last) at 4 layers a stream
     (``cut_config``), held as (b) with the launches of their plans
@@ -319,8 +333,9 @@ and each of which prints its seconds:
     hash's integer operations bound a kernel, which phases 6 and 7 name;
     ``task_heads_launches`` the launches of phase 16's CLI runs,
     ``families_launches`` those of phase 18's runs,
-    ``pretrain_cli_launches`` those of phase 19's CLI run; K8's
-    ``launches`` from phase 19's NCE step), then ``{"ok": true,
+    ``pretrain_cli_launches`` those of phase 19's CLI run; K8's plan,
+    forward and backward ``launches`` from phase 19's NCE step, their rows
+    also with ``gather_ms``, the gather body's time), then ``{"ok": true,
     "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
@@ -466,15 +481,17 @@ KERNELS = {
     "hash_dropout_bwd": ("hash_dropout.cu", "volta_tpu/models/layers.py:226"),
     "wgrad": ("matmul.cu", "tools/wgrad_probe.py:36"),
     "matmul_bias_act": ("matmul.cu", "tools/pallas_ffn_probe.py:46"),
+    "nce_plan": ("nce_scores.cu", "volta_tpu/losses.py:240"),
     "nce_scores_fwd": ("nce_scores.cu", "volta_tpu/losses.py:240"),
     "nce_scores_bwd": ("nce_scores.cu", "volta_tpu/losses.py:240"),
 }
 # K10: the JAX package's hash_dropout, which XLA fuses and no Pallas kernel
 # computes; its backward is the same kernel on the cotangent. K8: the NCE
 # negatives' scores of nce_2048 (dense, volta_tpu/losses.py:299-317, and
-# blockwise, _chunked_neg_scores :144-176), an XLA einsum and gather there
-NOT_PALLAS = ("hash_dropout_fwd", "hash_dropout_bwd", "nce_scores_fwd",
-              "nce_scores_bwd")
+# blockwise, _chunked_neg_scores :144-176), an XLA einsum and gather there;
+# its tensor-core body's plan buckets the sampled pairs for it
+NOT_PALLAS = ("hash_dropout_fwd", "hash_dropout_bwd", "nce_plan",
+              "nce_scores_fwd", "nce_scores_bwd")
 # the probes' shapes: the b256 train step's tokens, hidden and FFN widths
 PROBE = (15360, 768, 3072)
 PROBE_ITERS = 3
@@ -490,7 +507,7 @@ KERNEL_FAMILIES = (
     ("band column sums (rows 11, 13)", ("band_sum_kernel",)),
     ("keep-mask kernel (row 14)", ("keep_mask_kernel",)),
     ("hash dropout kernel (K10)", ("hash_dropout_kernel",)),
-    ("NCE scores kernel (K8)", ("nce_scores_",)),
+    ("NCE scores kernel (K8)", ("nce_scores_", "nce_tc::")),
     # every softmax outside the attention kernels: the plain attention
     # route's, the task heads', the MLM's log-softmax over 30522 words and
     # the KL's over 1601 classes
@@ -1987,6 +2004,7 @@ def twin_swaps():
             (hd, "hash_dropout_bwd", hd.hash_dropout_ref),
             (mm, "wgrad", mm.wgrad_ref),
             (mm, "matmul_bias_act", mm.matmul_bias_act_ref),
+            (nce, "nce_plan", nce.nce_plan_ref),
             (nce, "nce_scores_fwd", nce.dense_neg_scores),
             (nce, "nce_scores_bwd", nce.nce_scores_bwd_ref)]
 
@@ -4567,8 +4585,9 @@ def check_family_rows():
             del q, k, v, bias, g, out1, ref1
 
 
-def family_flags(root, task_cfg, eval_np, train_np, steps=2):
-    """Phase 18 (e): ctrl_vilbert_base's flags, two b256 train steps each
+def family_flags(root, task_cfg, eval_np, train_np, base, steps=2):
+    """Phase 18 (e): ctrl_vilbert_base's flags (``base`` its config file),
+    two b256 train steps each
     with exact launches: the LayerNorm kernels (rows 10-13 at every
     per-stream tail), the head-major attention (rows 5-6, its eval logits
     equal to the natural layout's to the bit), the keep-mask kernel (row
@@ -4581,7 +4600,6 @@ def family_flags(root, task_cfg, eval_np, train_np, steps=2):
     from volta_tpu_torch.models.layers import LayerNorm
     from volta_tpu_torch.ops import LAUNCHES, reset_launches
 
-    base = os.path.join(REPO, "configs", "ctrl_vilbert_base.json")
     cfg = task_config(base, task_cfg["TASK1"])
     c = plan_counts(cfg)
     attn, tails = c["attn"], c["tails"]
@@ -4680,9 +4698,13 @@ def check_families(root, data_dir, power):
                                f"{attn} attention and {sites} K10 launches")
     ymls = {src: family_yml(root, data_dir, src)
             for src in set(FAMILY_RUNS.values())}
-    config = lambda n: os.path.join(REPO, "configs", n + ".json")  # noqa
+    # every run at 4 layers a stream, ViLBERT's text stream 5 (the counts
+    # above are the full configs')
+    cuts = {name: cut_config(root, name, keep)
+            for name, keep in FAMILY_CUTS.items()}
+    config = cuts.__getitem__
     launches = {}
-    # (a) ctrl_vilbert_base through both CLIs, at full depth
+    # (a) ctrl_vilbert_base through both CLIs
     run = run_task(root, data_dir, ymls[FAMILY_RUNS["ctrl_vilbert_base"]],
                    power, "1", "ctrl_vilbert_base", True,
                    config=config("ctrl_vilbert_base"))
@@ -4702,8 +4724,8 @@ def check_families(root, data_dir, power):
     yml = ymls[FAMILY_RUNS["ctrl_vilbert_base"]]
     task_cfg, eval_np, train_np = family_data(
         root, data_dir, yml, config("ctrl_vilbert_base"), "flags")
-    launches["ctrl_vilbert_base flags"] = family_flags(root, task_cfg,
-                                                       eval_np, train_np)
+    launches["ctrl_vilbert_base flags"] = family_flags(
+        root, task_cfg, eval_np, train_np, config("ctrl_vilbert_base"))
     export_reload(root, data_dir, yml, config("ctrl_vilbert_base"),
                   "ctrl_vilbert_base export")
     return launches, run["rates"]
@@ -4719,9 +4741,14 @@ CC_SEQ, CC_REGIONS, CC_BATCH = 38, 36, 256
 # the dense twin, and the b256 one against the blockwise twin
 K8_SHAPES = ((256, 36, None), (512, 36, None), (256, 36, 4096))
 K8_DIM, K8_NEG = 2048, 128
-# bf16 scores that may differ from the twin's by one rounding flip (the
-# twin's float32 sum against the kernel's exact one), a share of all
+# bf16 scores on the other bf16 neighbour than the float64 sums round to:
+# the gather body (float64 sums itself), at most this share of all
 K8_FLIPS = 1e-4
+# the tensor-core body (float32 sums), at most this many times the more of
+# the float32 twin's and torch's bf16 all-pairs product's (JAX's
+# composition on the card, float32 sums on the tensor cores), each within
+# one bf16 ulp of torch's product's or of the float64 sums' (``k8_flips``)
+K8_FLIP_FACTOR = 2
 # fp32 scores and gradients, and bf16 gradients, relative to the largest
 K8_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # lxmert.json and vl-bert_base.json at 4 layers a stream: the sublayers
@@ -4729,6 +4756,17 @@ K8_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # blocks; VL-BERT's first four layers)
 PRETRAIN_CUTS = {"lxmert": (0, 1, 2, 3, 18, 19, 20, 21, 22, 23),
                  "vl-bert_base": tuple(range(8))}
+# phase 18's runs the same way: ViLBERT's last text-only layer (sublayers
+# 10-11, no vision) and its first two co-attention blocks (each a
+# co-attention and a self-attention layer a stream), 5 text and 4 vision
+# layers
+VILBERT_CUT = tuple(range(10, 20))
+FAMILY_CUTS = {"ctrl_vilbert_base": VILBERT_CUT, "vilbert_base": VILBERT_CUT,
+               "ctrl_lxmert": PRETRAIN_CUTS["lxmert"],
+               "lxmert": PRETRAIN_CUTS["lxmert"],
+               "ctrl_visualbert_base": PRETRAIN_CUTS["vl-bert_base"],
+               "ctrl_vl-bert_base": PRETRAIN_CUTS["vl-bert_base"],
+               "vl-bert_base": PRETRAIN_CUTS["vl-bert_base"]}
 
 def write_synth_cc(out, n_train, n_valid, seed):
     """A synthetic Conceptual Captions dataroot in the reference's formats,
@@ -4830,11 +4868,14 @@ def pretrain_counts(cfg):
 
 
 def pretrain_launches(counts, steps, val_batches=0, nce=0):
+    """A pretraining run's launches; ``nce`` the NCE losses a step, which
+    at the CC batch's shape take K8's tensor-core body: a plan, a forward
+    and a backward each."""
     return expect(attention_dropout_fwd=counts["attn"] * steps,
                   attention_dropout_bwd=counts["attn_bwd"] * steps,
                   attention_fwd=counts["attn"] * val_batches,
-                  nce_scores_fwd=nce * steps, nce_scores_bwd=nce * steps,
-                  **k10_of(counts, steps))
+                  nce_plan=nce * steps, nce_scores_fwd=nce * steps,
+                  nce_scores_bwd=nce * steps, **k10_of(counts, steps))
 
 
 _CC_SETS = {}
@@ -4985,11 +5026,18 @@ def fp32_pretrain_step(cfg, batch, want):
     torch.cuda.empty_cache()
 
 
+def no_plan(neg_idx, m):
+    """No plan: what the K8-only swaps put in ``nce_plan``'s place, whose
+    stand-ins need none."""
+    return None
+
+
 def k8_only_twin():
     """K8's plain twins in its wrappers' place, every other kernel kept."""
     from volta_tpu_torch.ops import nce
 
-    return swapped([(nce, "nce_scores_fwd", nce.dense_neg_scores),
+    return swapped([(nce, "nce_plan", no_plan),
+                    (nce, "nce_scores_fwd", nce.dense_neg_scores),
                     (nce, "nce_scores_bwd", nce.nce_scores_bwd_ref)])
 
 
@@ -5015,20 +5063,20 @@ def embedding_bag_bwd(g, flat, idx):
                            per_sample_weights=g.reshape(q, -1).to(flat.dtype))
 
 
-def library_neg_scores(pred, flat, neg_idx):
+def library_neg_scores(pred, flat, neg_idx, plan=None):
     """What JAX runs in K8's place, in torch calls: the all-pairs product
     in the inputs' dtype (float32 sums, the scores rounded to that dtype),
-    the sampled scores gathered, as float32."""
+    the sampled scores gathered, as float32 (``plan`` unused)."""
     import torch
 
     return torch.gather(torch.matmul(pred, flat.t()), -1,
                         neg_idx.long()).float()
 
 
-def library_neg_scores_bwd(g, pred_shape, flat, neg_idx):
+def library_neg_scores_bwd(g, pred_shape, flat, neg_idx, plan=None):
     """Its transpose as JAX's vjp takes it: g rounded to flat's dtype,
     scattered into the [Q, M] score cotangent in that dtype, times flat in
-    that dtype (float32 sums)."""
+    that dtype (float32 sums; ``plan`` unused)."""
     import torch
 
     q = neg_idx.numel() // neg_idx.shape[-1]
@@ -5038,32 +5086,88 @@ def library_neg_scores_bwd(g, pred_shape, flat, neg_idx):
     return torch.matmul(full, flat).view(pred_shape)
 
 
+def k8_body(body):
+    """K8's wrappers held to one body, "tc" or "gather", whatever the
+    shape: ``nce_body``'s crossover moved past every shape or below it."""
+    from volta_tpu_torch.ops import nce
+
+    return swapped([(nce, "TC_MAX_M_PER_NEG",
+                     2 ** 31 if body == "tc" else 0)])
+
+
 def k8_only_library():
     """JAX's composition (``library_neg_scores``) in K8's wrappers' place,
     every other kernel kept."""
     from volta_tpu_torch.ops import nce
 
-    return swapped([(nce, "nce_scores_fwd", library_neg_scores),
+    return swapped([(nce, "nce_plan", no_plan),
+                    (nce, "nce_scores_fwd", library_neg_scores),
                     (nce, "nce_scores_bwd", library_neg_scores_bwd)])
+
+
+def k8_flips(got, ref, ref64, lib):
+    """The bf16 score check: ``got``'s flips against ``ref64`` (the
+    float64-sum scores rounded to bf16) at most K8_FLIP_FACTOR times the
+    more of the float32 twin's (``ref``) and torch's bf16 all-pairs
+    product's (``lib``), on the same inputs; every score within one bf16
+    ulp of torch's product's or of the float64 sums'. (Not of the float32
+    twin's: where a sum nearly cancels, the tensor cores' float32 sums,
+    torch's and the kernel's alike, land hundreds of that small score's
+    ulps from the twin's.) Returns (ok, note)."""
+    flips, flips32, flips_lib = (int((x != ref64).sum())
+                                 for x in (got, ref, lib))
+    limit = K8_FLIP_FACTOR * max(flips32, flips_lib)
+    near = ulp_off(got, lib) <= 1.0
+    near |= ulp_off(got, ref64) <= 1.0
+    ok = flips <= limit and bool(near.all())
+    n = got.numel()
+    return ok, (f"{flips} flips of {n} against the float64-sum scores "
+                f"({flips / n:.2e}; limit {limit:g}: {K8_FLIP_FACTOR:g} x "
+                f"the float32 twin's {flips32} or torch's bf16 all-pairs "
+                f"product's {flips_lib}), {int((got != lib).sum())} scores "
+                f"off torch's bf16 product, {int((~near).sum())} more than "
+                f"a bf16 ulp from both it and the float64 sums, at most "
+                f"{float(ulp_off(got, ref).max()):.2f} ulps from the "
+                f"float32 twin")
+
+
+def ulp_off(got, ref):
+    """|got - ref| in bf16 ulps of each ``ref``."""
+    import torch
+
+    ulp = torch.exp2(torch.floor(torch.log2(
+        ref.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+    return (got - ref).abs() / ulp
 
 
 def check_k8():
     """Phase 19 (c): K8 forward and backward against its twins, bf16 and
-    fp32, at K8_SHAPES on JAX's sampled negatives (``sample_negatives``):
-    fp32 scores and gradients within K8_TOL of the largest; bf16 gradients
-    within K8_TOL; bf16 scores equal to the twin's with its sums in float64
-    but for at most K8_FLIPS rounding flips (the count against the float32
-    twin printed beside). Times at b256 bf16 (``kernel_ms``): K8, the dense
-    twin, and torch's all-pairs bf16 matmul + gather, the composition K8
-    replaces; the bound: pred, flat, the indices and the scores once over
-    the memory rate, or the products' FMAs over the fp32 rate (the
-    backward's bytes and FMAs are as many). The backward's library call is
-    ``embedding_bag``'s weighted sum of the sampled rows, g rounded to
-    flat's dtype as the kernel rounds it."""
+    fp32, at K8_SHAPES on JAX's sampled negatives (``sample_negatives``),
+    by each body that takes the dtype (the tensor-core body in bf16, the
+    gather body in both; ``nce_body`` routes b256 to the first and b512 to
+    the second): fp32 scores and gradients within K8_TOL of the largest;
+    bf16 scores within ``k8_flips``' bounds and 2^-7 of the largest, bf16
+    gradients within K8_TOL (the gather body's scores, with float64 sums,
+    at most K8_FLIPS of them off the float64 sums' rounding); two calls of
+    each body (``k8_body``) equal to the bit, and
+    their launches exact (a plan a call for the tensor-core body). At b256
+    bf16: the plan against its twin array for array, the peak memory that
+    K8's autograd Function adds forward and backward (at most a third of
+    the [Q, M] bf16 score tensor it avoids), and the times (``kernel_ms``)
+    of the plan, both bodies, the twins, torch's all-pairs bf16 matmul +
+    gather (the forward's library call), JAX's composition backward
+    (``library_neg_scores_bwd``, scatter + bf16 matmul: the backward's)
+    and ``embedding_bag`` with weights; at b512 bf16 the times of both
+    bodies, the plan and the two library calls. The bound: pred, flat, the
+    indices and the scores once over the memory rate, or the products'
+    FMAs over the peak of the body's operations, bf16 tensor for the
+    tensor-core body and fp32 for the gather body (the backward's bytes
+    and FMAs are as many); the tensor-core body's dense floor, the
+    all-pairs product at the bf16 peak, printed beside it."""
     import torch
 
     from volta_tpu_torch.losses import sample_negatives
-    from volta_tpu_torch.ops import nce
+    from volta_tpu_torch.ops import LAUNCHES, nce, reset_launches
 
     out = {}
     for b, r, chunk in K8_SHAPES:
@@ -5078,84 +5182,181 @@ def check_k8():
                                     .astype(np.float32)).cuda().to(dtype)
             g = torch.from_numpy(rng.randn(b, r, idx.shape[-1]).astype(
                 np.float32)).cuda()
-            got = nce.nce_scores_fwd(pred, flat, idx)
-            dgot = nce.nce_scores_bwd(g, pred.shape, flat, idx)
             ref = nce.neg_scores_ref(pred, flat, idx, chunk)
             dref = nce.nce_scores_bwd_ref(g, pred.shape, flat, idx)
-            # the twin with its sums in float64, rounded as the kernel
-            # rounds
-            s64 = torch.gather(torch.matmul(pred.double(), flat.double().t()),
-                               -1, idx).float()
-            ref64 = s64.to(dtype).float()
+            if dt == "bfloat16":
+                # the scores with float64 sums, rounded as the kernels
+                # round; torch's bf16 all-pairs product (JAX's composition)
+                ref64 = torch.gather(torch.matmul(
+                    pred.double(), flat.double().t()), -1, idx).float().to(
+                        dtype).float()
+                lib = library_neg_scores(pred, flat, idx)
             torch.cuda.synchronize()
             scale = float(ref.abs().max())
-            err = float((got - ref).abs().max())
-            derr = float((dgot.float() - dref.float()).abs().max()) / float(
-                dref.float().abs().max())
-            what = f"K8 b{b} r{r} d{K8_DIM} {dt}" + (
-                f", blockwise twin of {chunk}" if chunk else "")
-            if dt == "float32":
-                ok = err <= K8_TOL[dt] * scale
-                note = f"scores max abs diff {err:.3e} of {scale:.3e}"
-            else:
-                flips = int((got != ref64).sum())
-                flips32 = int((got != ref).sum())
-                share = flips / got.numel()
-                ok = share <= K8_FLIPS and err <= 2 ** -7 * scale
-                note = (f"scores: {flips} flips of {got.numel()} against the "
-                        f"float64-sum twin ({share:.2e}, limit "
-                        f"{K8_FLIPS:g}), {flips32} against the float32 twin "
-                        f"({flips32 / got.numel():.2e}), max abs diff "
-                        f"{err:.3e} of {scale:.3e}")
-            ok = ok and derr <= K8_TOL[dt] and bool(torch.isfinite(got).all())
-            print(f"{what}: {note}; gradient rel diff {derr:.3e} (tol "
-                  f"{K8_TOL[dt]:g})", flush=True)
-            if not ok:
-                raise RuntimeError(f"{what} disagrees with its twin")
-            if (b, chunk, dt) == (256, None, "bfloat16"):
-                n = idx.numel()
-                # forward: pred, flat, the indices and the scores; backward:
-                # the cotangent, the indices, flat and d pred, as many
-                nbytes = (pred.numel() + flat.numel()) * 2 + n * 4 * 2
-                fwd_b = bwd_b = bound(nbytes, 2 * n * K8_DIM, "fp32")
-                idx32 = idx.to(torch.int32)
-                t = {"fwd": kernel_ms(lambda: nce.nce_scores_fwd(
-                         pred, flat, idx32), iters=20),
-                     "bwd": kernel_ms(lambda: nce.nce_scores_bwd(
-                         g, pred.shape, flat, idx32), iters=20),
-                     "fwd plain": kernel_ms(lambda: nce.dense_neg_scores(
-                         pred, flat, idx), iters=10),
-                     "bwd plain": kernel_ms(lambda: nce.nce_scores_bwd_ref(
-                         g, pred.shape, flat, idx), iters=10),
-                     "fwd library": kernel_ms(lambda: torch.gather(
-                         torch.matmul(pred, flat.t()), -1, idx), iters=10),
-                     "bwd library": kernel_ms(lambda: embedding_bag_bwd(
-                         g, flat, idx), iters=20)}
-                bag_err = float((embedding_bag_bwd(g, flat, idx).float()
-                                 - dgot.float().view(-1, K8_DIM)).abs().max())
-                print(f"K8 b{b} r{r} bf16 [{card_line()}]: forward "
-                      f"{t['fwd']:.4f} ms (bound {fwd_b[0]:.4f} ms by "
-                      f"{fwd_b[1]}, {fwd_b[0] / t['fwd']:.2f} of it), "
-                      f"backward {t['bwd']:.4f} ms (bound {bwd_b[0]:.4f}, "
-                      f"{bwd_b[0] / t['bwd']:.2f}); twins {t['fwd plain']:.4f}"
-                      f" / {t['bwd plain']:.4f} ms; torch all-pairs bf16 "
-                      f"matmul + gather {t['fwd library']:.4f} ms, "
-                      f"embedding_bag (weighted sum) {t['bwd library']:.4f} "
-                      f"ms, max abs diff to K8's gradient {bag_err:.3e}",
+            for body in ("gather",) if dt == "float32" else ("tc", "gather"):
+                reset_launches()
+                with k8_body(body):
+                    got = nce.nce_scores_fwd(pred, flat, idx)
+                    dgot = nce.nce_scores_bwd(g, pred.shape, flat, idx)
+                    again = nce.nce_scores_fwd(pred, flat, idx)
+                    dagain = nce.nce_scores_bwd(g, pred.shape, flat, idx)
+                torch.cuda.synchronize()
+                launched = tuple(LAUNCHES[k] for k in (
+                    "nce_plan", "nce_scores_fwd", "nce_scores_bwd"))
+                if launched != (4 * (body == "tc"), 2, 2):
+                    raise RuntimeError(f"K8 {body} launched {launched}")
+                same = torch.equal(got, again) and torch.equal(dgot, dagain)
+                err = float((got - ref).abs().max())
+                derr = float((dgot.float() - dref.float()).abs().max()) / \
+                    float(dref.float().abs().max())
+                what = f"K8 {body} b{b} r{r} d{K8_DIM} {dt}" + (
+                    f", blockwise twin of {chunk}" if chunk else "")
+                if dt == "float32":
+                    ok = err <= K8_TOL[dt] * scale
+                    note = f"scores max abs diff {err:.3e} of {scale:.3e}"
+                elif body == "gather":
+                    flips = int((got != ref64).sum())
+                    ok = flips <= K8_FLIPS * got.numel() \
+                        and err <= 2 ** -7 * scale
+                    note = (f"scores: {flips} flips of {got.numel()} against "
+                            f"the float64 sums (limit {K8_FLIPS:g} of all), "
+                            f"{int((got != ref).sum())} against the float32 "
+                            f"twin, max abs diff {err:.3e} of {scale:.3e}")
+                else:
+                    ok, note = k8_flips(got, ref, ref64, lib)
+                    ok = ok and err <= 2 ** -7 * scale
+                    note = (f"scores: {note}, max abs diff {err:.3e} of "
+                            f"{scale:.3e}")
+                ok = ok and same and derr <= K8_TOL[dt] and bool(
+                    torch.isfinite(got).all())
+                print(f"{what}: {note}; gradient rel diff {derr:.3e} (tol "
+                      f"{K8_TOL[dt]:g}); two calls equal to the bit: {same}",
                       flush=True)
-                shapes = f"[{b}x{r}, {K8_DIM}] x {idx.shape[-1]} bf16"
-                out["nce_scores_fwd"] = {
-                    "ms": t["fwd"], "plain_ms": t["fwd plain"],
-                    "library_ms": t["fwd library"], "bound": fwd_b,
-                    "max_abs_err": err, "shapes": shapes}
-                out["nce_scores_bwd"] = {
-                    "ms": t["bwd"], "plain_ms": t["bwd plain"],
-                    "library_ms": t["bwd library"], "bound": bwd_b,
-                    "max_abs_err": float((dgot.float() - dref.float())
-                                         .abs().max()), "shapes": shapes}
-            del pred, flat, g, got, dgot, ref, dref, s64, ref64
-        torch.cuda.empty_cache()
+                if not ok:
+                    raise RuntimeError(f"{what} disagrees with its twins")
+            if dt == "bfloat16" and chunk is None:
+                out.update(time_k8(b, r, pred, flat, idx, g, err, dgot, dref))
+            del pred, flat, g, got, dgot, ref, dref, again, dagain
+            torch.cuda.empty_cache()
     return out
+
+
+def time_k8(b, r, pred, flat, idx, g, err, dgot, dref):
+    """Phase 19 (c)'s K8 times at (b, r) bf16 (``check_k8``); at b256 also
+    the plan against its twin, the Function's peak memory and the JSON
+    rows' entries."""
+    import torch
+
+    from volta_tpu_torch.ops import LAUNCHES, nce, reset_launches
+
+    q, m = b * r, flat.shape[0]
+    idx32 = idx.to(torch.int32)
+    plan = nce.nce_plan(idx32, m)
+    torch.cuda.synchronize()
+    t = {"plan": kernel_ms(lambda: nce.nce_plan(idx32, m), iters=20)}
+    for body in ("tc", "gather"):
+        p = plan if body == "tc" else None
+        with k8_body(body):
+            t[body + " fwd"] = kernel_ms(lambda: nce.nce_scores_fwd(
+                pred, flat, idx32, p), iters=20)
+            t[body + " bwd"] = kernel_ms(lambda: nce.nce_scores_bwd(
+                g, pred.shape, flat, idx32, p), iters=20)
+    t["fwd library"] = kernel_ms(lambda: library_neg_scores(pred, flat, idx),
+                                 iters=10)
+    t["bwd library"] = kernel_ms(lambda: library_neg_scores_bwd(
+        g, pred.shape, flat, idx), iters=10)
+    n = idx.numel()
+    floor = 2 * q * m * K8_DIM / PEAK_OPS["bf16 tensor"] * 1e3
+    # forward: pred, flat, the indices and the scores; backward: the
+    # cotangent, the indices, flat and d pred, as many
+    nbytes = (pred.numel() + flat.numel()) * 2 + n * 4 * 2
+    k8_b = bound(nbytes, 2 * n * K8_DIM, "bf16 tensor")
+    gather_b = bound(nbytes, 2 * n * K8_DIM, "fp32")
+    power = card_line()
+    rule = nce.nce_body(q, m, K8_DIM, torch.bfloat16, idx.shape[-1])
+    print(f"K8 b{b} r{r} bf16 [{power}]: tensor-core body plan "
+          f"{t['plan']:.4f} + forward {t['tc fwd']:.4f} ms, backward "
+          f"{t['tc bwd']:.4f} ms; gather body forward {t['gather fwd']:.4f}"
+          f", backward {t['gather bwd']:.4f} ms; torch's bf16 all-pairs "
+          f"matmul + gather {t['fwd library']:.4f} ms, JAX's composition "
+          f"backward (scatter + bf16 matmul) {t['bwd library']:.4f} ms; "
+          f"bound {k8_b[0]:.4f} ms by {k8_b[1]} (the gather body's, at the "
+          f"fp32 rate, {gather_b[0]:.4f} ms by {gather_b[1]}), the "
+          f"tensor-core body's dense floor {floor:.4f} ms; rule: {rule}",
+          flush=True)
+    if b != 256:
+        return {}
+    # the plan against its twin
+    twin = nce.nce_plan_ref(idx32, m)
+    e = int(twin.starts[-1])
+    qt, ct, qp, _, _ = nce.plan_tiles(q, m)
+    same = (torch.equal(plan.entries[:e], twin.entries[:e])
+            and torch.equal(plan.starts, twin.starts)
+            and torch.equal(plan.units[:1 + int(twin.units[0])],
+                            twin.units[:1 + int(twin.units[0])])
+            and torch.equal(plan.bwd_count, twin.bwd_count)
+            and all(torch.equal(plan.bwd_list[x * ct:x * ct + c],
+                                twin.bwd_list[x * ct:x * ct + c])
+                    for x, c in ((2 * p + h, int(twin.bwd_count[p]))
+                                 for p in range(qp) for h in range(2))))
+    if not same:
+        raise RuntimeError("K8's plan differs from its twin")
+    # the peak memory the autograd Function adds, forward and backward
+    reset_launches()
+    x = pred.detach().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s = nce.NCEScores.apply(x, flat, idx)
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s.backward(g)
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - base
+    scores_bytes = q * m * 2
+    launched = {k: LAUNCHES[k] for k in ("nce_plan", "nce_scores_fwd",
+                                         "nce_scores_bwd")}
+    print(f"K8 b{b} autograd Function: launches {launched}; peak memory "
+          f"added {fwd_peak / 2**20:.1f} MiB forward, {bwd_peak / 2**20:.1f}"
+          f" MiB backward (d pred {x.numel() * 2 / 2**20:.1f} MiB of it), "
+          f"against {scores_bytes / 2**20:.1f} MiB for the [Q, M] bf16 "
+          f"scores; its plan equals the twin's", flush=True)
+    if launched != {"nce_plan": 1, "nce_scores_fwd": 1, "nce_scores_bwd": 1}:
+        raise RuntimeError(f"K8's Function launched {launched}")
+    if max(fwd_peak, bwd_peak) > scores_bytes / 3:
+        raise RuntimeError("K8's Function allocates too much")
+    del s, x
+    t["fwd plain"] = kernel_ms(lambda: nce.dense_neg_scores(pred, flat, idx),
+                               iters=5)
+    t["bwd plain"] = kernel_ms(lambda: nce.nce_scores_bwd_ref(
+        g, pred.shape, flat, idx), iters=5)
+    t["plan plain"] = kernel_ms(lambda: nce.nce_plan_ref(idx32, m), iters=3)
+    t["bag"] = kernel_ms(lambda: embedding_bag_bwd(g, flat, idx), iters=10)
+    bag_err = float((embedding_bag_bwd(g, flat, idx).float()
+                     - dgot.float().view(-1, K8_DIM)).abs().max())
+    print(f"K8 b{b} r{r} bf16 [{power}]: twins forward {t['fwd plain']:.4f}"
+          f", backward {t['bwd plain']:.4f}, plan {t['plan plain']:.4f} ms; "
+          f"embedding_bag (weighted sum) {t['bag']:.4f} ms, max abs diff to "
+          f"K8's gradient {bag_err:.3e}", flush=True)
+    shapes = f"[{b}x{r}, {K8_DIM}] x {idx.shape[-1]} bf16"
+    plan_bytes = n * 4 + e * 8 + plan.starts.numel() * 4
+    common = {"shapes": shapes, "body": "tc"}
+    return {
+        "nce_plan": {"ms": t["plan"], "plain_ms": t["plan plain"],
+                     "library_ms": None, "bound": bound(plan_bytes, 0, "fp32"),
+                     "max_abs_err": 0.0, **common},
+        "nce_scores_fwd": {"ms": t["tc fwd"], "plain_ms": t["fwd plain"],
+                           "library_ms": t["fwd library"], "bound": k8_b,
+                           "max_abs_err": err, "gather_ms": t["gather fwd"],
+                           **common},
+        "nce_scores_bwd": {"ms": t["tc bwd"], "plain_ms": t["bwd plain"],
+                           "library_ms": t["bwd library"], "bound": k8_b,
+                           "max_abs_err": float((dgot.float() - dref.float())
+                                                .abs().max()),
+                           "gather_ms": t["gather bwd"],
+                           "embedding_bag_ms": t["bag"], **common}}
 
 
 def nce_step(cc_dir, power):
@@ -5186,8 +5387,9 @@ def nce_step(cc_dir, power):
     reset_launches()
     step(state, batch)
     torch.cuda.synchronize()
-    launches = {k: LAUNCHES[k] for k in ("nce_scores_fwd", "nce_scores_bwd")}
-    if launches != {"nce_scores_fwd": 1, "nce_scores_bwd": 1}:
+    launches = {k: LAUNCHES[k] for k in ("nce_plan", "nce_scores_fwd",
+                                         "nce_scores_bwd")}
+    if launches != {"nce_plan": 1, "nce_scores_fwd": 1, "nce_scores_bwd": 1}:
         raise RuntimeError(f"NCE step launched K8 {launches}")
     routes = (("K8", contextlib.nullcontext), ("twin", k8_only_twin),
               ("library", k8_only_library))
@@ -5689,8 +5891,9 @@ def main(argv):
                           else "operations"),
              "bound_share": results[name]["bound"][0] / results[name]["ms"],
              "library_ms": results[name]["library_ms"],
-             **{k: results[name][k] for k in ("shapes", "body", "leg2")
-                if k in results[name]},
+             **{k: results[name][k] for k in (
+                 "shapes", "body", "leg2", "gather_ms",
+                 "embedding_bag_ms") if k in results[name]},
              # phase 16's launches: the task heads' eval and train runs
              "task_heads_launches": sum(
                  run[k][name] for run in task_runs.values()

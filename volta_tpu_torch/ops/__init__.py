@@ -19,7 +19,7 @@ LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
             "dropout_residual_ln_fwd": 0, "dropout_residual_ln_bwd": 0,
             "keep_mask": 0, "hash_dropout_fwd": 0, "hash_dropout_bwd": 0,
             "wgrad": 0, "matmul_bias_act": 0,
-            "nce_scores_fwd": 0, "nce_scores_bwd": 0}
+            "nce_plan": 0, "nce_scores_fwd": 0, "nce_scores_bwd": 0}
 
 
 def reset_launches():

@@ -78,6 +78,23 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       : "memory");
 }
 
+// One arrival on this block's barrier.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Shared-memory writes of this thread's generic proxy made visible to the
+// async proxy (wgmma's operand reads).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` over `count` threads of the block (whole warps).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // One arrival on the barrier at the same offset in block `rank` of the
 // cluster (this block's own or its peer's).
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, int rank) {
@@ -189,8 +206,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
 // d[64 x 256] += A[64 x 16] . B[16 x 256], both from shared memory; A read
-// MN-major with kTransA, K-major without; B MN-major.
-template <int kTransA>
+// MN-major with kTransA, K-major without; B MN-major with kTransB (rows 15
+// and 16), K-major without (the NCE scores' candidate rows).
+template <int kTransA, int kTransB = 1>
 __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -212,12 +230,12 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : VOLTA_ACC8(0), VOLTA_ACC8(8), VOLTA_ACC8(16), VOLTA_ACC8(24),
         VOLTA_ACC8(32), VOLTA_ACC8(40), VOLTA_ACC8(48), VOLTA_ACC8(56),
         VOLTA_ACC8(64), VOLTA_ACC8(72), VOLTA_ACC8(80), VOLTA_ACC8(88),
         VOLTA_ACC8(96), VOLTA_ACC8(104), VOLTA_ACC8(112), VOLTA_ACC8(120)
-      : "l"(da), "l"(db), "r"(1), "n"(kTransA));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
 #undef VOLTA_ACC8
@@ -443,7 +461,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 // [tile_slots[2p], tile_slots[2p + 1]), and its upper or lower 128 rows
 // (block rank r) are in workspace slot 2 s + r. Four columns a thread; N a
 // multiple of 4.
-__global__ void partial_sum_kernel(const float* __restrict__ ws,
+static __global__ void partial_sum_kernel(const float* __restrict__ ws,
                                    const int* __restrict__ tile_slots,
                                    float* __restrict__ out, int M, int N) {
   const int n4 = N / 4;
