@@ -12,7 +12,8 @@ route with attention-map capture (``--no_pallas``, ``--dump_attn``), the
 device store, gradient accumulation, freezing and ``embed_clf``; then the
 other families: ViLBERT and LXMERT (dual-stream), VisualBERT and VL-BERT;
 then the pretraining path on Conceptual Captions, with K8 (the NCE
-negatives' scores).
+negatives' scores); then the retrieval CLI with K9 (the int8 dense layer)
+and the optimizers' options.
 
     python3 chip_smoke.py [--profile]
 
@@ -149,11 +150,12 @@ and each of which prints its seconds:
     mask flag moves the tails, 1 where the config's dropout rates are 0:
     the pooled output's fixed 0.1) and kernel 1 12 times per
     validation batch, losses finite and falling, one VAL line per epoch;
-    1 epoch of
+    then at 4 of the 12 layers (``uniter_cut``; a layer's launches where
+    these say 12, a tail's where they say 24), 1 epoch of
     the same config with its dropout rates set to 0, which must run kernel
     2 12 times per step; 1 epoch with the LayerNorm flags on, which must
     run kernels 12 and 13 24 times and kernels 10 and 11 5 times per step
-    (and kernel 10 29 times per validation batch); 1 epoch of the
+    (and kernel 10 5 + 24 times per validation batch); 1 epoch of the
     head-major config, kernels 5 and 6 12 times per step and kernel 7 12
     times per validation batch; 1 epoch of it with dropout 0, kernels 7 and
     8 12 times per step; 1 epoch with ``fuse_hidden_dropout``, kernels 9
@@ -182,7 +184,9 @@ and each of which prints its seconds:
     ``--profile`` the device time of a step by kernel, without and with the
     LayerNorm kernels, head-major, dropout-free natural and head-major, and
     with each hidden-mask flag;
-15. ``remat_ff``, the int threshold and the checkpoints at b256 bf16:
+15. ``remat_ff``, the int threshold and the checkpoints at b256 bf16, at
+    4 of the 12 layers (``uniter_cut``; a layer's launches where these say
+    12, a tail's where they say 24):
     (a) the ``remat_ff`` config against the plain one, the same weights and
     seed, by default and with the LayerNorm flags, with torch's default
     algorithms (the token-type table sums its gradient in a fixed order):
@@ -215,14 +219,17 @@ and each of which prints its seconds:
     captions each) dataroots at full feature width, written here through
     the port's LMDB writer (the same files as ``tools/make_synth_data.py
     nlvr2|refcoco|retrieval``), with ``ctrl_trainval_tasks.yml``'s TASK12,
-    TASK10 and TASK8 fields (each val split its train split); for NLVR2
+    TASK10 and TASK8 fields (each val split its train split); every run
+    at 4 of ctrl_uniter_base's 12 layers (``uniter_cut``; the full
+    config's plan held to 12 attention and 27 K10 launches a forward, the
+    cut's launches from its plan); for NLVR2
     and RefCOCO+ the eval CLI at the yml's eval batch (512 pairs, 1024):
-    kernel 1 12 times a batch and no other kernel, one record an item; for
-    each task the train CLI, one epoch at the yml's batch (64, 256, 64)
-    with the config's dropout and its val loop: kernels 3 and 4 12 times a
-    step, K10 27 forward and 27 backward (24 tails, 2 embeddings, and the
-    pooled output or, for refcoco+'s V-logit head, the region outputs),
-    kernel 1 12 times a val batch, finite losses; one eval batch with the
+    kernel 1 once a layer a batch and no other kernel, one record an item;
+    for each task the train CLI, one epoch at the yml's batch (64, 256,
+    64) with the config's dropout and its val loop: kernels 3 and 4 once a
+    layer a step, K10 a tail each, 2 embeddings, and the pooled output or,
+    for refcoco+'s V-logit head, the region outputs, forward and backward,
+    kernel 1 once a layer a val batch, finite losses; one eval batch with the
     kernels and the twins as phase 9 holds VQA's (fp32 within 1e-4; bf16
     within twice, at least 5e-2, the twins' distance from float64
     attention sums), answers flipped reported; eval items/s at that batch
@@ -327,16 +334,44 @@ and each of which prints its seconds:
     (``cut_config``), held as (b) with the launches of their plans
     (``pretrain_counts``); (e) the CLI's model exported as a reference
     ``.bin`` and read back into other weights bit for bit;
-20. the kernels' JSON line (the attention rows also with ``body``, the
-    body their wrapper runs in bf16; ``pallas`` false for K10 and K8, which
-    replace no Pallas kernel; ``bound_by`` "operations" also where the
+20. the retrieval CLI, K9 and the other optimizers: (a) a synthetic
+    Flickr30k test split of 1000 images (36 x 2048 regions, two gallery
+    chunks of 500, 38 tokens: L 75), ``eval_retrieval.main`` on phase 19's
+    exported .bin over 64 captions, 4 a dispatch (2,000 pairs), bf16,
+    ``--zero_shot`` and ``--quantize int8``: pairs/s, the metrics, row 1
+    12 times a forward and K9a and K9b once per Dense a forward, one bf16
+    dispatch held to the twins as phase 9 holds logits, the int8 dispatch
+    bit-equal with K9's twins in its place, the int8 route's top-1
+    agreement with bf16 printed; (b) K9 against its twins bit for bit at a
+    dispatch's three products (M 150,000; K x N 768 x 768, 768 x 3072,
+    3072 x 768) and odd shapes (M 7, 1000, 150,001; K 5, 100; N 1, 100),
+    a zero row each, dynamic and static scales, bf16 and float32 in and
+    out, with their times beside the twins', the bound (int8 products at
+    1,979 TOPS), ``torch._int_mm`` + the epilogue and the bf16
+    ``F.linear``; (c) fp32 RAdam on the card against the CPU over steps
+    1-7 within 1e-6 (``radam_on_card``), ``train_task`` at 4 layers with
+    ``--optim RAdam --optimizer_state_dtype bfloat16
+    --skip_disconnected_params`` and with ``--optimizer_state_dtype
+    bfloat16`` (finite losses, exact launches, the saved moments'
+    dtypes), the b256 step's ms and peak with float32 AdamW, RAdam and bf16
+    moments in turns, and lxmert.json at 4 layers a stream: with
+    ``skip_disconnected`` its parameters that no gradient reaches stay at
+    their initial values for 2 steps, without it the decayed ones move;
+    (d) ``train_concap`` at 4 layers from phase 19's .bin (its trunk),
+    2 steps with and without ``--trunk_lr_scale 0.1``: each loaded
+    parameter's update 0.1x within 1e-6 beyond the rounding of p + u, the
+    heads (not loaded) bit-equal;
+21. the kernels' JSON line (the attention rows also with ``body``, the
+    body their wrapper runs in bf16; ``pallas`` false for K10, K8 and K9,
+    which replace no Pallas kernel; ``bound_by`` "operations" also where the
     hash's integer operations bound a kernel, which phases 6 and 7 name;
     ``task_heads_launches`` the launches of phase 16's CLI runs,
     ``families_launches`` those of phase 18's runs,
     ``pretrain_cli_launches`` those of phase 19's CLI run; K8's plan,
     forward and backward ``launches`` from phase 19's NCE step, their rows
-    also with ``gather_ms``, the gather body's time), then ``{"ok": true,
-    "device": ...}`` last.
+    also with ``gather_ms``, the gather body's time; K9's from phase 20's
+    int8 run, its rows at FFN1's shape with ``shapes``, each product's
+    times), then ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -416,7 +451,8 @@ LN_SHAPES = [(TRAIN_ROWS, "bfloat16"), (TRAIN_ROWS, "float32"),
 CONFIG = os.path.join(REPO, "configs", "ctrl_uniter_base.json")
 CSRC = "volta_tpu_torch/ops/csrc/"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS = {"bf16 tensor": 989e12, "fp32": 67e12}  # H100 SXM, dense
+PEAK_OPS = {"bf16 tensor": 989e12, "fp32": 67e12,  # H100 SXM, dense
+            "int8 tensor": 1979e12}
 # 32-bit integer lanes of an H100 SM (NVIDIA's Hopper architecture white
 # paper: 64 INT32 units an SM; its int32 "TOPS" count a multiply-add as
 # two). The integer bound counts the hash's integer instructions that issue
@@ -484,14 +520,19 @@ KERNELS = {
     "nce_plan": ("nce_scores.cu", "volta_tpu/losses.py:240"),
     "nce_scores_fwd": ("nce_scores.cu", "volta_tpu/losses.py:240"),
     "nce_scores_bwd": ("nce_scores.cu", "volta_tpu/losses.py:240"),
+    "int8_quantize": ("int8_dense.cu", "volta_tpu/ops/int8_dense.py:52"),
+    "int8_matmul": ("int8_dense.cu", "volta_tpu/ops/int8_dense.py:52"),
 }
 # K10: the JAX package's hash_dropout, which XLA fuses and no Pallas kernel
 # computes; its backward is the same kernel on the cotangent. K8: the NCE
 # negatives' scores of nce_2048 (dense, volta_tpu/losses.py:299-317, and
 # blockwise, _chunked_neg_scores :144-176), an XLA einsum and gather there;
 # its tensor-core body's plan buckets the sampled pairs for it
+# K9a and K9b: int8_dense_apply's per-token quantize and its int8 product
+# with the dequantizing epilogue, which XLA composes
 NOT_PALLAS = ("hash_dropout_fwd", "hash_dropout_bwd", "nce_plan",
-              "nce_scores_fwd", "nce_scores_bwd")
+              "nce_scores_fwd", "nce_scores_bwd", "int8_quantize",
+              "int8_matmul")
 # the probes' shapes: the b256 train step's tokens, hidden and FFN widths
 PROBE = (15360, 768, 3072)
 PROBE_ITERS = 3
@@ -1948,6 +1989,7 @@ def twin_swaps():
     from volta_tpu_torch.ops import dropout_mask as dm
     from volta_tpu_torch.ops import fused_residual as fr
     from volta_tpu_torch.ops import hash_dropout as hd
+    from volta_tpu_torch.ops import int8_dense as i8
     from volta_tpu_torch.ops import layernorm as ln
     from volta_tpu_torch.ops import matmul as mm
     from volta_tpu_torch.ops import nce
@@ -2006,7 +2048,9 @@ def twin_swaps():
             (mm, "matmul_bias_act", mm.matmul_bias_act_ref),
             (nce, "nce_plan", nce.nce_plan_ref),
             (nce, "nce_scores_fwd", nce.dense_neg_scores),
-            (nce, "nce_scores_bwd", nce.nce_scores_bwd_ref)]
+            (nce, "nce_scores_bwd", nce.nce_scores_bwd_ref),
+            (i8, "int8_quantize", i8.quantize_ref),
+            (i8, "int8_matmul", i8.int8_matmul_ref)]
 
 
 @contextlib.contextmanager
@@ -2242,6 +2286,21 @@ def _synth_record(rng, img_id, boxes, feat_dim):
         "boxes": base64.b64encode(synth_boxes(rng, boxes).tobytes())})
 
 
+def write_synth_features(out, images, boxes, feat_dim, rng):
+    """``out``/features.lmdb: ``images`` records (image ids 1000000 on) of
+    ``boxes`` x ``feat_dim`` features drawn from ``rng``, through the
+    port's own LMDB writer."""
+    import pickle
+
+    from volta_tpu_torch.data import lmdbx
+
+    keys = [str(1000000 + i).encode() for i in range(images)]
+    items = [(key, _synth_record(rng, 1000000 + i, boxes, feat_dim))
+             for i, key in enumerate(keys)]
+    items.append((b"keys", pickle.dumps(keys)))
+    lmdbx.write(os.path.join(out, "features.lmdb"), items)
+
+
 def write_synth_vqa(out, images, questions, boxes, feat_dim, num_labels,
                     seed):
     """A synthetic VQA dataroot in the reference's on-disk formats, through
@@ -2253,20 +2312,9 @@ def write_synth_vqa(out, images, questions, boxes, feat_dim, num_labels,
     arguments."""
     import pickle
 
-    from volta_tpu_torch.data import lmdbx
-
     os.makedirs(out, exist_ok=True)
     rng = np.random.RandomState(seed)
-    items, keys = [], []
-    for i in range(images):
-        key = str(1000000 + i).encode()
-        keys.append(key)
-        items.append((key, _synth_record(rng, 1000000 + i, boxes,
-                                         feat_dim)))
-    items.append((b"keys", pickle.dumps(keys)))
-    lmdbx.write(os.path.join(out, "features.lmdb"), items)
-    del items
-
+    write_synth_features(out, images, boxes, feat_dim, rng)
     with open(os.path.join(out, "trainval_ans2label.pkl"), "wb") as f:
         pickle.dump({f"answer{i}": i for i in range(num_labels)}, f)
     with open(os.path.join(out, "trainval_label2ans.pkl"), "wb") as f:
@@ -2555,6 +2603,31 @@ def hold_task_logits(task_cfg, task, batch_np, tag, config=CONFIG):
         if dtype == "float32":
             del model, fn
     return model
+
+
+# phases 12 (but its default run), 15, 16 and 20 at 4 of ctrl_uniter_base's
+# 12 layers (its first 8 sublayers), their launches from the cut config's
+# plan; the full config's plan is held to 12 attention and 27 K10
+# launches a forward
+UNITER_CUT = tuple(range(8))
+
+
+def uniter_cut(root, src=CONFIG):
+    """ctrl_uniter_base (or its flagged copy at ``src``) cut to
+    UNITER_CUT, after the full config's plan is checked; the cut's path
+    and its ``plan_counts``."""
+    from volta_tpu_torch.config import VoltaConfig
+
+    full = plan_counts(VoltaConfig.from_json_file(src))
+    if (full["attn"], full["k10"], full["k10_bwd"]) != (12, 27, 27):
+        raise RuntimeError(f"{src}'s plan gives {full}")
+    path = cut_config(root, os.path.basename(src)[:-len(".json")],
+                      UNITER_CUT, src=src)
+    cut = plan_counts(VoltaConfig.from_json_file(path))
+    print(f"{os.path.basename(path)}: {len(UNITER_CUT) // 2} layers, "
+          f"{cut['attn']} attention and {cut['k10']} K10 launches a forward "
+          f"(full depth {full['attn']} and {full['k10']})", flush=True)
+    return path, cut
 
 
 def run_task(root, data_dir, yml, power, task, tag, eval_cli,
@@ -3000,12 +3073,14 @@ def train_argv(root, data_dir, yml, config, epochs, tag, task="1"):
 
 
 def run_train(root, data_dir, yml, flagged, hm, fuse, pmask, free, hm_free):
-    """Phase 12: the train CLI at full width, with the config's dropout, with
-    its dropout rates set to 0, with the LayerNorm flags on (``flagged``),
-    with the head-major attention (``hm``) with the config's dropout and
-    with none (``free``, ``hm_free``: the configs with dropout rates 0), and
-    with each hidden-mask flag (``fuse``: fuse_hidden_dropout, ``pmask``:
-    use_pallas_dropout_mask). Returns the launches of each run."""
+    """Phase 12: the train CLI at full width, with the config's dropout
+    (two epochs at full depth), then at 4 layers (``uniter_cut``) with
+    its dropout rates set to 0, with the LayerNorm flags on
+    (``flagged``), with the head-major attention (``hm``) with the
+    config's dropout and with none (``free``, ``hm_free``: the configs
+    with dropout rates 0), and with each hidden-mask flag (``fuse``:
+    fuse_hidden_dropout, ``pmask``: use_pallas_dropout_mask), each run's
+    launches from its config's plan. Returns the launches of each run."""
     import torch
 
     from volta_tpu_torch import train_task
@@ -3022,6 +3097,10 @@ def run_train(root, data_dir, yml, flagged, hm, fuse, pmask, free, hm_free):
                                 ("head_major_dropout_free", hm_free, 1),
                                 ("hidden_masks", fuse, 1),
                                 ("keep_mask", pmask, 1)):
+        counts = plan_counts(cfg)
+        if tag != "dropout":
+            config, counts = uniter_cut(root, config)
+        attn, tails, sites = counts["attn"], counts["tails"], counts["k10"]
         argv = train_argv(root, data_dir, yml, config, epochs, tag)
         data = load_dataset(train_task.parse_args(argv), cfg,
                             load_task_config(yml), "1")
@@ -3048,39 +3127,41 @@ def run_train(root, data_dir, yml, flagged, hm, fuse, pmask, free, hm_free):
         if len(val_lines) != epochs:
             raise RuntimeError(f"{len(val_lines)} VAL lines")
         val = epochs * n_val
+        # the 5 LayerNorms outside the tails (embeddings, classifier) run
+        # row 10 in a step; an eval forward runs every LayerNorm on it
         want = {
-            "dropout": expect(attention_dropout_fwd=12 * steps,
-                              attention_dropout_bwd=12 * steps,
-                              attention_fwd=12 * val,
-                              **k10(K10_SITES * steps)),
-            "dropout_free": expect(attention_fwd=12 * steps + 12 * val,
-                                   attention_bwd=12 * steps,
+            "dropout": expect(attention_dropout_fwd=attn * steps,
+                              attention_dropout_bwd=attn * steps,
+                              attention_fwd=attn * val,
+                              **k10(sites * steps)),
+            "dropout_free": expect(attention_fwd=attn * (steps + val),
+                                   attention_bwd=attn * steps,
                                    **k10(K10_POOLED * steps)),
-            "flagged": expect(attention_dropout_fwd=12 * steps,
-                              attention_dropout_bwd=12 * steps,
-                              attention_fwd=12 * val,
-                              layer_norm_fwd=5 * steps + 29 * val,
+            "flagged": expect(attention_dropout_fwd=attn * steps,
+                              attention_dropout_bwd=attn * steps,
+                              attention_fwd=attn * val,
+                              layer_norm_fwd=5 * steps + (5 + tails) * val,
                               layer_norm_bwd=5 * steps,
-                              dropout_residual_ln_fwd=24 * steps,
-                              dropout_residual_ln_bwd=24 * steps,
+                              dropout_residual_ln_fwd=tails * steps,
+                              dropout_residual_ln_bwd=tails * steps,
                               **k10(K10_FLAGGED * steps)),
             "head_major": expect(
-                attention_dropout_head_major_fwd=12 * steps,
-                attention_dropout_head_major_bwd=12 * steps,
-                attention_head_major_fwd=12 * val,
-                **k10(K10_SITES * steps)),
+                attention_dropout_head_major_fwd=attn * steps,
+                attention_dropout_head_major_bwd=attn * steps,
+                attention_head_major_fwd=attn * val,
+                **k10(sites * steps)),
             "head_major_dropout_free": expect(
-                attention_head_major_fwd=12 * steps + 12 * val,
-                attention_head_major_bwd=12 * steps,
+                attention_head_major_fwd=attn * (steps + val),
+                attention_head_major_bwd=attn * steps,
                 **k10(K10_POOLED * steps)),
             "hidden_masks": expect(
-                attention_dropout_hidden_masks_fwd=12 * steps,
-                attention_dropout_head_major_bwd=12 * steps,
-                attention_fwd=12 * val, **k10(K10_FLAGGED * steps)),
-            "keep_mask": expect(attention_dropout_fwd=12 * steps,
-                                attention_dropout_bwd=12 * steps,
-                                keep_mask=24 * steps,
-                                attention_fwd=12 * val,
+                attention_dropout_hidden_masks_fwd=attn * steps,
+                attention_dropout_head_major_bwd=attn * steps,
+                attention_fwd=attn * val, **k10(K10_FLAGGED * steps)),
+            "keep_mask": expect(attention_dropout_fwd=attn * steps,
+                                attention_dropout_bwd=attn * steps,
+                                keep_mask=tails * steps,
+                                attention_fwd=attn * val,
                                 **k10(K10_FLAGGED * steps))}[tag]
         if launches != want:
             raise RuntimeError(f"{tag} launches {launches}, expected {want}")
@@ -3531,10 +3612,11 @@ def remat_steps(task_cfg, batch, plain, remat, counts, what):
                            "step")
 
 
-def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
-    """Phase 15 (b): ``use_hash_dropout: false``: each of the 24 tails'
-    keep fraction 0.9 +- 0.005, the same seed twice bit-equal, no K10 at
-    the tails; with ``use_fused_residual_ln`` the tails take row 12."""
+def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln, counts):
+    """Phase 15 (b): ``use_hash_dropout: false``: each tail's keep
+    fraction 0.9 +- 0.005, the same seed twice bit-equal, no K10 at the
+    tails; with ``use_fused_residual_ln`` the tails take row 12;
+    ``counts`` the configs' plan."""
     import torch
 
     from volta_tpu_torch.models import layers
@@ -3562,7 +3644,8 @@ def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
         fr = torch.stack(fractions).cpu().tolist()
     finally:
         layers.int_threshold_keep = keep_fn
-    want = expect(attention_dropout_fwd=12, attention_dropout_bwd=12,
+    attn, tails = counts["attn"], counts["tails"]
+    want = expect(attention_dropout_fwd=attn, attention_dropout_bwd=attn,
                   **k10(K10_FLAGGED))
     print(f"int threshold (use_hash_dropout false), b256 bf16: {len(fr)} "
           f"tails a step, keep fractions {min(fr):.5f}-{max(fr):.5f}; the "
@@ -3570,7 +3653,7 @@ def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
           "gradients max abs diff "
           f"{max_diff(ga, gb)[0]:.3e}; step loss {loss:.4f}, launches "
           f"{launches}", flush=True)
-    if per_forward != 24 or len(fr) != 24 or \
+    if per_forward != tails or len(fr) != tails or \
             not all(abs(f - 0.9) <= 0.005 for f in fr):
         raise RuntimeError(f"int threshold tails: {per_forward} a forward, "
                            f"keep fractions {fr}")
@@ -3584,8 +3667,8 @@ def int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln):
     state, step = new_step(model, task_cfg, 1e-4)
     reset_launches()
     loss = float(step(state, batch)["loss"])
-    want = expect(attention_dropout_fwd=12, attention_dropout_bwd=12,
-                  dropout_residual_ln_fwd=24, dropout_residual_ln_bwd=24,
+    want = expect(attention_dropout_fwd=attn, attention_dropout_bwd=attn,
+                  dropout_residual_ln_fwd=tails, dropout_residual_ln_bwd=tails,
                   **k10(K10_FLAGGED))
     print(f"int threshold with use_fused_residual_ln: loss {loss:.4f}, "
           f"launches {dict(LAUNCHES)}", flush=True)
@@ -3633,7 +3716,7 @@ def export_reload(root, data_dir, yml, config=CONFIG, tag="export"):
     os.unlink(path)
 
 
-def resume_runs(root, task_cfg, batch, k=2):
+def resume_runs(root, task_cfg, batch, config, k=2):
     """Phase 15 (c): 2k steps uninterrupted, twice, against k steps, the
     port's train state saved, fresh objects, restored and k more; and a
     reference tar of the same state resumed the same way (the generator,
@@ -3655,7 +3738,7 @@ def resume_runs(root, task_cfg, batch, k=2):
                 "generator": state.generator.get_state()}
 
     def fresh(seed=0):
-        model = build_model(task_cfg, "bfloat16", seed=seed).train()
+        model = build_model(task_cfg, "bfloat16", config, seed=seed).train()
         return new_step(model, task_cfg, 1e-4)
 
     def run(state, step, n):
@@ -3729,49 +3812,57 @@ def resume_runs(root, task_cfg, batch, k=2):
 def check_remat_int_checkpoints(root, data_dir, yml, task_cfg, batch_np,
                                 power, profile, flagged, pmask):
     """Phase 15: ``remat_ff``, ``use_hash_dropout: false`` and the
-    checkpoint slice at full width (ctrl_uniter_base, b256, bf16)."""
+    checkpoint slice at full width, 4 layers (``uniter_cut``; b256,
+    bf16), each run's launches from its config's plan."""
     from volta_tpu_torch.eval_step import to_device
     from volta_tpu_torch.optimization import warmup_linear_schedule
 
-    remat = write_config(root, "ctrl_uniter_base_remat.json", remat_ff=True)
+    base, counts = uniter_cut(root)
+    flagged, pmask = uniter_cut(root, flagged)[0], uniter_cut(root, pmask)[0]
+    remat = write_config(root, "ctrl_uniter_base_remat.json", base=base,
+                         remat_ff=True)
     remat_ln = write_config(root, "ctrl_uniter_base_remat_ln_kernels.json",
-                            remat_ff=True, use_pallas_layernorm=True,
+                            base=base, remat_ff=True,
+                            use_pallas_layernorm=True,
                             use_fused_residual_ln=True)
     remat_pmask = write_config(root, "ctrl_uniter_base_remat_keep_mask.json",
-                               remat_ff=True, use_pallas_dropout_mask=True)
+                               base=base, remat_ff=True,
+                               use_pallas_dropout_mask=True)
     int_thr = write_config(root, "ctrl_uniter_base_int_threshold.json",
-                           use_hash_dropout=False)
+                           base=base, use_hash_dropout=False)
     int_thr_ln = write_config(
         root, "ctrl_uniter_base_int_threshold_fused_residual.json",
-        use_hash_dropout=False, use_fused_residual_ln=True)
+        base=base, use_hash_dropout=False, use_fused_residual_ln=True)
     batch = to_device({k: v for k, v in batch_np.items()
                        if isinstance(v, np.ndarray)}, "cuda")
-    attn = dict(attention_dropout_fwd=12, attention_dropout_bwd=12)
+    tails, ff, sites = counts["tails"], counts["ff_tails"], counts["k10"]
+    attn = dict(attention_dropout_fwd=counts["attn"],
+                attention_dropout_bwd=counts["attn"])
     ln = dict(layer_norm_fwd=5, layer_norm_bwd=5,
-              dropout_residual_ln_bwd=24)
+              dropout_residual_ln_bwd=tails)
     # the recomputation replays each feed-forward tail's forward: K10, or
-    # row 12 with the LayerNorm flags, 12 more launches a step
-    remat_steps(task_cfg, batch, CONFIG, remat, {
-        "plain": dict(attn, **k10(K10_SITES)),
-        "remat_ff": dict(attn, hash_dropout_fwd=K10_SITES + 12,
-                         hash_dropout_bwd=K10_SITES)}, "default")
+    # row 12 with the LayerNorm flags, one more launch a layer a step
+    remat_steps(task_cfg, batch, base, remat, {
+        "plain": dict(attn, **k10(sites)),
+        "remat_ff": dict(attn, hash_dropout_fwd=sites + ff,
+                         hash_dropout_bwd=sites)}, "default")
     remat_steps(task_cfg, batch, flagged, remat_ln, {
-        "plain": dict(attn, dropout_residual_ln_fwd=24, **ln,
+        "plain": dict(attn, dropout_residual_ln_fwd=tails, **ln,
                       **k10(K10_FLAGGED)),
-        "remat_ff": dict(attn, dropout_residual_ln_fwd=36, **ln,
+        "remat_ff": dict(attn, dropout_residual_ln_fwd=tails + ff, **ln,
                          **k10(K10_FLAGGED))}, "LN flags")
     # row 14 is gated off by remat_ff: its tails take K10, which draws the
     # mask row 14 draws for the same seed
     remat_steps(task_cfg, batch, pmask, remat_pmask, {
-        "plain": dict(attn, keep_mask=24, **k10(K10_FLAGGED)),
-        "remat_ff": dict(attn, hash_dropout_fwd=K10_SITES + 12,
-                         hash_dropout_bwd=K10_SITES)},
+        "plain": dict(attn, keep_mask=tails, **k10(K10_FLAGGED)),
+        "remat_ff": dict(attn, hash_dropout_fwd=sites + ff,
+                         hash_dropout_bwd=sites)},
         "use_pallas_dropout_mask")
-    int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln)
+    int_threshold_steps(task_cfg, batch, int_thr, int_thr_ln, counts)
 
     rates = {}
     for config, what, on, off in (
-            (CONFIG, "default,", "remat_ff", "plain"),
+            (base, "default,", "remat_ff", "plain"),
             (flagged, "LN flags,", "remat_ff LN flags", "plain LN flags")):
         model = build_model(task_cfg, "bfloat16", config).train()
         state, step = new_step(model, task_cfg,
@@ -3799,8 +3890,8 @@ def check_remat_int_checkpoints(root, data_dir, yml, task_cfg, batch_np,
             profile_device(lambda: step(state, batch),
                            rates["hash tails"][1], "hash tails")
     del model, state, step
-    export_reload(root, data_dir, yml)
-    resume_runs(root, task_cfg, batch)
+    export_reload(root, data_dir, yml, base)
+    resume_runs(root, task_cfg, batch, base)
     return rates
 
 
@@ -4832,11 +4923,12 @@ def concap_argv(root, cc_dir, epochs, config=CONFIG):
             "--num_workers", "4", "--seed", "0"]
 
 
-def cut_config(root, name, keep):
-    """configs/<name>.json with only the sublayers ``keep``, renumbered in
-    order, written into ``root``; BERT layers whose sublayer is cut drop
-    out of the layer maps."""
-    with open(os.path.join(REPO, "configs", name + ".json")) as f:
+def cut_config(root, name, keep, src=None):
+    """configs/<name>.json (or the config at ``src``) with only the
+    sublayers ``keep``, renumbered in order, written into ``root`` as
+    <name>_cut.json; BERT layers whose sublayer is cut drop out of the
+    layer maps."""
+    with open(src or os.path.join(REPO, "configs", name + ".json")) as f:
         cfg = json.load(f)
     new = {old: i for i, old in enumerate(sorted(keep))}
     for key, val in list(cfg.items()):
@@ -5628,6 +5720,584 @@ def check_pretraining(root, data_dir, yml, power, profile):
     return results, {"cli": cli_launches, "nce": nce_launches}
 
 
+# ----------------------------------------------------------------- phase 20
+# the retrieval CLI at examples/ctrl_uniter/flickr30k/test.sh's width: a
+# 1000-image gallery (two chunks of 500) of 36 regions x 2048, 38 tokens
+# (L = 38 + 36 + 1 = 75), 4 captions a dispatch (2,000 pairs), 64 captions
+RET_IMAGES, RET_SEQ, RET_CAPTIONS, RET_CB = 1000, 38, 64, 4
+# K9 alone: a dispatch's products (M = 4 x 500 x 75 rows; K x N of the
+# attention projections, FFN1 and FFN2), and odd shapes
+K9_M = 4 * 500 * 75
+K9_MAIN = ((768, 768), (768, 3072), (3072, 768))
+K9_ODD = [(m, k, n) for m in (7, 1000, 150_001) for k in (5, 100)
+          for n in (1, 100)]
+# RAdam's update on the card against the CPU's, relative
+RADAM_TOL = 1e-6
+
+
+def retrieval_dataroot(root):
+    """Phase 20's Flickr30k test split: 1000 images of 36 boxes, 5
+    captions each, TASK8 of ``ctrl_test_tasks.yml`` at 38 tokens. Returns
+    the yml and the vocab."""
+    ret = os.path.join(root, "flickr30k_test")
+    t0 = time.time()
+    os.makedirs(ret, exist_ok=True)
+    write_synth_features(ret, RET_IMAGES, 36, 2048,
+                         np.random.RandomState(20))
+    write_synth_retrieval(ret, images=RET_IMAGES, sentences=5, seed=20)
+    yml = os.path.join(root, "retrieval_test.yml")
+    with open(yml, "w") as f:
+        f.write(f"""TASK8:
+  name: RetrievalFlickr30k
+  type: VL-logit
+  num_labels: 1
+  loss: CrossEntropyLoss
+  process: retrieval
+  task_id: 8
+  dataroot: {ret}
+  features_h5path1: {ret}/features.lmdb
+  features_h5path2: ''
+  train_annotations_jsonpath: {ret}/{RETRIEVAL_ANN}
+  val_annotations_jsonpath: {ret}/{RETRIEVAL_ANN}
+  max_seq_length: {RET_SEQ}
+  max_region_num: 36
+  batch_size: 1
+  train_split: train
+  val_split: test
+  lr: 0.00002
+""")
+    print(f"synthetic Flickr30k test split: {RET_IMAGES} images x 5 "
+          f"captions, written in {time.time() - t0:.1f} s", flush=True)
+    return yml, os.path.join(ret, "vocab.txt")
+
+
+def dense_calls(model, fn):
+    """The Dense modules' calls during ``fn()``, counted by forward
+    hooks."""
+    from volta_tpu_torch.ops.int8_dense import dense_modules
+
+    calls = [0]
+    hooks = [m.register_forward_hook(lambda *_: calls.__setitem__(
+        0, calls[0] + 1)) for m in dense_modules(model).values()]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls[0]
+
+
+def run_retrieval(root, yml, vocab, path, power):
+    """Phase 20 (a): ``eval_retrieval.main`` plain (bf16), ``--zero_shot``
+    and ``--quantize int8`` on one .bin, ``path`` (phase 19's export: the
+    trunk and the pretraining heads; the retrieval head stays at its draw
+    from the seed, the same in the bf16 and int8 runs); exact launches
+    (row 1 12 a forward, K9a and K9b once per Dense a forward), one
+    dispatch held to the twins, the int8 one bit-equal with K9 swapped for
+    its twins. Returns the runs."""
+    import torch
+
+    from volta_tpu_torch import eval_retrieval
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    base = ["--config_file", CONFIG, "--tasks_config_file", yml,
+            "--task", "8", "--vocab_file", vocab, "--from_pretrained", path,
+            "--num_workers", "0", "--compute_dtype", "bfloat16",
+            "--captions_per_forward", str(RET_CB), "--max_captions",
+            str(RET_CAPTIONS), "--device", "cuda", "--seed", "0"]
+    attn = plan_counts(task_config(CONFIG, {}))["attn"]
+    runs = {}
+    for tag, flags in (("bf16", []), ("zero-shot", ["--zero_shot"]),
+                       ("int8", ["--quantize", "int8"])):
+        reset_launches()
+        t0 = time.time()
+        out = eval_retrieval.main(base + ["--output_dir", os.path.join(
+            root, "retrieval_" + tag)] + flags)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        forwards = out["dispatches"] + 1  # and the warm-up
+        scores = out["score_matrix"]
+        block = out["captions"](0)
+        fwd = out["forward"]
+        per = 0
+        if tag == "int8":
+            served = out["model"]
+            per = dense_calls(served, lambda: fwd(block, 0))
+            if per != len(i8.dense_modules(served)):
+                raise RuntimeError(f"int8: {per} Dense calls a forward, "
+                                   f"{len(i8.dense_modules(served))} Dense")
+        want = expect(attention_fwd=attn * forwards,
+                      int8_quantize=per * forwards,
+                      int8_matmul=per * forwards)
+        print(f"eval_retrieval.main ({tag}): {RET_CAPTIONS} captions x "
+              f"{RET_IMAGES} images in {out['dispatches']} dispatches of "
+              f"{RET_CB} x 500 pairs: {out['pairs_per_s']:.1f} pairs/s "
+              f"({out['seconds']:.2f} s scoring, {wall:.1f} s wall with "
+              f"data and model set-up) [{power}]; image retrieval "
+              f"{out['image_retrieval']}, text retrieval "
+              f"{out['text_retrieval']}; launches {launches}", flush=True)
+        if launches != want:
+            raise RuntimeError(f"retrieval {tag} launches {launches}, "
+                               f"expected {want}")
+        if scores.shape != (RET_CAPTIONS, RET_IMAGES) \
+                or not np.isfinite(scores).all():
+            raise RuntimeError(f"retrieval {tag}: scores {scores.shape}")
+        got = fwd(block, 1).float()
+        if tag == "int8":
+            # bit-equal to the same dispatch with K9's twins in its place
+            with swapped([(i8, "int8_quantize", i8.quantize_ref),
+                          (i8, "int8_matmul", i8.int8_matmul_ref)]):
+                ref = fwd(block, 1).float()
+            same = torch.equal(got, ref)
+            print(f"int8 dispatch with K9 vs its twins: bit-equal {same} "
+                  f"(max abs diff {float((got - ref).abs().max()):.3e})",
+                  flush=True)
+            if not same:
+                raise RuntimeError("the int8 dispatch disagrees with K9's "
+                                   "twins")
+        else:
+            hold_to_twins(f"retrieval {tag}", got,
+                          lambda b: {"prediction": fwd(*b).float()},
+                          (block, 1))
+        out["launches"] = launches
+        runs[tag] = out
+    for out in runs.values():  # the served models and galleries go
+        for key in ("forward", "model", "gallery", "captions"):
+            del out[key]
+    torch.cuda.empty_cache()
+    agree = float(np.mean(runs["int8"]["score_matrix"].argmax(1)
+                          == runs["bf16"]["score_matrix"].argmax(1)))
+    diff = float(np.abs(runs["int8"]["score_matrix"]
+                        - runs["bf16"]["score_matrix"]).max())
+    print(f"int8 vs bf16 route: top-1 image agreement {agree:.4f} over "
+          f"{RET_CAPTIONS} captions, max |dscore| {diff:.4f} (random "
+          "weights: the scores are near-tied; printed only)", flush=True)
+    return runs
+
+
+def k9_inputs(m, k, n, dtype, seed):
+    """x [m, k] of ``dtype`` with rows of scales up to 4 and a zero row (a
+    padded token's), a Dense weight [n, k] and bias [n], on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, device="cuda", generator=g) \
+        * torch.rand(m, 1, device="cuda", generator=g) * 4
+    x[m // 2] = 0.0
+    w = torch.randn(n, k, device="cuda", generator=g) * 0.05
+    b = torch.randn(n, device="cuda", generator=g)
+    return x.to(dtype), w, b
+
+
+def check_k9(power):
+    """Phase 20 (b): K9a and K9b against their twins bit for bit at a
+    dispatch's three products (M = 150,000) and at odd shapes (M 7, 1000,
+    150,001; K 5, 100; N 1, 100) with zero rows, dynamic and static
+    scales, bf16 and float32 in and out; the kernels' times at the
+    dispatch's shapes beside their twins', the bound and the library:
+    ``torch._int_mm`` and the same epilogue, and the bf16 ``F.linear``.
+    Returns the kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    checked = 0
+    for m, k, n in K9_ODD + [(K9_M, k, n) for k, n in K9_MAIN]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = k9_inputs(m, k, n, dtype, seed=m + k + n)
+            q, scale = i8.quantize_kernel(w)
+            for static in (False, True):
+                a_s = i8.absmax_scale(x.float().abs().amax()) if static \
+                    else None
+                xq, a = i8.int8_quantize(x, a_s)
+                rq, ra = i8.quantize_ref(x, a_s)
+                if not (torch.equal(xq, rq) and torch.equal(a, ra)) \
+                        or int(xq[m // 2].abs().max()):
+                    raise RuntimeError(f"K9a {m}x{k} {dtype} static "
+                                       f"{static} disagrees with its twin")
+                for out in (torch.bfloat16, torch.float32):
+                    y = i8.int8_matmul(xq, a, q, scale, b, out)
+                    ref = i8.int8_matmul_ref(xq, a, q, scale, b, out)
+                    if not torch.equal(y, ref):
+                        raise RuntimeError(
+                            f"K9b {m}x{k}x{n} {dtype}->{out} static "
+                            f"{static}: max abs diff "
+                            f"{float((y.float() - ref.float()).abs().max())}")
+                    checked += 1
+            del x, w, b, q, scale, xq, a, rq, ra
+    # the epilogue's ties: acc = +-(2^18 - 1) times a * scale = (2^18 + 1)
+    # 2^-60, plus +-(1 + 2^-23), rounds once to +-(1 + 2^-23); rounded
+    # through float64 first it would land on the even neighbour
+    row = [127] * 17 + [15]
+    xq = torch.tensor([row, [-v for v in row]], dtype=torch.int8,
+                      device="cuda")
+    q = torch.tensor([[127] * 16 + [32, 1]] * 2, dtype=torch.int8,
+                     device="cuda")
+    a = torch.full((2,), (2 ** 18 + 1) * 2.0 ** -30, device="cuda")
+    scale = torch.full((2,), 2.0 ** -30, device="cuda")
+    b = torch.tensor([1 + 2 ** -23, -(1 + 2 ** -23)], device="cuda")
+    y = i8.int8_matmul(xq, a, q, scale, b, torch.float32)
+    ref = i8.int8_matmul_ref(xq, a, q, scale, b, torch.float32)
+    if not (torch.equal(y, ref) and torch.equal(y, b.expand(2, 2))):
+        raise RuntimeError(f"K9b's epilogue ties: {y.tolist()}, twin "
+                           f"{ref.tolist()}")
+    checked += 1
+    print(f"K9a and K9b bit-equal to their twins in {checked} cases "
+          f"(shapes {K9_ODD} and M {K9_M} x {K9_MAIN}; dynamic and static "
+          "scales, bf16 and float32 in and out, a zero row each; and "
+          "K9b's epilogue on four float64 ties)", flush=True)
+
+    rows = {}
+    for k, n in K9_MAIN:
+        x, w, b = k9_inputs(K9_M, k, n, torch.bfloat16, seed=k * n)
+        q, scale = i8.quantize_kernel(w)
+        xq, a = i8.int8_quantize(x)
+        qa_ms = kernel_ms(lambda: i8.int8_quantize(x), iters=50)
+        qa_plain = cuda_ms(lambda: i8.quantize_ref(x), iters=5, warmup=1)
+        qa_bound = bound(K9_M * k * 2 + K9_M * k + 4 * K9_M, 0,
+                         "int8 tensor")
+        mm_ms = kernel_ms(lambda: i8.int8_matmul(xq, a, q, scale, b,
+                                                 torch.bfloat16), iters=20)
+        mm_plain = cuda_ms(lambda: i8.int8_matmul_ref(
+            xq, a, q, scale, b, torch.bfloat16), iters=3, warmup=1)
+        qt = q.t()
+
+        def library():
+            acc = torch._int_mm(xq, qt)
+            return torch.addcmul(b, acc.float(), a[:, None] * scale) \
+                .to(torch.bfloat16)
+
+        lib_ms = kernel_ms(library, iters=20)
+        wb = w.to(torch.bfloat16)
+        lin_ms = kernel_ms(lambda: F.linear(x, wb, b.to(torch.bfloat16)),
+                           iters=20)
+        mm_bound = bound(K9_M * k + n * k + 4 * K9_M + 8 * n
+                         + K9_M * n * 2, 2 * K9_M * n * k, "int8 tensor")
+        print(f"K9 at M {K9_M}, K {k}, N {n} [{power}]: K9a "
+              f"{qa_ms:.4f} ms (twin {qa_plain:.4f}; bound "
+              f"{qa_bound[0]:.4f} by {qa_bound[1]}, "
+              f"{qa_bound[0] / qa_ms:.3f} of it); K9b {mm_ms:.4f} ms "
+              f"(twin {mm_plain:.4f}; torch._int_mm + epilogue "
+              f"{lib_ms:.4f}; bf16 F.linear {lin_ms:.4f}; bound "
+              f"{mm_bound[0]:.4f} by {mm_bound[1]}, "
+              f"{mm_bound[0] / mm_ms:.3f} of it; "
+              f"{2 * K9_M * n * k / mm_ms / 1e9:.1f} TOPS)", flush=True)
+        rows[(k, n)] = {
+            "int8_quantize": {"max_abs_err": 0.0, "ms": qa_ms,
+                              "plain_ms": qa_plain, "bound": qa_bound,
+                              "library_ms": None},
+            "int8_matmul": {"max_abs_err": 0.0, "ms": mm_ms,
+                            "plain_ms": mm_plain, "bound": mm_bound,
+                            "library_ms": lib_ms, "bf16_linear_ms": lin_ms}}
+        del x, w, b, q, scale, xq, a
+        torch.cuda.empty_cache()
+    # the kernels line: K9a at K 768 (five of a layer's six inputs), K9b at
+    # FFN1 (768 x 3072), the others' times beside them
+    out = {"int8_quantize": rows[(768, 3072)]["int8_quantize"],
+           "int8_matmul": rows[(768, 3072)]["int8_matmul"]}
+    for name in out:
+        out[name]["shapes"] = {f"{K9_M}x{k}x{n}": {
+            key: (r[name][key][0] if key == "bound" else r[name][key])
+            for key in ("ms", "plain_ms", "bound", "library_ms")}
+            for (k, n), r in rows.items()}
+    return out
+
+
+def radam_on_card():
+    """Phase 20 (c): fp32 RAdam updates on the card equal the CPU's within
+    RADAM_TOL (relative to each tensor's largest) over steps 1-7, the
+    fallback and then the adaptive branch. The parameters are set to 0
+    before each step, so that each step's update is read exactly. No clip:
+    its float32 global norm over 600k elements sums in another order on
+    each device, ~5e-6 apart, which would scale every update by as much."""
+    import torch
+
+    from volta_tpu_torch.optimization import RAdam
+
+    g = torch.Generator().manual_seed(20)
+    shapes = [(768, 768), (3072,), (5, 768), (1,)]
+    grads = [[torch.randn(s, generator=g) for s in shapes] for _ in range(7)]
+    params = {d: [torch.zeros(s, device=d, requires_grad=True)
+                  for s in shapes] for d in ("cpu", "cuda")}
+    opts = {d: RAdam([(str(i), p) for i, p in enumerate(params[d])], 1e-3,
+                     eps=1e-6, weight_decay=0.01)
+            for d in params}
+    worst = 0.0
+    for gs in grads:
+        for d in params:
+            for p, gr in zip(params[d], gs):
+                p.data.zero_()
+                p.grad = gr.to(d)
+            opts[d].step()
+        for a, b in zip(params["cpu"], params["cuda"]):
+            a, b = a.detach(), b.detach().cpu()
+            worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+    adaptive = [opts["cpu"].step_sizes(t)[0] for t in range(1, 8)]
+    print(f"fp32 RAdam on the card vs the CPU, steps 1-7 (adaptive "
+          f"{adaptive}): max relative difference of the updates "
+          f"{worst:.3e} (tol {RADAM_TOL})", flush=True)
+    if worst > RADAM_TOL or adaptive != [False] * 5 + [True] * 2:
+        raise RuntimeError("RAdam on the card disagrees with the CPU")
+
+
+def optimizer_cli(root, data_dir, yml, config):
+    """Phase 20 (c): ``train_task.main`` (ctrl_uniter VQA, b256, one epoch,
+    at phase 16's cut depth ``config``, so that its four checkpoints stay
+    small on the machine's disk) with ``--optim RAdam
+    --optimizer_state_dtype bfloat16 --skip_disconnected_params`` (JAX
+    gives RAdam float32 moments whatever the flag) and with
+    ``--optimizer_state_dtype bfloat16`` (AdamW's moments in bf16): finite
+    losses, exact launches, the saved state's moment dtypes."""
+    import torch
+
+    from volta_tpu_torch import train_task
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+
+    counts = plan_counts(task_config(config, {}))
+    for tag, flags, dtype in (
+            ("radam_bf16_skip", ["--optim", "RAdam", "--optimizer_state_dtype",
+                                 "bfloat16", "--skip_disconnected_params"],
+             "torch.float32"),
+            ("bf16_moments", ["--optimizer_state_dtype", "bfloat16"],
+             "torch.bfloat16")):
+        argv = train_argv(root, data_dir, yml, config, 1, "optim_" + tag)
+        reset_launches()
+        t0 = time.time()
+        out = train_task.main(argv + flags)
+        torch.cuda.synchronize()
+        launches, steps = dict(LAUNCHES), out["steps"]
+        saved = torch.load(os.path.join(out["run_dir"], "ckpt",
+                                        "train_state.pt"), map_location="cpu",
+                           weights_only=True)["optimizer"]
+        dtypes = {str(saved[k]["clf_TASK1.dense2.weight"].dtype)
+                  for k in ("mu", "nu")}
+        # the val loop's forwards: the plan's attention launches a batch
+        want = expect(attention_dropout_fwd=counts["attn"] * steps,
+                      attention_dropout_bwd=counts["attn_bwd"] * steps,
+                      **k10_of(counts, steps),
+                      attention_fwd=launches["attention_fwd"])
+        val_ok = launches["attention_fwd"] > 0 \
+            and launches["attention_fwd"] % counts["attn"] == 0
+        print(f"train_task.main {' '.join(flags)} ({len(UNITER_CUT) // 2}"
+              f" layers): {steps} steps, losses "
+              f"{[round(l, 4) for l in out['train_losses']]}, "
+              f"{len(out['val_scores'])} val epoch, moments {sorted(dtypes)},"
+              f" {time.time() - t0:.1f} s wall, launches {launches}",
+              flush=True)
+        if launches != want or not val_ok \
+                or not np.all(np.isfinite(out["train_losses"])) \
+                or not steps or dtypes != {dtype}:
+            raise RuntimeError(f"train_task {flags}: launches {launches}, "
+                               f"expected {want}; moments {dtypes}")
+
+
+def optimizer_rates(task_cfg, batch_np, power):
+    """Phase 20 (c): ms/step and peak GiB of the b256 bf16 step with
+    float32 AdamW, RAdam and AdamW's bf16 moments, in turns (a, b, c, c,
+    b, a), each optimizer built fresh on its turn so that only its state
+    is allocated; the moments' GiB. Five warm-up updates: RAdam's updates
+    1-5 take its SGD-style fallback, so that every timed one is adaptive."""
+    import torch
+
+    from volta_tpu_torch.eval_step import to_device
+    from volta_tpu_torch.optimization import RAdam, build_optimizer
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_task_train_step
+
+    model = build_model(task_cfg, "bfloat16").train()
+    batch = to_device({k: v for k, v in batch_np.items()
+                       if isinstance(v, np.ndarray)}, "cuda")
+    routes = {"AdamW float32": ("adamw", None), "RAdam": ("radam", None),
+              "AdamW bf16 moments": ("adamw", torch.bfloat16)}
+    names = list(routes)
+    runs = {n: [] for n in names}
+    state_gib = {}
+    warm = 5
+    for name in names + names[::-1]:
+        kind, dtype = routes[name]
+        opt = build_optimizer(kind, 1e-5, model, clip_norm=1.0,
+                              state_dtype=dtype)
+        if isinstance(opt, RAdam) and not opt.step_sizes(warm + 1)[0]:
+            raise RuntimeError("RAdam's timed updates would take its fallback")
+        state_gib[name] = sum(t.numel() * t.element_size()
+                              for t in opt.mu + opt.nu) / 2**30
+        state = create_train_state(model, opt, seed=11)
+        step = make_task_train_step(model, opt, task_cfg, "TASK1")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, batch), iters=10, warmup=warm)
+        if isinstance(opt, RAdam) and opt.adam_count != warm + 10:
+            raise RuntimeError(f"RAdam took {opt.adam_count} updates")
+        runs[name].append((ms, torch.cuda.max_memory_allocated() / 2**30))
+        del opt, state, step
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    out = {}
+    for name, rs in runs.items():
+        ms = float(np.median([m for m, _ in rs]))
+        peak = max(p for _, p in rs)
+        out[name] = (ms, peak)
+        print(f"train step b256 bf16 with {name}: median {ms:.2f} ms/step "
+              f"(turns {', '.join(f'{m:.2f}' for m, _ in rs)}), peak "
+              f"{peak:.2f} GiB, moments {state_gib[name]:.3f} GiB "
+              f"[{power}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def skip_disconnected_lxmert(root, data_dir):
+    """Phase 20 (c): lxmert.json at phase 18's cut depth, two b32 train
+    steps from one init with and without ``skip_disconnected_params``: the
+    parameters no gradient reaches (its last vision sublayers under
+    ``fusion_method: text``) stay bit-equal to their initial values with
+    the flag and move (weight decay) without it; every other parameter
+    moves in both."""
+    import torch
+
+    from volta_tpu_torch.eval_step import to_device
+    from volta_tpu_torch.optimization import build_optimizer, no_decay_mask
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_task_train_step
+
+    yml = family_yml(root, data_dir, FAMILY_RUNS["lxmert"])
+    config = cut_config(root, "lxmert", PRETRAIN_CUTS["lxmert"])
+    task_cfg, _, train_np = family_data(root, data_dir, yml, config,
+                                        "lxmert skip")
+    batch = to_device(train_np, "cuda")
+    finals, dead = {}, None
+    for skip in (True, False):
+        model = build_model(task_cfg, "bfloat16", config=config).train()
+        decays = no_decay_mask(model)
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = build_optimizer("adamw", 1e-4, model, clip_norm=1.0,
+                              skip_disconnected_params=skip)
+        state = create_train_state(model, opt, seed=11)
+        step = make_task_train_step(model, opt, task_cfg, "TASK1")
+        reached = set()
+        real = opt.step
+
+        def spy():
+            reached.update(n for n, p in zip(opt.names, opt.params)
+                           if p.grad is not None
+                           and bool(p.grad.abs().sum() > 0))
+            real()
+
+        opt.step = spy
+        losses = [float(step(state, batch)["loss"]) for _ in range(2)]
+        dead = sorted(set(init) - reached)
+        finals[skip] = {n: torch.equal(p.detach(), init[n])
+                        for n, p in model.named_parameters()}
+        print(f"lxmert.json (cut) skip_disconnected {skip}: losses "
+              f"{losses}; {len(dead)} parameters no gradient reached "
+              f"({sorted({n.rsplit('.', 1)[0] for n in dead})[:8]}...), "
+              f"unchanged after 2 steps "
+              f"{sum(finals[skip][n] for n in dead)}; the others unchanged "
+              f"{sum(v for n, v in finals[skip].items() if n not in dead)}",
+              flush=True)
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    # without the flag the disconnected parameters that decay move (their
+    # LayerNorm parameters and biases take no decay and stay either way)
+    decayed = [n for n in dead if decays[n]]
+    print(f"without the flag {sum(not finals[False][n] for n in decayed)} "
+          f"of the {len(decayed)} decayed disconnected parameters moved",
+          flush=True)
+    if not dead or not decayed or not all(finals[True][n] for n in dead) \
+            or any(finals[False][n] for n in decayed) \
+            or any(v for n, v in finals[True].items() if n not in dead) \
+            or not all("encoder" in n for n in dead):
+        raise RuntimeError("skip_disconnected_params did not hold "
+                           "lxmert.json's disconnected vision tail")
+
+
+def trunk_lr_scale(root, cc_dir, config):
+    """Phase 20 (d): ``train_concap`` at phase 16's cut depth ``config``
+    from phase 19's exported .bin (its first layers, its ``cls`` heads left
+    out), for 2 steps (the first at lr 0, warmup 1)
+    with and without ``--trunk_lr_scale 0.1``: each loaded parameter's
+    update is 0.1x the unscaled one, within 1e-6 relative beyond the
+    rounding of p + u (half an ulp of each parameter); the heads (not
+    loaded) move alike, bit for bit."""
+    import torch
+
+    from volta_tpu_torch import train_concap
+
+    sd = torch.load(os.path.join(root, "pretrain.bin"), map_location="cpu",
+                    weights_only=True)
+    # the trunk's tensors that the cut model reads: no cls heads, the
+    # first layers
+    layers = len(UNITER_CUT) // 2
+    trunk = os.path.join(root, "pretrain_trunk.bin")
+    torch.save({k: v for k, v in sd.items() if not k.startswith("cls.")
+                and int((re.search(r"\.layer\.(\d+)\.", k)
+                         or [0, 0])[1]) < layers}, trunk)
+    del sd
+    runs = {}
+    for tag, flags in (("scaled", ["--trunk_lr_scale", "0.1"]),
+                       ("unscaled", [])):
+        argv = concap_argv(root, cc_dir, 1, config=config) + [
+            "--output_dir", os.path.join(root, "cc_trunk_" + tag),
+            "--in_memory", "",
+            "--from_pretrained", trunk, "--steps_per_epoch", "2",
+            "--warmup_steps", "1", "--device", "cuda"] + flags
+        out = train_concap.main(argv)
+        runs[tag] = torch.load(os.path.join(
+            out["run_dir"], "ckpt", "train_state.pt"), map_location="cpu",
+            weights_only=True)["model"]
+        loaded = set(out["pretrained"]["loaded"])
+        print(f"train_concap {' '.join(flags) or '(no scale)'}: "
+              f"{out['steps']} steps, losses {out['train_losses']}, "
+              f"{len(loaded)} tensors loaded", flush=True)
+    from volta_tpu_torch import checkpoint as ck
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.models import VoltaForVLPreTraining
+    from volta_tpu_torch.optimization import flax_paths
+
+    cfg = VoltaConfig.from_json_file(config)
+    with torch.device("cuda"):
+        start = VoltaForVLPreTraining(cfg)
+    ck.from_pretrained(cfg, start, trunk)  # the loaded parameters' start
+    paths = flax_paths(start)
+    start = {k: v.cpu() for k, v in start.state_dict().items()}
+    worst, n_loaded, n_other = 0.0, 0, 0
+    for name, p_s in runs["scaled"].items():
+        p_u = runs["unscaled"][name]
+        if name in paths and ".".join(paths[name]) in loaded:
+            p0 = start[name]
+            d_s, d_u = (p_s - p0).double(), (p_u - p0).double()
+            want = 0.1 * d_u
+            slack = 0.5 * (spacing(p_s) + 0.1 * spacing(p_u))
+            excess = ((d_s - want).abs() - slack).clamp(min=0)
+            worst = max(worst, float((excess / want.abs().clamp(
+                min=1e-30)).max()))
+            n_loaded += 1
+        else:
+            if not torch.equal(p_s, p_u):
+                raise RuntimeError(f"{name} (not loaded) moved otherwise "
+                                   "under --trunk_lr_scale")
+            n_other += 1
+    print(f"--trunk_lr_scale 0.1: {n_loaded} loaded parameters' updates "
+          f"0.1x the unscaled ones (largest relative excess over the "
+          f"rounding of p + u {worst:.3e}, tol 1e-6); {n_other} parameters "
+          "not loaded moved alike, bit for bit", flush=True)
+    if not n_loaded or not n_other or worst > 1e-6:
+        raise RuntimeError("--trunk_lr_scale did not scale the loaded "
+                           "parameters' updates by 0.1")
+
+
+def spacing(t):
+    """Each element's float32 ulp, in float64."""
+    import torch
+
+    t = t.float()
+    return (torch.nextafter(t.abs(), torch.full_like(t, float("inf")))
+            - t.abs()).double()
+
+
 def profile_device(fn, call_ms, what, calls=3, top=40):
     """Device time of ``fn()`` (a train step or an eval forward) by kernel
     (torch.profiler) over ``calls`` calls after the timing runs, and the
@@ -5778,8 +6448,9 @@ def main(argv):
         with phase("16 task heads"):
             check_task_kernels()
             task_yml = make_task_dataroot(root, data_dir)
+            heads = uniter_cut(root)[0]
             task_runs = {tag: run_task(root, data_dir, task_yml, power,
-                                       task, tag, cli)
+                                       task, tag, cli, config=heads)
                          for task, tag, cli in (("12", "NLVR2", True),
                                                 ("10", "refcoco+", True),
                                                 ("8", "RetrievalFlickr30k",
@@ -5795,6 +6466,16 @@ def main(argv):
             k8, pretrain_runs = check_pretraining(root, data_dir, yml, power,
                                                   "--profile" in argv)
             results.update(k8)
+        with phase("20 retrieval CLI and K9, the other optimizers"):
+            ret_yml, ret_vocab = retrieval_dataroot(root)
+            ret_runs = run_retrieval(root, ret_yml, ret_vocab, os.path.join(
+                root, "pretrain.bin"), power)
+            results.update(check_k9(power))
+            radam_on_card()
+            optimizer_cli(root, data_dir, yml, heads)
+            opt_rates = optimizer_rates(task_cfg, batch, power)
+            skip_disconnected_lxmert(root, data_dir)
+            trunk_lr_scale(root, os.path.join(root, "cc"), heads)
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -5836,6 +6517,13 @@ def main(argv):
             ("ctrl_vilbert_base VQA", family_rates)]:
         print(f"{tag} [{power}]: eval {r['eval_items_per_s']:.1f} items/s, "
               f"train {r['train_ms']:.2f} ms/step", flush=True)
+    print(f"retrieval CLI, 64 captions x 1000 images [{power}]: bf16 "
+          f"{ret_runs['bf16']['pairs_per_s']:.1f}, zero-shot "
+          f"{ret_runs['zero-shot']['pairs_per_s']:.1f}, int8 "
+          f"{ret_runs['int8']['pairs_per_s']:.1f} pairs/s", flush=True)
+    print(f"b256 train step [{power}]: " + ", ".join(
+        f"{name} {ms:.2f} ms/step, peak {peak:.2f} GiB"
+        for name, (ms, peak) in opt_rates.items()), flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
           flush=True)
 
@@ -5865,7 +6553,10 @@ def main(argv):
                   "hidden_masks"]["attention_dropout_hidden_masks_fwd"],
               "keep_mask": launches["keep_mask"]["keep_mask"],
               **{k: launches["dropout"][k] for k in k10(0)},
-              **probe_launches, **pretrain_runs["nce"]}
+              **probe_launches, **pretrain_runs["nce"],
+              # phase 20's int8 retrieval run
+              **{k: ret_runs["int8"]["launches"][k]
+                 for k in ("int8_quantize", "int8_matmul")}}
     # the body each attention kernel runs in bf16, as its wrapper routes it
     fwd, bwd = attention_cuda.fwd_body, attention_cuda.bwd_body
     bf16 = torch.bfloat16

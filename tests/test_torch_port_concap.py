@@ -558,9 +558,70 @@ def again_state(ckpt):
     (["--trunk_lr_scale", "0.1"], "item 8"),
     (["--distributed"], "item 9"),
     (["--profile_steps", "3"], "item 11")])
-def test_cli_refuses_unported_flags(cli, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_refuses_unported_flags(cli, flag, item, tmp_path):
+    """--distributed and --profile_steps raise, naming their items; the
+    optimizer flags (item 8), ported since, run two steps: bf16 moments in
+    the saved state; skip_disconnected; and --trunk_lr_scale 0.1 from a
+    reference ``.bin``, whose loaded parameters move 0.1x as far as
+    without the flag (the first update's lr is 0 under warmup, so both
+    runs take their second on the same gradients) and whose others move
+    alike. Without --from_pretrained, or from the port's own checkpoint,
+    it exits."""
+    if item != "item 8":
+        with pytest.raises(NotImplementedError, match=item):
+            train_concap.main(cli["base"] + flag)
+        return
+
+    def run(tag, *extra):
+        out = train_concap.main(cli["base"] + [
+            "--output_dir", str(tmp_path / tag), "--num_train_epochs", "1",
+            "--steps_per_epoch", "2", "--warmup_steps", "1", *extra])
+        assert out["steps"] == 2
+        assert all(np.isfinite(v) for row in out["train_losses"]
+                   for v in row)
+        ckpt = os.path.join(out["run_dir"], "ckpt")
+        return torch.load(os.path.join(ckpt, "train_state.pt"),
+                          weights_only=True), ckpt
+
+    if flag[0] != "--trunk_lr_scale":
+        saved = run("flag", *flag)[0]
+        mu = saved["optimizer"]["mu"]["bert.encoder.ff_1.out_dense.weight"]
+        assert mu.dtype == (torch.bfloat16 if "bfloat16" in flag
+                            else torch.float32)
+        return
+    from volta_tpu_torch import VoltaForVLPreTraining
+    from volta_tpu_torch import checkpoint as ck
+    from volta_tpu_torch.models.layers import init_weights
+
+    cfg = VoltaConfig.from_json_file(cli["model_cfg"])
+    cfg.compute_dtype = "float32"
+    src = VoltaForVLPreTraining(cfg)
+    init_weights(src, torch.Generator().manual_seed(5))
+    # the trunk alone, as a task checkpoint's weights would be
+    sd = {k: v for k, v in ck.export_reference_state_dict(cfg, src)[0]
+          .items() if not k.startswith("cls.")}
+    path = str(tmp_path / "pretrained.bin")
+    torch.save(sd, path)
+    with pytest.raises(SystemExit, match="was not given"):
         train_concap.main(cli["base"] + flag)
+    scaled = run("scaled", "--from_pretrained", path, *flag)[0]["model"]
+    plain, own = run("plain", "--from_pretrained", path)
+    with pytest.raises(SystemExit, match="own format"):
+        train_concap.main(cli["base"] + [
+            "--output_dir", str(tmp_path / "own"), "--from_pretrained", own,
+            *flag])
+    plain = plain["model"]
+    loaded = src.state_dict()
+    moved = 0
+    for name, p in scaled.items():
+        if name in loaded and not name.startswith("cls."):
+            d_s, d_p = p - loaded[name], plain[name] - loaded[name]
+            torch.testing.assert_close(d_s, 0.1 * d_p, rtol=1e-3,
+                                       atol=1e-7)
+            moved += bool(d_p.abs().max() > 0)
+        else:
+            assert torch.equal(p, plain[name]), name
+    assert moved > 10
 
 
 def test_cli_needs_a_card_unless_told(cli, monkeypatch):

@@ -1968,3 +1968,111 @@ def test_nce_2048_launches_k8(cuda_device, dtype):
         assert abs(float(loss) - float(ref)) <= tol * abs(float(ref))
         err = float((p.grad.float().cpu() - q.grad.float()).abs().max())
         assert err <= tol * float(q.grad.float().abs().max())
+
+
+# ---------------------------------------------------------------------- K9
+# (M, K, N): the odd shapes of the int8 dense layer: K = num_locs = 5, the
+# VL-logit head's N = 1, a ragged M past the 128-row tile, K = 100 (no
+# 16-byte rows) and a dispatch's FFN width
+K9_SHAPES = [(7, 5, 1), (1000, 100, 100), (150_001, 5, 768), (7, 768, 3072),
+             (1000, 3072, 768)]
+
+
+def _k9_inputs(m, k, n, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, k).astype(np.float32) * rng.uniform(0.1, 4.0, (m, 1))
+    x[m // 2] = 0.0  # a padded row
+    w = torch.from_numpy((rng.randn(n, k) * 0.05).astype(np.float32))
+    b = torch.from_numpy(rng.randn(n).astype(np.float32))
+    return (torch.from_numpy(x.astype(np.float32)).to(device, dtype),
+            w.to(device), b.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", K9_SHAPES, ids=lambda s: "x".join(map(
+    str, s)))
+def test_k9_matches_its_twins_bit_for_bit(cuda_device, shape, dtype, static):
+    """K9a's xq and a and K9b's y equal their twins' on the card to the
+    bit, dynamic and static, bf16 and float32 in and out; a zero row gives
+    a = 1e-12 and xq = 0; one launch each."""
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    m, k, n = shape
+    x, w, b = _k9_inputs(m, k, n, dtype, cuda_device)
+    q, scale = i8.quantize_kernel(w)
+    qc, sc = i8.quantize_kernel(w.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(scale.cpu(), sc)
+    a_static = torch.tensor(float(x.float().abs().max()) / 127 + 1e-12,
+                            device=cuda_device) if static else None
+    before = dict(LAUNCHES)
+    xq, a = i8.int8_quantize(x, a_static)
+    rq, ra = i8.quantize_ref(x, a_static)
+    assert torch.equal(xq, rq) and torch.equal(a, ra)
+    assert int(xq[m // 2].abs().max()) == 0
+    if not static:
+        assert float(a[m // 2]) == float(np.float32(1e-12))
+    for out in (torch.bfloat16, torch.float32):
+        y = i8.int8_matmul(xq, a, q, scale, b, out)
+        ref = i8.int8_matmul_ref(xq, a, q, scale, b, out)
+        assert y.dtype == out and torch.equal(y, ref), (out, (y.float()
+                                                            - ref.float())
+                                                        .abs().max())
+    y0 = i8.int8_matmul(xq, a, q, scale, None, torch.float32)
+    assert torch.equal(y0, i8.int8_matmul_ref(xq, a, q, scale, None,
+                                              torch.float32))
+    assert LAUNCHES["int8_quantize"] - before["int8_quantize"] == 1
+    assert LAUNCHES["int8_matmul"] - before["int8_matmul"] == 3
+    # the CPU twins give the card's numbers
+    cq, ca = i8.quantize_ref(x.cpu(), None if a_static is None
+                             else a_static.cpu())
+    assert torch.equal(cq, xq.cpu()) and torch.equal(ca, a.cpu())
+
+
+def _k9_tie_inputs(device):
+    """K9b's operands where float64 rounding of the epilogue's exact
+    fma(acc, a * scale, bias) lands halfway between two float32 values:
+    acc = +-(2^18 - 1), a * scale = (2^18 + 1) 2^-60, so the product is
+    +-(2^-24 - 2^-60), and bias +-(1 + 2^-23). Every exact result rounds
+    once to +-(1 + 2^-23); rounded through float64 it would go to the even
+    neighbour, +-1 or +-(1 + 2^-22)."""
+    row = [127] * 17 + [15]
+    xq = torch.tensor([row, [-v for v in row]], dtype=torch.int8)
+    q = torch.tensor([[127] * 16 + [32, 1]] * 2, dtype=torch.int8)
+    a = torch.full((2,), (2 ** 18 + 1) * 2.0 ** -30)
+    scale = torch.full((2,), 2.0 ** -30)
+    bias = torch.tensor([1 + 2 ** -23, -(1 + 2 ** -23)])
+    want = bias[None, :].expand(2, 2)
+    return [t.to(device) for t in (xq, a, q, scale, bias, want)]
+
+
+@pytest.mark.cuda
+def test_k9_epilogue_rounds_once_as_its_twin(cuda_device):
+    """K9b's single-rounded epilogue and its twin agree on the operands
+    where a float64 twin that rounded twice would be one ulp off."""
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    xq, a, q, scale, bias, want = _k9_tie_inputs(cuda_device)
+    y = i8.int8_matmul(xq, a, q, scale, bias, torch.float32)
+    assert torch.equal(y, want)
+    assert torch.equal(i8.int8_matmul_ref(xq, a, q, scale, bias,
+                                          torch.float32), want)
+
+
+@pytest.mark.cuda
+def test_k9_raises_on_what_it_cannot_take(cuda_device):
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    x = torch.randn(4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="2-D"):
+        i8.int8_quantize(x.half())
+    xq, a = i8.int8_quantize(x)
+    q = torch.zeros(3, 8, dtype=torch.int8, device=cuda_device)
+    s = torch.ones(3, device=cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        i8.int8_matmul(xq, a, q[:, :4], s, None, torch.float32)
+    with pytest.raises(ValueError, match="out_dtype"):
+        i8.int8_matmul(xq, a, q, s, None, torch.float16)
+    with pytest.raises(ValueError, match="CUDA"):
+        i8.int8_matmul(xq, a, q.cpu(), s, None, torch.float32)

@@ -150,11 +150,22 @@ def test_decay_uses_the_pre_update_parameter():
 
 
 def test_unported_optimizer_options_raise():
+    """The options of ROADMAP.md Queue 1 item 8, once refused, build their
+    optimizers and take a step: RAdam, bf16 moments, skip_disconnected;
+    an unknown name raises as in JAX."""
     toy = _Toy()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        topt.build_optimizer("radam", 1e-3, toy)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        topt.build_optimizer("adamw", 1e-3, toy, state_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        topt.build_optimizer("adamw", 1e-3, toy,
-                             skip_disconnected_params=True)
+    for p in toy.parameters():
+        p.grad = torch.ones_like(p)
+    radam = topt.build_optimizer("radam", 1e-3, toy)
+    assert type(radam) is topt.RAdam and radam.eps == 1e-8
+    bf16 = topt.build_optimizer("adamw", 1e-3, toy,
+                                state_dtype=torch.bfloat16)
+    skip = topt.build_optimizer("adamw", 1e-3, toy,
+                                skip_disconnected_params=True)
+    for opt in (radam, bf16, skip):
+        opt.step()
+        assert opt.count == 1
+    assert {m.dtype for m in bf16.mu + bf16.nu} == {torch.bfloat16}
+    assert skip.skip_disconnected
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        topt.build_optimizer("sgd", 1e-3, toy)

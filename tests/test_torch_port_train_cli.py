@@ -1,8 +1,8 @@
 """The port's train CLI (``python -m volta_tpu_torch.train_task``) on the
 CPU, on the synthetic VQA fixtures: two epochs write the JAX CLI's val lines
 and checkpoints, the port's eval CLI scores the best checkpoint exactly as
-the last validation did, unported flags raise, and the port imports no
-JAX. The flags ported since (--no_pallas, --gradient_accumulation_steps,
+the last validation did, unported flags raise (the optimizer flags run),
+and the port imports no JAX. The flags ported since (--no_pallas, --gradient_accumulation_steps,
 --device_store) are held in tests/test_torch_port_train_extras.py."""
 
 import os
@@ -177,11 +177,46 @@ def test_task_heads_train_validate_and_checkpoint(workdir, kind):
     ["--optim", "RAdam"], ["--optimizer_state_dtype", "bfloat16"],
     ["--skip_disconnected_params"], ["--profile_steps", "3"],
     ["--distributed"]], ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_raise(workdir, flag):
-    out_dir = os.path.join(workdir["tmp"], "refused")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        port_train.main(workdir["base"] + ["--output_dir", out_dir] + flag)
-    assert not os.path.exists(out_dir)
+def test_unported_flags_raise(workdir, flag, monkeypatch):
+    """--distributed and --profile_steps raise, naming their ROADMAP.md
+    items (9, 11); the optimizer flags, ported since, run an epoch (four
+    steps) with the optimizer they name: RAdam, bf16 AdamW moments (the
+    saved state's dtype), or skip_disconnected."""
+    name = flag[0].lstrip("-")
+    out_dir = os.path.join(workdir["tmp"], "refused", name)
+    if name in ("profile_steps", "distributed"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+            port_train.main(workdir["base"] + ["--output_dir", out_dir]
+                            + flag)
+        assert not os.path.exists(out_dir)
+        return
+    import torch
+
+    from volta_tpu_torch import optimization
+
+    built = []
+    real = optimization.build_optimizer
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(optimization, "build_optimizer", spy)
+    out = port_train.main(workdir["base"] + [
+        "--output_dir", out_dir, "--logdir", os.path.join(out_dir, "logs"),
+        "--num_train_epochs", "1", "--clip_grad_norm", "1.0"] + flag)
+    assert out["steps"] == 4
+    assert all(l == l and l < 1e4 for l in out["train_losses"])
+    (opt,) = built
+    saved = torch.load(os.path.join(out["run_dir"], "ckpt",
+                                    "train_state.pt"), weights_only=True)
+    mu = saved["optimizer"]["mu"]["clf_TASK1.dense2.weight"]
+    assert type(opt) is (optimization.RAdam if name == "optim"
+                         else optimization.AdamW)
+    assert opt.skip_disconnected == (name == "skip_disconnected_params")
+    assert mu.dtype == (torch.bfloat16 if name == "optimizer_state_dtype"
+                        else torch.float32)
+    assert saved["optimizer"]["adam_count"] == 4
 
 
 def test_jax_only_flags_do_not_exist(workdir):

@@ -575,9 +575,11 @@ def resume_from_reference_tar(cfg: VoltaConfig, state, path: str
                               ) -> Dict[str, Any]:
     """Resume the train state ``state`` (``train_step.TrainState``) in
     place from the reference's ``pytorch_ckpt_latest.tar``: the weights
-    through ``import_state_dict``, the AdamW moments by name, the schedule's
-    count and ``state.step`` from ``global_step``, bias correction's count
-    from the moments' largest ``step``. The tar holds no dropout generator:
+    through ``import_state_dict``, the AdamW or RAdam moments by name (cast
+    to the optimizer's stored dtype), the schedule's count and
+    ``state.step`` from ``global_step``, bias correction's (or RAdam's)
+    count from the moments' largest ``step``
+    (volta_tpu/checkpoint.py:535-575). The tar holds no dropout generator:
     ``state.generator`` stays as it is. Returns ``{global_step, epoch_id,
     score, hyperparams}``, the latter the tar's first group's (they do not
     configure the run)."""
@@ -587,17 +589,18 @@ def resume_from_reference_tar(cfg: VoltaConfig, state, path: str
 def save_reference_tar(path: str, cfg: VoltaConfig, state, epoch_id: int,
                        score: Optional[float] = None) -> str:
     """Write ``state`` as the reference's ``pytorch_ckpt_latest.tar``
-    (volta/train_utils.py:305-317): the exported weights, the AdamW moments
-    under torch's optimizer-state indices with one parameter a group (as
-    its train_task.py:208-218 groups them), ``global_step`` and
-    ``epoch_id``."""
+    (volta/train_utils.py:305-317): the exported weights, the AdamW or RAdam
+    moments (float32) under torch's optimizer-state indices with one
+    parameter a group (as its train_task.py:208-218 groups them),
+    ``global_step`` and ``epoch_id``."""
     opt = state.optimizer
     entries = flax_paths(state.model)
     msd, _ = _export(cfg, [(n, p) for n, _, p in entries])
     _add_aliases(cfg, msd)
     named = [k for k in msd if k not in _alias_key_set(cfg, msd)]
     ostate = opt.state_dict()
-    moments = {key: _export(cfg, [(n, ostate[key][name])
+    # float32, as torch's optimizers hold them, whatever the stored dtype
+    moments = {key: _export(cfg, [(n, ostate[key][name].float())
                                   for n, name, _ in entries])[0]
                for key in ("mu", "nu")}
     decayed = {opt.names[i] for i in opt.decayed}

@@ -141,7 +141,12 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Module):
     """Linear layer with the reference's init: N(0, stddev) weight, zero
-    bias. ``dtype`` is the compute dtype; parameters stay float32."""
+    bias. ``dtype`` is the compute dtype; parameters stay float32. With an
+    ``int8`` entry (``ops.int8_dense.quantize_model`` sets it) the forward
+    is the int8 serving layer through that entry instead, output in
+    ``dtype``."""
+
+    int8 = None
 
     def __init__(self, in_features: int, out_features: int, stddev: float,
                  dtype: torch.dtype = torch.float32):
@@ -159,6 +164,12 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.int8 is not None:
+            from ..ops.int8_dense import int8_dense_apply
+
+            e = self.int8
+            return int8_dense_apply(x, e["q"], e["scale"], e["bias"], dt,
+                                    e["a"])
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 

@@ -1,5 +1,5 @@
-"""Attention, LayerNorm, dropout, matmul and NCE-score ops of the port and
-the hand-written CUDA kernels behind them.
+"""Attention, LayerNorm, dropout, matmul, NCE-score and int8 dense ops of
+the port and the hand-written CUDA kernels behind them.
 
 Kernels are built from ``ops/csrc`` at first use (``ops/_build.py``);
 importing this package builds nothing.
@@ -19,7 +19,8 @@ LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
             "dropout_residual_ln_fwd": 0, "dropout_residual_ln_bwd": 0,
             "keep_mask": 0, "hash_dropout_fwd": 0, "hash_dropout_bwd": 0,
             "wgrad": 0, "matmul_bias_act": 0,
-            "nce_plan": 0, "nce_scores_fwd": 0, "nce_scores_bwd": 0}
+            "nce_plan": 0, "nce_scores_fwd": 0, "nce_scores_bwd": 0,
+            "int8_quantize": 0, "int8_matmul": 0}
 
 
 def reset_launches():

@@ -32,8 +32,14 @@ port ``train_state.pt`` or its directory), else from its own
 of that checkpoint loads the trunk and leaves the ``cls`` heads out.
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
 ``--nce_shared_negatives`` takes JAX's opt-in shared-negative NCE.
-Flags of features not ported yet raise, naming their ROADMAP.md item; the
-JAX-only ``--prng_impl`` does not exist here.
+``--optimizer_state_dtype bfloat16`` stores AdamW's moments in bf16,
+``--skip_disconnected_params`` drops the whole update of a parameter whose
+gradient is all zero, and ``--trunk_lr_scale s`` scales the update of every
+parameter that ``--from_pretrained`` loaded from a reference or HF ``.bin``
+(it exits without ``--from_pretrained``, or with the port's own checkpoint,
+whose report names no reference tensors). ``--distributed`` and
+``--profile_steps`` raise, naming their ROADMAP.md items; the JAX-only
+``--prng_impl`` does not exist here.
 """
 
 from __future__ import annotations
@@ -123,7 +129,8 @@ def main(argv=None):
     """Pretrain; returns {steps, train_losses (masked_t, masked_v, itm a
     step), val_losses (one an epoch), run_dir, log_dir, pretrained (the
     ``from_pretrained`` report or None)}."""
-    from .train_task import _fetch, log_pretrained, refuse_unported
+    from .train_task import _fetch, log_pretrained, refuse_unported, \
+        state_dtype
 
     args = parse_args(argv)
     refuse_unported(args)
@@ -138,7 +145,8 @@ def main(argv=None):
     from .data.datasets.concap import make_concap_loader
     from .models import VoltaForVLPreTraining
     from .models.layers import init_weights
-    from .optimization import build_optimizer, warmup_linear_schedule
+    from .optimization import build_optimizer, flax_paths, \
+        lr_scales_from_loaded, warmup_linear_schedule
     from .task_utils import make_tokenizer
     from .train_step import create_train_state, make_pretrain_eval_step, \
         make_pretrain_step
@@ -183,10 +191,28 @@ def main(argv=None):
 
     model = VoltaForVLPreTraining(cfg)
     init_weights(model, torch.Generator().manual_seed(args.seed))
-    report = None
+    report, lr_scales = None, None
+    if args.trunk_lr_scale != 1.0 and not args.from_pretrained:
+        raise SystemExit("--trunk_lr_scale scales the params loaded from "
+                         "--from_pretrained, which was not given")
     if args.from_pretrained:
         report = from_pretrained(cfg, model, args.from_pretrained)
         log_pretrained(report)
+        if args.trunk_lr_scale != 1.0:
+            # the reference's intended rule (train_concap.py:213-224, dead
+            # as shipped; volta_tpu/optimization.py:248-274): the
+            # parameters that came from the checkpoint train at
+            # trunk_lr_scale * lr. The importer names them by Flax path;
+            # the port's own checkpoint is read module by module, by port
+            # name, as JAX reads its own bundles without a list
+            paths = {".".join(p) for p in flax_paths(model).values()}
+            if not set(report["loaded"]) <= paths:
+                raise SystemExit(
+                    "--trunk_lr_scale needs a torch .bin checkpoint (the "
+                    "importer must enumerate which params were loaded); "
+                    f"got {args.from_pretrained}, the port's own format")
+            lr_scales = lr_scales_from_loaded(model, report["loaded"],
+                                              args.trunk_lr_scale)
     model.to(device)
     logger.info("parameters: %d",
                 sum(p.numel() for p in model.parameters()))
@@ -202,7 +228,9 @@ def main(argv=None):
         model, weight_decay=args.weight_decay,
         clip_norm=args.clip_grad_norm or None,
         grad_accum_steps=args.grad_acc_steps, betas=tuple(args.adam_betas),
-        eps=args.adam_epsilon)
+        eps=args.adam_epsilon, state_dtype=state_dtype(args),
+        lr_scales=lr_scales,
+        skip_disconnected_params=args.skip_disconnected_params)
     state = create_train_state(model, optimizer, args.seed + 1)
 
     start_epoch = args.start_epoch

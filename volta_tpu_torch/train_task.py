@@ -9,8 +9,12 @@ Counterpart of the root ``train_task.py`` (its flags :25-98 and its loop
 
 Weights random from ``--seed``, or from ``--from_pretrained``: a published
 VOLTA ``.bin``, an HF BERT ``.bin`` or the port's own checkpoint
-(``checkpoint.from_pretrained``); AdamW (``correct_bias=False``) behind the
-global-norm clip with the warmup-linear schedule; dropout at the config's
+(``checkpoint.from_pretrained``); AdamW (``correct_bias=False``) or, with
+``--optim RAdam``, RAdam (another name falls back to AdamW, as in JAX),
+behind the global-norm clip with the warmup-linear schedule; with
+``--optimizer_state_dtype bfloat16`` AdamW's moments stored in bf16;
+``--skip_disconnected_params`` drops the whole update (decay included) of a
+parameter whose gradient is all zero; dropout at the config's
 rates through the CUDA kernels on the card. It writes the JAX CLI's
 ``<logdir>/<run>/out.txt`` lines (``VAL epoch N TASK1 loss … score …``),
 ``<output_dir>/<run>/command.txt``, and ``torch.save``s the model,
@@ -30,8 +34,9 @@ parameters' gradients (``train_utils.apply_freeze``); a task's
 ``embed_clf`` sets its classifier from the answers' word embeddings;
 ``--device_store`` keeps the training set's packed features on the card
 and ships row indices and sparse targets (``train_step
-.materialize_store_batch``). Flags of features not ported yet raise; the
-JAX-only ``--prng_impl`` does not exist here.
+.materialize_store_batch``). ``--distributed`` and ``--profile_steps``
+raise, naming their ROADMAP.md items; the JAX-only ``--prng_impl`` does
+not exist here.
 """
 
 from __future__ import annotations
@@ -121,16 +126,8 @@ def parse_args(argv=None):
 def refuse_unported(args):
     """Raise NotImplementedError for each flag whose feature the port does
     not have yet, naming the ROADMAP.md item that owns it (this CLI's flags
-    and ``train_concap``'s)."""
+    and ``train_concap``'s): ``--profile_steps`` and ``--distributed``."""
     unported = [
-        (getattr(args, "optim", "AdamW").lower() == "radam",
-         "--optim RAdam", "Queue 1 item 8"),
-        (args.optimizer_state_dtype != "float32",
-         "--optimizer_state_dtype bfloat16", "Queue 1 item 8"),
-        (args.skip_disconnected_params, "--skip_disconnected_params",
-         "Queue 1 item 8"),
-        (getattr(args, "trunk_lr_scale", 1.0) != 1.0, "--trunk_lr_scale",
-         "Queue 1 item 8"),
         (args.profile_steps, "--profile_steps", "Queue 1 item 11"),
         (args.distributed, "--distributed", "Queue 1 item 9"),
     ]
@@ -138,6 +135,13 @@ def refuse_unported(args):
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md {item})")
+
+
+def state_dtype(args):
+    """The moments' stored dtype of ``--optimizer_state_dtype``: None
+    (the parameters' float32) or ``torch.bfloat16``."""
+    return None if args.optimizer_state_dtype == "float32" \
+        else torch.bfloat16
 
 
 def log_pretrained(report):
@@ -235,11 +239,16 @@ def main(argv=None):
     warmup = int(args.warmup_steps) if args.warmup_steps is not None else \
         int(total_steps * args.warmup_proportion)
     sched = SCHEDULES[args.lr_scheduler](float(tc["lr"]), warmup, total_steps)
+    # unknown names fall back to AdamW, as in the JAX CLI
+    opt_name = {"adamw": "adamw", "radam": "radam"}.get(
+        args.optim.lower(), "adamw")
     optimizer = build_optimizer(
-        "adamw", sched, model, weight_decay=args.weight_decay,
+        opt_name, sched, model, weight_decay=args.weight_decay,
         clip_norm=args.clip_grad_norm or None,
         grad_accum_steps=args.grad_acc_steps, betas=tuple(args.adam_betas),
-        eps=args.adam_epsilon, correct_bias=args.adam_correct_bias)
+        eps=args.adam_epsilon, correct_bias=args.adam_correct_bias,
+        state_dtype=state_dtype(args),
+        skip_disconnected_params=args.skip_disconnected_params)
     apply_freeze(optimizer, model, cfg.fixed_layers)
     state = create_train_state(model, optimizer, args.seed + 1)
 
