@@ -2,9 +2,9 @@
 """Compare two checkouts of the repo on one NVIDIA GPU, in turns: the
 dropout attention forwards of the port (Queue 2 rows 3, 5 and 9), the fused
 dropout + residual + LayerNorm kernels (rows 12 and 13), the keep-mask
-kernel (row 14) and the probes' matmul kernels (rows 15 and 16) by device
-time, and the b256 bf16 train step by wall time and by device time per
-kernel family.
+kernel (row 14), the probes' matmul kernels (rows 15 and 16), K8 and K9b by
+device time, and the b256 bf16 train step by wall time and by device time
+per kernel family.
 
     python3 chip_ab.py --other DIR [--what kernels|steps|both]
 
@@ -28,7 +28,11 @@ checkout's kernels, and measures with chip_smoke's functions:
   makes one) and backward by ``kernel_ms`` over 20 calls, by the rule's
   route and, where a side has the body rule's crossover
   (``nce.TC_MAX_M_PER_NEG``), by each body with the crossover moved past
-  or below both shapes, so that it can be read at both sizes;
+  or below both shapes, so that it can be read at both sizes; K9b (the
+  int8 product with its dequantizing epilogue) at a retrieval dispatch's
+  three products (M 150,000: 768 -> 768, 768 -> 3072, 3072 -> 768), bf16
+  out, by the side's route (``int8_dense.int8_body``; a side without it
+  has only the mma.sync body) over 20 calls;
 - steps: ctrl_uniter_base's b256 bf16 train step (forward, backward, clip,
   AdamW; random weights from seed 0, one batch of chip_smoke's synthetic
   VQA data) with the config's dropout, with ``fuse_hidden_dropout``,
@@ -150,6 +154,28 @@ def measure_k8(cs, side):
             torch.cuda.empty_cache()
 
 
+def measure_k9(cs, side):
+    """K9b at a retrieval dispatch's three products (M 150,000; K x N 768 x
+    768, 768 x 3072, 3072 x 768), bf16 out, by the side's route (its
+    ``int8_body`` where it has one) by ``kernel_ms`` over 20 calls."""
+    import torch
+
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    for k, n in cs.K9_MAIN:
+        x, w, b = cs.k9_inputs(cs.K9_M, k, n, torch.bfloat16, seed=k * n)
+        q, scale = i8.quantize_kernel(w)
+        xq, a = i8.int8_quantize(x)
+        body = (i8.int8_body(xq, q) if hasattr(i8, "int8_body")
+                else "mma.sync")
+        ms = cs.kernel_ms(lambda: i8.int8_matmul(xq, a, q, scale, b,
+                                                 torch.bfloat16), iters=20)
+        print(f"{side} kernel K9b ({body}) M={cs.K9_M} K={k} N={n}: "
+              f"{ms:.4f} ms", flush=True)
+        del x, w, b, q, scale, xq, a
+        torch.cuda.empty_cache()
+
+
 def measure_steps(cs, side):
     import tempfile
 
@@ -209,6 +235,7 @@ def measure(side, what):
     if what in ("kernels", "both"):
         measure_kernels(cs, side)
         measure_k8(cs, side)
+        measure_k9(cs, side)
     if what in ("steps", "both"):
         measure_steps(cs, side)
 

@@ -344,12 +344,14 @@ and each of which prints its seconds:
     bit-equal with K9's twins in its place, the int8 route's top-1
     agreement with bf16 printed; (b) K9 against its twins bit for bit at a
     dispatch's three products (M 150,000; K x N 768 x 768, 768 x 3072,
-    3072 x 768) and odd shapes (M 7, 1000, 150,001; K 5, 100; N 1, 100),
-    a zero row each, dynamic and static scales, bf16 and float32 in and
-    out, with their times beside the twins', the bound (int8 products at
-    1,979 TOPS), ``torch._int_mm`` + the epilogue and the bf16
-    ``F.linear``; (c) fp32 RAdam on the card against the CPU over steps
-    1-7 within 1e-6 (``radam_on_card``), ``train_task`` at 4 layers with
+    3072 x 768) and odd shapes (M 7, 1000, 150,001; K 5, 100; N 1, 100;
+    and 150,001 x 768 x 100, ragged on the Hopper body), a zero row each,
+    dynamic and static scales, bf16 and float32 in and out, the epilogue's
+    four float64 ties on each of K9b's bodies, each shape's body
+    (``int8_body``) printed, with their times beside the twins', the bound
+    (int8 products at 1,979 TOPS), ``torch._int_mm`` + the epilogue and
+    the bf16 ``F.linear``; (c) fp32 RAdam on the card against the CPU over
+    steps 1-7 within 1e-6 (``radam_on_card``), ``train_task`` at 4 layers with
     ``--optim RAdam --optimizer_state_dtype bfloat16
     --skip_disconnected_params`` and with ``--optimizer_state_dtype
     bfloat16`` (finite losses, exact launches, the saved moments'
@@ -371,7 +373,8 @@ and each of which prints its seconds:
     forward and backward ``launches`` from phase 19's NCE step, their rows
     also with ``gather_ms``, the gather body's time; K9's from phase 20's
     int8 run, its rows at FFN1's shape with ``shapes``, each product's
-    times), then ``{"ok": true, "device": ...}`` last.
+    times, K9b's also with ``body``, the body the rule gave it), then
+    ``{"ok": true, "device": ...}`` last.
 
 It exits non-zero without a result where CUDA is absent, or where the
 package is missing beside it.
@@ -480,7 +483,7 @@ HASH = {"int_per_s": None, "per_element": None}
 # 15 and 16, and row 14, whose SASS phase 2 reads
 RESOURCE_KERNELS = ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel",
                     "dropout_residual_ln_bwd_kernel", "band_sum_kernel",
-                    "wg::", "keep_mask_kernel")
+                    "wg::", "keep_mask_kernel", "int8_wgmma_kernel")
 # and rows 1-4 at the model paths' head dims, 64 and 128 (vilbert_base's
 # wide vision stream and co-attention)
 ATTENTION_RESOURCE = (("attention_fwd_kernel", "attention_bwd_kernel",
@@ -5730,7 +5733,7 @@ RET_IMAGES, RET_SEQ, RET_CAPTIONS, RET_CB = 1000, 38, 64, 4
 K9_M = 4 * 500 * 75
 K9_MAIN = ((768, 768), (768, 3072), (3072, 768))
 K9_ODD = [(m, k, n) for m in (7, 1000, 150_001) for k in (5, 100)
-          for n in (1, 100)]
+          for n in (1, 100)] + [(150_001, 768, 100)]
 # RAdam's update on the card against the CPU's, relative
 RADAM_TOL = 1e-6
 
@@ -5894,17 +5897,18 @@ def k9_inputs(m, k, n, dtype, seed):
 def check_k9(power):
     """Phase 20 (b): K9a and K9b against their twins bit for bit at a
     dispatch's three products (M = 150,000) and at odd shapes (M 7, 1000,
-    150,001; K 5, 100; N 1, 100) with zero rows, dynamic and static
-    scales, bf16 and float32 in and out; the kernels' times at the
-    dispatch's shapes beside their twins', the bound and the library:
-    ``torch._int_mm`` and the same epilogue, and the bf16 ``F.linear``.
-    Returns the kernels' rows."""
+    150,001; K 5, 100; N 1, 100; and 150,001 x 768 x 100 on the Hopper
+    body) with zero rows, dynamic and static scales, bf16 and float32 in
+    and out, and the epilogue's ties on both bodies; the kernels' times at
+    the dispatch's shapes beside their twins', the bound and the library:
+    ``torch._int_mm`` and the same epilogue, and the bf16 ``F.linear``;
+    each shape's K9b body (``int8_body``). Returns the kernels' rows."""
     import torch
     import torch.nn.functional as F
 
     from volta_tpu_torch.ops import int8_dense as i8
 
-    checked = 0
+    checked, bodies = 0, {}
     for m, k, n in K9_ODD + [(K9_M, k, n) for k, n in K9_MAIN]:
         for dtype in (torch.bfloat16, torch.float32):
             x, w, b = k9_inputs(m, k, n, dtype, seed=m + k + n)
@@ -5913,6 +5917,7 @@ def check_k9(power):
                 a_s = i8.absmax_scale(x.float().abs().amax()) if static \
                     else None
                 xq, a = i8.int8_quantize(x, a_s)
+                bodies[(m, k, n)] = i8.int8_body(xq, q)
                 rq, ra = i8.quantize_ref(x, a_s)
                 if not (torch.equal(xq, rq) and torch.equal(a, ra)) \
                         or int(xq[m // 2].abs().max()):
@@ -5930,25 +5935,34 @@ def check_k9(power):
             del x, w, b, q, scale, xq, a, rq, ra
     # the epilogue's ties: acc = +-(2^18 - 1) times a * scale = (2^18 + 1)
     # 2^-60, plus +-(1 + 2^-23), rounds once to +-(1 + 2^-23); rounded
-    # through float64 first it would land on the even neighbour
+    # through float64 first it would land on the even neighbour. At K 18
+    # (the mma.sync body) and zero-padded to K 32 (the same sums, the
+    # Hopper body)
     row = [127] * 17 + [15]
-    xq = torch.tensor([row, [-v for v in row]], dtype=torch.int8,
-                      device="cuda")
-    q = torch.tensor([[127] * 16 + [32, 1]] * 2, dtype=torch.int8,
-                     device="cuda")
     a = torch.full((2,), (2 ** 18 + 1) * 2.0 ** -30, device="cuda")
     scale = torch.full((2,), 2.0 ** -30, device="cuda")
     b = torch.tensor([1 + 2 ** -23, -(1 + 2 ** -23)], device="cuda")
-    y = i8.int8_matmul(xq, a, q, scale, b, torch.float32)
-    ref = i8.int8_matmul_ref(xq, a, q, scale, b, torch.float32)
-    if not (torch.equal(y, ref) and torch.equal(y, b.expand(2, 2))):
-        raise RuntimeError(f"K9b's epilogue ties: {y.tolist()}, twin "
-                           f"{ref.tolist()}")
-    checked += 1
+    for k in (18, 32):
+        pad = [0] * (k - 18)
+        xq = torch.tensor([row + pad, [-v for v in row] + pad],
+                          dtype=torch.int8, device="cuda")
+        q = torch.tensor([[127] * 16 + [32, 1] + pad] * 2, dtype=torch.int8,
+                         device="cuda")
+        bodies[("ties", k)] = i8.int8_body(xq, q)
+        y = i8.int8_matmul(xq, a, q, scale, b, torch.float32)
+        ref = i8.int8_matmul_ref(xq, a, q, scale, b, torch.float32)
+        if not (torch.equal(y, ref) and torch.equal(y, b.expand(2, 2))):
+            raise RuntimeError(f"K9b's epilogue ties at K {k} "
+                               f"({bodies[('ties', k)]}): {y.tolist()}, "
+                               f"twin {ref.tolist()}")
+        checked += 1
+    if {bodies[("ties", 18)], bodies[("ties", 32)]} != {"mma.sync", "wgmma"}:
+        raise RuntimeError(f"K9b's ties ran on {bodies}, not on both bodies")
     print(f"K9a and K9b bit-equal to their twins in {checked} cases "
           f"(shapes {K9_ODD} and M {K9_M} x {K9_MAIN}; dynamic and static "
           "scales, bf16 and float32 in and out, a zero row each; and "
-          "K9b's epilogue on four float64 ties)", flush=True)
+          "K9b's epilogue on four float64 ties on each body); K9b's body "
+          f"by shape: {bodies}", flush=True)
 
     rows = {}
     for k, n in K9_MAIN:
@@ -5976,10 +5990,12 @@ def check_k9(power):
                            iters=20)
         mm_bound = bound(K9_M * k + n * k + 4 * K9_M + 8 * n
                          + K9_M * n * 2, 2 * K9_M * n * k, "int8 tensor")
+        body = bodies[(K9_M, k, n)]
         print(f"K9 at M {K9_M}, K {k}, N {n} [{power}]: K9a "
               f"{qa_ms:.4f} ms (twin {qa_plain:.4f}; bound "
               f"{qa_bound[0]:.4f} by {qa_bound[1]}, "
-              f"{qa_bound[0] / qa_ms:.3f} of it); K9b {mm_ms:.4f} ms "
+              f"{qa_bound[0] / qa_ms:.3f} of it); K9b ({body}) "
+              f"{mm_ms:.4f} ms "
               f"(twin {mm_plain:.4f}; torch._int_mm + epilogue "
               f"{lib_ms:.4f}; bf16 F.linear {lin_ms:.4f}; bound "
               f"{mm_bound[0]:.4f} by {mm_bound[1]}, "
@@ -5991,7 +6007,8 @@ def check_k9(power):
                               "library_ms": None},
             "int8_matmul": {"max_abs_err": 0.0, "ms": mm_ms,
                             "plain_ms": mm_plain, "bound": mm_bound,
-                            "library_ms": lib_ms, "bf16_linear_ms": lin_ms}}
+                            "library_ms": lib_ms, "bf16_linear_ms": lin_ms,
+                            "body": body}}
         del x, w, b, q, scale, xq, a
         torch.cuda.empty_cache()
     # the kernels line: K9a at K 768 (five of a layer's six inputs), K9b at
@@ -6001,7 +6018,8 @@ def check_k9(power):
     for name in out:
         out[name]["shapes"] = {f"{K9_M}x{k}x{n}": {
             key: (r[name][key][0] if key == "bound" else r[name][key])
-            for key in ("ms", "plain_ms", "bound", "library_ms")}
+            for key in ("ms", "plain_ms", "bound", "library_ms", "body")
+            if key in r[name]}
             for (k, n), r in rows.items()}
     return out
 

@@ -1973,9 +1973,13 @@ def test_nce_2048_launches_k8(cuda_device, dtype):
 # ---------------------------------------------------------------------- K9
 # (M, K, N): the odd shapes of the int8 dense layer: K = num_locs = 5, the
 # VL-logit head's N = 1, a ragged M past the 128-row tile, K = 100 (no
-# 16-byte rows) and a dispatch's FFN width
+# 16-byte rows) and a dispatch's FFN width; then the Hopper body's ragged
+# edges: M past its 256-row pair tile, N = 100 and 1 (not multiples of 8:
+# the pair and single stores), 264 (past the 256-column tile, 16-byte
+# stores), and K = 2048 (the image features')
 K9_SHAPES = [(7, 5, 1), (1000, 100, 100), (150_001, 5, 768), (7, 768, 3072),
-             (1000, 3072, 768)]
+             (1000, 3072, 768), (150_001, 768, 768), (1000, 768, 100),
+             (7, 768, 1), (300, 2048, 768), (1000, 768, 264)]
 
 
 def _k9_inputs(m, k, n, dtype, device, seed=0):
@@ -2058,6 +2062,70 @@ def test_k9_epilogue_rounds_once_as_its_twin(cuda_device):
     assert torch.equal(y, want)
     assert torch.equal(i8.int8_matmul_ref(xq, a, q, scale, bias,
                                           torch.float32), want)
+
+
+@pytest.mark.cuda
+def test_k9_hopper_epilogue_rounds_once_as_its_twin(cuda_device):
+    """The same ties on the Hopper body: the operands zero-padded to K = 32
+    (the same sums), at rows and columns spread over a ragged tile."""
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    xq, a, q, scale, bias, want = _k9_tie_inputs(cuda_device)
+    rows, cols = [0, 77, 200, 299], [0, 9, 130, 263]
+    big = torch.zeros(300, 32, dtype=torch.int8, device=cuda_device)
+    wq = torch.zeros(264, 32, dtype=torch.int8, device=cuda_device)
+    ab = torch.ones(300, device=cuda_device)
+    sb = torch.ones(264, device=cuda_device)
+    bb = torch.zeros(264, device=cuda_device)
+    for i, r in enumerate(rows):
+        big[r, :18] = xq[i % 2]
+        ab[r] = a[i % 2]
+    for j, c in enumerate(cols):
+        wq[c, :18] = q[j % 2]
+        sb[c] = scale[j % 2]
+        bb[c] = bias[j % 2]
+    assert i8.int8_body(big, wq) == "wgmma"
+    y = i8.int8_matmul(big, ab, wq, sb, bb, torch.float32)
+    ref = i8.int8_matmul_ref(big, ab, wq, sb, bb, torch.float32)
+    assert torch.equal(y, ref)
+    for i, r in enumerate(rows):
+        for j, c in enumerate(cols):
+            assert float(y[r, c]) == float(want[i % 2, j % 2])
+
+
+# (shape, body): int8_matmul on the rule's two bodies, the Hopper body at a
+# dispatch's FFN1 and at ragged edges
+K9_BODIES = [((150_000, 768, 3072), "wgmma"), ((1000, 768, 100), "wgmma"),
+             ((7, 768, 1), "wgmma"), ((7, 5, 1), "mma.sync"),
+             ((1000, 100, 100), "mma.sync")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,body", K9_BODIES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else v)
+def test_int8_matmul_runs_the_body_its_rule_gives(cuda_device, shape, body):
+    """``int8_body`` names the body, and the profiler shows that body's
+    kernel and not the other's: no operand pair that the rule gives to the
+    Hopper body runs the mma.sync body, nor the other way round."""
+    from volta_tpu_torch.ops import int8_dense as i8
+
+    m, k, n = shape
+    x, w, b = _k9_inputs(m, k, n, torch.bfloat16, cuda_device)
+    q, scale = i8.quantize_kernel(w)
+    xq, a = i8.int8_quantize(x)
+    assert i8.int8_body(xq, q) == body
+
+    def call():
+        return i8.int8_matmul(xq, a, q, scale, b, torch.bfloat16)
+
+    call()
+    torch.cuda.synchronize()
+    # more sessions than the harness's default: a session of this file's
+    # full run once recorded no device kernel three times in a row
+    names = _profiled_kernel_names(call, "int8_matmul", tries=8)
+    assert ("int8_wgmma_kernel" in names) == (body == "wgmma"), names
+    assert ("int8_matmul_kernel" in names) == (body == "mma.sync"), names
 
 
 @pytest.mark.cuda

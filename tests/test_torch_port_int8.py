@@ -164,6 +164,68 @@ def test_k9_twin_epilogue_rounds_once():
     assert not torch.equal(twice, want)  # the inputs are ties
 
 
+# (K, body): K9b's rule on contiguous, 16-byte aligned int8 operands: K = 5
+# (num_locs) and K = 100 have no 16-byte rows, a dispatch's 768, 3072 and
+# the image features' 2048 have
+BODY_KS = [(5, "mma.sync"), (100, "mma.sync"), (768, "wgmma"),
+           (2048, "wgmma"), (3072, "wgmma")]
+
+
+@pytest.mark.parametrize("k,body", BODY_KS)
+def test_int8_body_by_k(k, body):
+    xq = torch.zeros(7, k, dtype=torch.int8)
+    q = torch.zeros(3, k, dtype=torch.int8)
+    assert pint8.int8_body(xq, q) == body
+
+
+@pytest.mark.parametrize("offset,body", [(1, "mma.sync"), (8, "mma.sync"),
+                                         (16, "wgmma")])
+def test_int8_body_by_alignment(offset, body):
+    """An offset view of one buffer takes the Hopper body only where it
+    starts on a 16-byte boundary, as xq and as q."""
+    flat = torch.zeros(64 + 7 * 768, dtype=torch.int8)
+    start = -flat.data_ptr() % 16 + offset  # 16-byte boundary + offset
+    view = flat[start:start + 7 * 768].view(7, 768)
+    other = torch.zeros(7, 768, dtype=torch.int8)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    assert pint8.int8_body(view, other) == body
+    assert pint8.int8_body(other, view) == body
+
+
+def test_int8_body_takes_only_contiguous_int8_matrices():
+    xq = torch.zeros(7, 768, dtype=torch.int8)
+    q = torch.zeros(768, 3, dtype=torch.int8).t()  # [3, 768], strided
+    assert not q.is_contiguous()
+    assert pint8.int8_body(xq, q) == "mma.sync"
+    assert pint8.int8_body(torch.zeros(7, 1536, dtype=torch.int8)[:, :768],
+                           xq) == "mma.sync"
+    assert pint8.int8_body(xq, q.contiguous()) == "wgmma"
+    assert pint8.int8_body(xq.to(torch.uint8), xq) == "mma.sync"
+    assert pint8.int8_body(xq[:0], xq) == "mma.sync"
+
+
+def test_int8_body_of_a_retrieval_dispatch():
+    """Every Dense of ctrl_uniter_base under the retrieval head takes the
+    Hopper body but the image-location embedding (K = num_locs = 5)."""
+    import os
+
+    cfg = VoltaConfig.from_json_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", "ctrl_uniter_base.json"))
+    task = {"TASK8": {"type": "VL-logit", "num_labels": 1}}
+    with torch.device("meta"):
+        model = VoltaForVLTasks(cfg, task, ("TASK8",))
+    bodies = {}
+    for key, mod in pint8.dense_modules(model).items():
+        n, k = mod.weight.shape
+        bodies[key] = pint8.int8_body(torch.zeros(4, k, dtype=torch.int8),
+                                      torch.zeros(n, k, dtype=torch.int8))
+    slow = sorted(k for k, b in bodies.items() if b != "wgmma")
+    assert len(bodies) > 70 and len(slow) == 1, slow
+    assert dict(pint8.dense_modules(model))[slow[0]].weight.shape[1] \
+        == cfg.num_locs
+
+
 @pytest.fixture(scope="module")
 def models():
     """The tiny model in JAX (Flax init) and in the port (the same

@@ -95,6 +95,13 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrival at named barrier `id` of `count` threads without waiting for it;
+// this thread's earlier memory accesses are performed for the threads that
+// wait there.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // One arrival on the barrier at the same offset in block `rank` of the
 // cluster (this block's own or its peer's).
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, int rank) {
@@ -520,19 +527,23 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// The map of a row-major bf16 [rows, cols] matrix, read in boxes of
-// [box_rows, 64] with the 128-byte swizzle and zeros past the edges.
+// The map of a row-major [rows, cols] matrix of bf16 (elem_bytes 2) or
+// int8 (elem_bytes 1), read in boxes of box_rows rows x 128 bytes (64 bf16
+// or 128 int8 values) with the 128-byte swizzle and zeros past the edges.
 // Returns 0 or a negative error code.
 inline int make_map(CUtensorMap* map, const void* p, int rows, int cols,
-                    int box_rows) {
+                    int box_rows, int elem_bytes = 2) {
   const EncodeTiled fn = encode_fn();
   if (!fn) return kNoEncode;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        2,
                         const_cast<void*>(p), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -541,12 +552,15 @@ inline int make_map(CUtensorMap* map, const void* p, int rows, int cols,
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
+// A launch of `clusters` clusters of two blocks of kThreads threads with
+// smem bytes of dynamic shared memory each.
 inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr,
-                                         int clusters, cudaStream_t stream) {
+                                         int clusters, cudaStream_t stream,
+                                         size_t smem = kSmemBytes) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(2 * clusters);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = 2;

@@ -21,10 +21,17 @@ apart). The twins compute the FMAs in float64 and round once to float32
 (``fma32``).
 
 The weight is kept as ``[out, in]`` int8, the port's ``Dense`` layout and
-the K-major B operand of the int8 ``mma``; JAX's ``[in, out]`` ``q`` is its
-transpose. CUDA tensors take the kernels or raise; CPU tensors take the
-twins, which sum the product in int64 (on the card the twin sums in
-float64, exact below 2^53: 127² · K fits for any K < 5.5e8).
+the K-major B operand of the int8 ``mma`` and ``wgmma``; JAX's ``[in, out]``
+``q`` is its transpose. CUDA tensors take the kernels or raise; CPU tensors
+take the twins, which sum the product in int64 (on the card the twin sums
+in float64, exact below 2^53: 127² · K fits for any K < 5.5e8).
+
+K9b has two bodies (``int8_body``): the Hopper body (TMA, a ring of
+shared-memory stages, ``wgmma`` m64n256k32 s8, a persistent grid of
+clusters of two) where TMA can read both operands, and the ``mma.sync``
+body for the rest (K = 5, the location embedding; K not a multiple of 16;
+misaligned or strided operands). A call runs the body the rule names, or
+raises.
 ``torch._int_mm`` is no part of this: ``chip_smoke.py`` times it as the
 library yardstick only.
 
@@ -48,6 +55,7 @@ from torch import nn
 
 from . import LAUNCHES, _build
 from .attention_cuda import DTYPE_CODE, launch_error
+from .matmul import _raise as launch_failure
 
 VEC_BYTES = 16
 
@@ -142,6 +150,19 @@ def int8_matmul_ref(xq: torch.Tensor, a: torch.Tensor, q: torch.Tensor,
 
 
 # ----------------------------------------------------------------- kernels
+def int8_body(xq: torch.Tensor, q: torch.Tensor) -> str:
+    """The body that ``int8_matmul`` runs for xq ``[M, K]`` and q ``[N,
+    K]``: "wgmma" where TMA can read both (non-empty contiguous int8
+    matrices, each starting on a 16-byte boundary, K a multiple of 16: TMA's
+    row stride is a multiple of 16 bytes), else "mma.sync"."""
+    for t in (xq, q):
+        if not (t.dtype == torch.int8 and t.dim() == 2 and t.numel() > 0
+                and t.is_contiguous() and t.data_ptr() % VEC_BYTES == 0
+                and t.shape[1] % VEC_BYTES == 0):
+            return "mma.sync"
+    return "wgmma"
+
+
 @functools.cache
 def _kernels():
     lib = _build.load()
@@ -150,9 +171,25 @@ def _kernels():
     lib.volta_int8_quantize.restype = I
     lib.volta_int8_matmul.argtypes = [P] * 6 + [I] * 6 + [P]
     lib.volta_int8_matmul.restype = I
+    lib.volta_int8_matmul_wgmma.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.volta_int8_matmul_wgmma.restype = I
+    lib.volta_int8_clusters.argtypes = [I, P]
+    lib.volta_int8_clusters.restype = I
     lib.volta_cuda_error_string.argtypes = [I]
     lib.volta_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _clusters(index: int) -> int:
+    """How many clusters of two blocks of K9b's Hopper body card ``index``
+    runs at once: its persistent grid."""
+    n = ctypes.c_int(0)
+    rc = _kernels().volta_int8_clusters(index, ctypes.byref(n))
+    if rc != 0 or n.value < 1:
+        raise RuntimeError(f"int8_matmul's Hopper body does not fit on card "
+                           f"{index} (cudaError {rc}, {n.value} clusters)")
+    return n.value
 
 
 def _stream(dev: int) -> int:
@@ -224,21 +261,26 @@ def int8_matmul(xq: torch.Tensor, a: torch.Tensor, q: torch.Tensor,
     if out_dtype not in DTYPE_CODE:
         raise ValueError(f"int8_matmul: out_dtype must be bfloat16 or "
                          f"float32, got {out_dtype}")
+    body = int8_body(xq, q)
     xq, q, a, scale = (t.contiguous() for t in (xq, q, a, scale))
     bias = None if bias is None else bias.contiguous()
     y = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m == 0 or n == 0:
         return y
     dev = xq.get_device()
-    vec = int(k % VEC_BYTES == 0 and xq.data_ptr() % VEC_BYTES == 0
-              and q.data_ptr() % VEC_BYTES == 0)
     lib = _kernels()
-    rc = lib.volta_int8_matmul(
-        xq.data_ptr(), a.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(), m, n, k,
-        DTYPE_CODE[out_dtype], vec, dev, _stream(dev))
+    args = (xq.data_ptr(), a.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), m, n, k,
+            DTYPE_CODE[out_dtype])
+    if body == "wgmma":
+        rc = lib.volta_int8_matmul_wgmma(*args, _clusters(dev), dev,
+                                         _stream(dev))
+    else:
+        vec = int(k % VEC_BYTES == 0 and xq.data_ptr() % VEC_BYTES == 0
+                  and q.data_ptr() % VEC_BYTES == 0)
+        rc = lib.volta_int8_matmul(*args, vec, dev, _stream(dev))
     if rc != 0:
-        raise launch_error("int8_matmul", rc, lib.volta_cuda_error_string)
+        raise launch_failure("int8_matmul", rc, lib.volta_cuda_error_string)
     LAUNCHES["int8_matmul"] += 1
     return y
 
