@@ -13,7 +13,8 @@ device store, gradient accumulation, freezing and ``embed_clf``; then the
 other families: ViLBERT and LXMERT (dual-stream), VisualBERT and VL-BERT;
 then the pretraining path on Conceptual Captions, with K8 (the NCE
 negatives' scores); then the retrieval CLI with K9 (the int8 dense layer)
-and the optimizers' options.
+and the optimizers' options; then the serving exporter (``torch.export``
+through the registered kernel ops), ``--profile_steps`` and ``use_scan``.
 
     python3 chip_smoke.py [--profile]
 
@@ -363,7 +364,29 @@ and each of which prints its seconds:
     2 steps with and without ``--trunk_lr_scale 0.1``: each loaded
     parameter's update 0.1x within 1e-6 beyond the rounding of p + u, the
     heads (not loaded) bit-equal;
-21. the kernels' JSON line (the attention rows also with ``body``, the
+21. the serving exporter, ``--profile_steps`` and ``use_scan``
+    (``check_export``, ``check_profile_steps``, ``check_scan``): (a)
+    ``python -m volta_tpu_torch.tools.export_model``'s ``main()`` on
+    ctrl_uniter_base VQA at full width, bf16, random weights from seed 0,
+    batch symbol b: the loaded kernel artifact (``--use_pallas``) at b256
+    and b1024 bit-equal to the live forward with its launches (12 of row
+    1) and, at b256, the profiler's port kernels; the same with both
+    LayerNorm flags (12 of row 1, 29 of row 10); the int8 artifact
+    bit-equal to the live int8 forward, K9a and K9b 78 times each (once
+    a Dense of the VQA model); the
+    portable artifact with no kernel of the port, its logits held as
+    phase 9 holds the twins; the baked artifact's size (then deleted);
+    the export and load seconds, the loaded artifact's b1024 pairs/s
+    beside the live forward's in turns, one call's host µs through the
+    registered op and the eager wrapper; (b) ``train_task
+    --profile_steps 3`` at 4 layers, b48, one epoch: the trace in
+    ``<logdir>/<run>/`` with the ranges of steps 20-22 alone and, over
+    them, rows 3 and 4 and K10 three steps' worth of the plan's launches;
+    (c) ``use_scan`` at full width: b256 eval logits held to the loop
+    route's as phase 9 holds the twins, and a b256 training step, finite,
+    with rows 3 and 4 12 times each and K10 only at the embeddings and
+    the pooled output (3 + 3);
+22. the kernels' JSON line (the attention rows also with ``body``, the
     body their wrapper runs in bf16; ``pallas`` false for K10, K8 and K9,
     which replace no Pallas kernel; ``bound_by`` "operations" also where the
     hash's integer operations bound a kernel, which phases 6 and 7 name;
@@ -381,6 +404,7 @@ package is missing beside it.
 """
 
 import contextlib
+import copy
 import json
 import os
 import re
@@ -6359,6 +6383,375 @@ def profile_device(fn, call_ms, what, calls=3, top=40):
     return total
 
 
+
+# phase 21: the serving exporter, --profile_steps and use_scan
+def serving_batch(cfg, b, seq_len, region_len, seed):
+    """A batch of the exported forward's six inputs on the card, in the
+    artifact's dtypes (``export.eval_arg_specs``): random tokens with a
+    padded tail, features and boxes, a few padded regions."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, cfg.vocab_size, (b, seq_len)).astype(np.int32)
+    t_mask = np.ones((b, seq_len), np.int32)
+    t_mask[:, seq_len - rng.randint(0, seq_len // 2):] = 0
+    v_mask = np.ones((b, region_len), np.int32)
+    v_mask[::3, region_len - 4:] = 0
+    arrays = [ids * t_mask,
+              (rng.randn(b, region_len, cfg.v_feature_size) * 0.5)
+              .astype(np.float32),
+              rng.rand(b, region_len, cfg.num_locs).astype(np.float32),
+              np.zeros((b, seq_len), np.int32), t_mask, v_mask]
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def port_kernel_names(fn, tries=3):
+    """The names of the port's kernels that the profiler records over one
+    call of ``fn`` (after a warm-up call in the same session, as
+    ``profile_device``), as a sorted list with repeats; a session with no
+    device record at all is tried again, up to ``tries`` sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    port = ("attention_", "layer_norm_", "dropout_residual_ln_",
+            "band_sum_kernel", "int8_", "quantize_kernel",
+            "hash_dropout_kernel", "keep_mask_kernel")
+    for _ in range(tries):
+        events = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: events.extend(p.events())) \
+                as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return sorted(n for n in names if any(w in n for w in port))
+    raise RuntimeError("the profiler recorded no device kernel in "
+                       f"{tries} sessions")
+
+
+def export_cli(root, yml, config, tag, *flags, check=True):
+    """``python -m volta_tpu_torch.tools.export_model``'s ``main()`` for
+    ctrl_uniter_base VQA (random weights from seed 0), batch symbol b,
+    with ``--check`` unless ``check`` is false; its result and the
+    artifact's size."""
+    from volta_tpu_torch.tools import export_model
+
+    out = os.path.join(root, f"vqa_{tag}.pt2")
+    res = export_model.main([
+        "--config_file", config, "--tasks_config_file", yml, "--task", "1",
+        "--out", out, "--batch_size", "b", "--compute_dtype", "bfloat16",
+        "--device", "cuda", *(["--check"] if check else []), *flags])
+    res["mib"] = os.path.getsize(out) / 2**20
+    load = "" if res["load_s"] is None else f", load {res['load_s']:.2f} s"
+    print(f"export_model ({tag}{''.join(' ' + f for f in flags)}): export "
+          f"{res['export_s']:.2f} s{load}, {res['mib']:.1f} MiB, platforms "
+          f"{res['exported'].platforms}", flush=True)
+    return res
+
+
+def check_export(root, yml, power, flagged):
+    """Phase 21 (a): the serving exporter on ctrl_uniter_base VQA at full
+    width (12 layers, L 23 + 37), bf16, through its CLI. The kernel
+    artifact (``--use_pallas``, batch symbol b, parameterized), loaded,
+    against the live forward at b256 and b1024: logits bit-equal, the
+    port's launch counts equal (12 of row 1 a forward) and the profiler's
+    port kernels equal; the same with both LayerNorm flags (12 of row 1,
+    29 of row 10); the int8 artifact (bit-equal to the live int8
+    forward, K9a and K9b once per Dense: 78 + 78); the portable artifact
+    (no kernel of the port launches; logits held as phase 9 holds the
+    twins); the baked artifact's size on disk (then deleted). Times: the
+    export and load seconds, b1024 pairs/s of the loaded artifact and the
+    live forward in turns, and one call's host µs through the registered
+    op against the eager wrapper. Returns the numbers."""
+    import torch
+
+    from volta_tpu_torch.ops import LAUNCHES, attention_cuda, \
+        reset_launches
+    from volta_tpu_torch.ops import int8_dense as pint8
+
+    stats = {}
+    res = export_cli(root, yml, CONFIG, "kernels", "--use_pallas")
+    model, params, back = res["model"], res["params"], res["loaded"]
+    cfg = model.cfg
+    seq_len, region_len = res["zeros"][0].shape[1], res["zeros"][1].shape[1]
+    live = lambda b: model(b[0], b[1], b[2], "TASK1", *b[3:])  # noqa: E731
+    art = lambda b: back.call(params, *b)  # noqa: E731
+    stats["export_s"], stats["load_s"] = res["export_s"], res["load_s"]
+    batches = {n: serving_batch(cfg, n, seq_len, region_len, n)
+               for n in (256, 1024)}
+
+    def same(tag, live_fn, art_fn, batch, want):
+        with torch.no_grad():
+            reset_launches()
+            ref = live_fn(batch)
+            torch.cuda.synchronize()
+            n_live = dict(LAUNCHES)
+            reset_launches()
+            got = art_fn(batch)
+            torch.cuda.synchronize()
+            n_art = dict(LAUNCHES)
+        equal = torch.equal(got, ref)
+        print(f"artifact vs live ({tag}, b{batch[0].shape[0]}): logits "
+              f"bit-equal {equal}, launches {n_art} vs {n_live}", flush=True)
+        if not equal or n_art != n_live or n_live != expect(**want):
+            raise RuntimeError(f"{tag}: the artifact's logits or launches "
+                               "differ from the live forward's")
+        return ref
+
+    for n, batch in batches.items():
+        same("kernels", live, art, batch, {"attention_fwd": 12})
+    with torch.no_grad():
+        names = [port_kernel_names(lambda: fn(batches[256]))
+                 for fn in (live, art)]
+    print(f"profiler, b256 (kernels): {len(names[1])} port kernels a call "
+          f"of the artifact, {len(names[0])} of the live forward", flush=True)
+    if names[0] != names[1] or not names[0]:
+        raise RuntimeError("the profiler's kernels of the artifact differ "
+                           "from the live forward's")
+
+    # pairs/s at b1024, the live forward and the loaded artifact in turns
+    runs = {"live": [], "artifact": []}
+    b1024 = batches[1024]
+    with torch.no_grad():
+        for name, _ in ab_turns("live", None, "artifact", None):
+            fn = live if name == "live" else art
+            runs[name].append(1024 / (cuda_ms(lambda: fn(b1024), iters=5,
+                                              warmup=1) / 1e3))
+    for name, rs in runs.items():
+        stats[f"{name}_pairs_s"] = float(np.median(rs))
+        print(f"eval forward b1024 {name}: median "
+              f"{stats[f'{name}_pairs_s']:.1f} pairs/s (runs "
+              f"{', '.join(f'{r:.1f}' for r in rs)}) [{power}]", flush=True)
+    # one call's host time through the registered op and the eager wrapper
+    q, k, v, bias = attention_inputs(256, 60, 60, 12, 64, torch.bfloat16, 0)
+    stats["op_us"] = host_us(lambda: torch.ops.volta.attention_fwd(
+        q, k, v, bias, 0.125, 12))
+    stats["wrapper_us"] = host_us(lambda: attention_cuda.attention_fwd(
+        q, k, v, bias, 0.125, 12))
+    print(f"host µs a call of row 1 at b256: registered op "
+          f"{stats['op_us']:.1f}, eager wrapper {stats['wrapper_us']:.1f} "
+          f"[{power}]", flush=True)
+
+    # both LayerNorm flags: rows 1 and 10 as phase 10 counts them
+    ln = export_cli(root, yml, flagged, "ln_kernels", "--use_pallas")
+    ln_model, ln_back = ln["model"], ln["loaded"]
+    same("LayerNorm flags",
+         lambda b: ln_model(b[0], b[1], b[2], "TASK1", *b[3:]),
+         lambda b: ln_back.call(ln["params"], *b), batches[256],
+         {"attention_fwd": 12, "layer_norm_fwd": 29})
+    del ln_model, ln_back, ln
+
+    # int8: the live forward is apply_quantized with the same bundle
+    q8 = export_cli(root, yml, CONFIG, "int8", "--use_pallas", "--quantize",
+                    "int8")
+    # the VQA model's Dense layers, each run once a forward (the
+    # retrieval model of phase 20 has 77)
+    n_dense = len(pint8.dense_modules(q8["model"]))
+    if n_dense != 78:
+        raise RuntimeError(f"{n_dense} Dense layers, expected 78")
+    served = pint8.quantize_model(copy.deepcopy(q8["model"]), q8["params"])
+    q8_back = q8["loaded"]
+    same("int8", lambda b: served(b[0], b[1], b[2], "TASK1", *b[3:]),
+         lambda b: q8_back.call(q8["params"], *b), batches[256],
+         {"attention_fwd": 12, "int8_quantize": n_dense,
+          "int8_matmul": n_dense})
+    del served, q8_back, q8
+
+    # the portable artifact: aten ops only, held as phase 9 holds the twins
+    port = export_cli(root, yml, CONFIG, "portable")
+    port_back = port["loaded"]
+    b256 = batches[256]
+    with torch.no_grad():
+        kern = live(b256).float()
+        with twins():
+            plain = live(b256).float()
+            with float64_attention():
+                noise = float((plain - live(b256).float()).abs().max())
+        reset_launches()
+        got = port_back.call(port["params"], *b256).float()
+        torch.cuda.synchronize()
+    launched = sum(LAUNCHES.values())
+    diff = float((got - kern).abs().max())
+    tol = max(LOGIT_TOL, NOISE_FACTOR * noise)
+    print(f"portable artifact on the card (b256): {launched} port kernels "
+          f"launched, logits vs the kernel forward max abs diff {diff:.3e} "
+          f"(tol {tol:.3e}, noise {noise:.3e})", flush=True)
+    if launched or not diff <= tol or not bool(torch.isfinite(got).all()):
+        raise RuntimeError("the portable artifact launched a kernel of the "
+                           "port or strays from the kernel forward")
+    stats["noise"] = noise
+    del port_back, port
+
+    baked = export_cli(root, yml, CONFIG, "baked", "--use_pallas",
+                       "--bake_weights", check=False)
+    stats["baked_mib"], stats["params_mib"] = baked["mib"], res["mib"]
+    print(f"baked artifact: {baked['mib']:.1f} MiB on disk (parameterized "
+          f"{res['mib']:.2f} MiB)", flush=True)
+    os.remove(baked["path"])
+    return stats
+
+
+def trace_kernels_by_step(events, words):
+    """The kernel events of a Chrome trace whose names hold one of
+    ``words``, counted by the step range (``step_<n>``) whose span holds
+    the host's launch of each (matched by CUPTI's correlation id), or
+    under None where no launch event or step matches."""
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    steps = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e["name"].startswith("step_")]
+    counts = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        word = next((w for w in words if w in e["name"]), None)
+        if word is None:
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        step = next((n for a, b, n in steps
+                     if ts is not None and a <= ts <= b), None)
+        counts.setdefault(step, {}).setdefault(word, 0)
+        counts[step][word] += 1
+    return counts
+
+
+def check_profile_steps(root, data_dir, yml, power, attempts=3):
+    """Phase 21 (b): ``train_task --profile_steps 3`` at 4 layers
+    (``uniter_cut``) on synthetic VQA at b48 (one epoch, 25 steps, no val
+    loop): the run's launches those of its plan, the trace file in
+    ``<logdir>/<run>/``, the ranges of steps 20, 21 and 22 and of no
+    other, and its kernel events: rows 3 and 4 and K10 as often as the
+    plan launches them, 3 steps' worth, printed by step. The profiler at
+    times records fewer kernels than ran (PERF.md section 7): a run whose
+    kernel events fall short is run again, up to ``attempts`` runs."""
+    import torch
+
+    from volta_tpu_torch import train_task
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+
+    config, counts = uniter_cut(root)
+    with open(yml) as f:
+        text = f.read()
+    b48 = os.path.join(root, "tasks_b48.yml")
+    with open(b48, "w") as f:
+        f.write(text.replace("  batch_size: 256", "  batch_size: 48"))
+    argv = train_argv(root, data_dir, b48, config, 1, "profiled") + [
+        "--eval_period", "9", "--profile_steps", "3"]
+    attn, sites = counts["attn"], counts["k10"]
+    per_step = {"attention_dropout_fwd": attn, "attention_dropout_bwd": attn,
+                "hash_dropout_kernel": 2 * sites}
+    for attempt in range(attempts):
+        reset_launches()
+        t0 = time.time()
+        out = train_task.main(argv + ["--save_name", f"try{attempt}"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        steps, launches = out["steps"], dict(LAUNCHES)
+        path = out["profile_trace"]
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        want = expect(attention_dropout_fwd=attn * steps,
+                      attention_dropout_bwd=attn * steps,
+                      **k10(sites * steps))
+        ranges = sorted(e["name"] for e in events
+                        if e.get("cat") == "user_annotation"
+                        and e["name"].startswith("step_"))
+        by_step = trace_kernels_by_step(events, tuple(per_step))
+        seen = {w: sum(c.get(w, 0) for c in by_step.values())
+                for w in per_step}
+        print(f"train_task --profile_steps 3 ({steps} steps at b48, 4 "
+              f"layers, {wall:.1f} s, run {attempt + 1}): trace "
+              f"{os.path.basename(path)} "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB), step ranges "
+              f"{ranges}, kernel events {seen} over 3 steps (by step "
+              f"{by_step}; the plan {per_step} a step), launches "
+              f"{launches} [{power}]", flush=True)
+        if os.path.dirname(path) != out["log_dir"] or steps < 23:
+            raise RuntimeError(f"trace at {path}, {steps} steps")
+        if ranges != ["step_20", "step_21", "step_22"]:
+            raise RuntimeError(f"the trace covers {ranges}")
+        if launches != want:
+            raise RuntimeError(f"launches {launches}, expected {want}")
+        if seen == {w: 3 * c for w, c in per_step.items()}:
+            return attempt + 1
+    raise RuntimeError(f"the trace's kernel events differ from the plan's "
+                       f"in {attempts} runs")
+
+
+def check_scan(task_cfg, batch, power):
+    """Phase 21 (c): ``use_scan`` at ctrl_uniter_base's full width, bf16,
+    the weights of the loop model: eval logits at b256 held to the loop
+    route's as phase 9 holds the kernels to the twins; a b256 training
+    step with the config's dropout, finite, with rows 3 and 4 12 times
+    each and K10 only at the embeddings and the pooled output (the tails
+    take the scan's Bernoulli draws), nothing else."""
+    import torch
+
+    from volta_tpu_torch import VoltaForVLTasks
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.eval_step import make_task_eval_step, to_device
+    from volta_tpu_torch.models.layers import init_weights
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import build_optimizer
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_task_train_step
+
+    cfg = VoltaConfig.from_json_file(CONFIG)
+    cfg.compute_dtype = "bfloat16"
+    models = {}
+    for scan in (False, True):
+        c = VoltaConfig.from_dict(dict(cfg.to_dict(), use_scan=scan))
+        m = VoltaForVLTasks(c, task_cfg, ("TASK1",))
+        init_weights(m, torch.Generator().manual_seed(0))
+        models[scan] = m.cuda().eval()
+    if not models[True].bert.encoder.scan or models[False].bert.encoder.scan:
+        raise RuntimeError("use_scan did not pick the scan route")
+    one = to_device(batch, "cuda")
+    loop_step = make_task_eval_step(models[False], task_cfg, "TASK1")
+    scan_step = make_task_eval_step(models[True], task_cfg, "TASK1")
+    loop = loop_step(one)["prediction"].float()
+    reset_launches()
+    scanned = scan_step(one)["prediction"].float()
+    eval_launches = dict(LAUNCHES)
+    with twins():
+        plain = loop_step(one)["prediction"].float()
+        with float64_attention():
+            noise = float((plain - loop_step(one)["prediction"].float())
+                          .abs().max())
+    diff = float((scanned - loop).abs().max())
+    tol = max(LOGIT_TOL, NOISE_FACTOR * noise)
+    print(f"use_scan eval b256: logits vs the loop route max abs diff "
+          f"{diff:.3e} (tol {tol:.3e}, noise {noise:.3e}), launches "
+          f"{eval_launches}", flush=True)
+    if not diff <= tol or eval_launches != expect(attention_fwd=12):
+        raise RuntimeError("the scan route's eval strays from the loop's")
+
+    model = models[True].train()
+    opt = build_optimizer("adamw", 1e-4, model, weight_decay=0.01,
+                          clip_norm=1.0)
+    state = create_train_state(model, opt, seed=1)
+    step = make_task_train_step(model, opt, task_cfg, "TASK1")
+    reset_launches()
+    out = step(state, batch)
+    loss = float(out["loss"])
+    launches = dict(LAUNCHES)
+    want = expect(attention_dropout_fwd=12, attention_dropout_bwd=12,
+                  **k10(K10_FLAGGED))
+    ms = cuda_ms(lambda: step(state, batch), iters=3, warmup=1)
+    print(f"use_scan train step b256: loss {loss:.4f}, {ms:.2f} ms/step, "
+          f"launches {launches} [{power}]", flush=True)
+    if not np.isfinite(loss) or launches != want:
+        raise RuntimeError(f"scan step launches {launches}, expected {want}")
+    return {"scan_step_ms": ms, "scan_noise": noise}
+
+
 def main(argv):
     import torch
 
@@ -6494,6 +6887,11 @@ def main(argv):
             opt_rates = optimizer_rates(task_cfg, batch, power)
             skip_disconnected_lxmert(root, data_dir)
             trunk_lr_scale(root, os.path.join(root, "cc"), heads)
+        with phase("21 export, profile_steps, use_scan"):
+            export_stats = check_export(root, yml, power, flagged)
+            export_stats["profile_runs"] = check_profile_steps(
+                root, data_dir, yml, power)
+            export_stats.update(check_scan(task_cfg, batch, power))
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -6542,6 +6940,17 @@ def main(argv):
     print(f"b256 train step [{power}]: " + ", ".join(
         f"{name} {ms:.2f} ms/step, peak {peak:.2f} GiB"
         for name, (ms, peak) in opt_rates.items()), flush=True)
+    print(f"serving artifact, ctrl_uniter_base VQA bf16 [{power}]: export "
+          f"{export_stats['export_s']:.2f} s, load "
+          f"{export_stats['load_s']:.2f} s, parameterized "
+          f"{export_stats['params_mib']:.2f} MiB, baked "
+          f"{export_stats['baked_mib']:.1f} MiB; b1024 loaded artifact "
+          f"{export_stats['artifact_pairs_s']:.1f} vs live "
+          f"{export_stats['live_pairs_s']:.1f} pairs/s; row 1 host µs "
+          f"registered op {export_stats['op_us']:.1f} vs wrapper "
+          f"{export_stats['wrapper_us']:.1f}; --profile_steps trace "
+          f"held in run {export_stats['profile_runs']}; use_scan train b256 "
+          f"{export_stats['scan_step_ms']:.2f} ms/step", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
           flush=True)
 

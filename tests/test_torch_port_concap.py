@@ -557,9 +557,11 @@ def again_state(ckpt):
     (["--skip_disconnected_params"], "item 8"),
     (["--trunk_lr_scale", "0.1"], "item 8"),
     (["--distributed"], "item 9"),
-    (["--profile_steps", "3"], "item 11")])
+    (["--from_pretrained", "flax"], "item 12")])
 def test_cli_refuses_unported_flags(cli, flag, item, tmp_path):
-    """--distributed and --profile_steps raise, naming their items; the
+    """--distributed raises, naming its item, and so does
+    --from_pretrained of the JAX package's own Flax msgpack save (item 12;
+    --profile_steps, ported since: tests/test_torch_port_profiling.py); the
     optimizer flags (item 8), ported since, run two steps: bf16 moments in
     the saved state; skip_disconnected; and --trunk_lr_scale 0.1 from a
     reference ``.bin``, whose loaded parameters move 0.1x as far as
@@ -567,6 +569,10 @@ def test_cli_refuses_unported_flags(cli, flag, item, tmp_path):
     runs take their second on the same gradients) and whose others move
     alike. Without --from_pretrained, or from the port's own checkpoint,
     it exits."""
+    if flag[0] == "--from_pretrained":
+        (tmp_path / "flax").mkdir()
+        (tmp_path / "flax" / "flax_model.msgpack").write_bytes(b"")
+        flag = [flag[0], str(tmp_path / "flax")]
     if item != "item 8":
         with pytest.raises(NotImplementedError, match=item):
             train_concap.main(cli["base"] + flag)

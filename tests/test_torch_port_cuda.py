@@ -14,6 +14,7 @@ max(1, max|ref|). The dropout mask is compared bit for bit.
 """
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -2144,3 +2145,135 @@ def test_k9_raises_on_what_it_cannot_take(cuda_device):
         i8.int8_matmul(xq, a, q, s, None, torch.float16)
     with pytest.raises(ValueError, match="CUDA"):
         i8.int8_matmul(xq, a, q.cpu(), s, None, torch.float32)
+
+
+def _registered_op_cases(device):
+    """(op name, args, the wrapper's outputs) at a serving shape (b64 of
+    ctrl_uniter's 60 positions) in bf16, and K9 at odd shapes."""
+    from volta_tpu_torch.ops import fused_residual, int8_dense, layernorm
+    from volta_tpu_torch.ops import attention_head_major_cuda as hm
+
+    q, k, v, bias, _ = _inputs((64, 60, 60, 12, 64), "bfloat16", device)
+    qh, kh, vh = (x.view(64, 60, 12, 64).permute(2, 0, 1, 3).contiguous()
+                  for x in (q, k, v))
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(3840, 768, device=device, generator=gen).bfloat16()
+    o = torch.randn(3840, 768, device=device, generator=gen).bfloat16()
+    w = torch.rand(768, device=device, generator=gen) + 0.5
+    b = torch.randn(768, device=device, generator=gen)
+    xq, a = int8_dense.int8_quantize(x)
+    wq = torch.randint(-127, 128, (3072, 768), dtype=torch.int8,
+                       device=device, generator=gen)
+    scale = torch.rand(3072, device=device, generator=gen) * 1e-2
+    bias_n = torch.randn(3072, device=device, generator=gen)
+    a_scale = torch.tensor(0.03, device=device)
+    y, _, mean, rstd = fused_residual.dropout_residual_ln_fwd(
+        o, x, w, b, 0, 0.0, 1e-12)
+    return [
+        ("attention_fwd", (q, k, v, bias, 0.125, 12),
+         attention_cuda.attention_fwd(q, k, v, bias, 0.125, 12)),
+        ("attention_head_major_fwd", (qh, kh, vh, bias, 0.125),
+         hm.attention_head_major_fwd(qh, kh, vh, bias, 0.125)),
+        ("layer_norm_fwd", (x, w, b, 1e-12),
+         layernorm.layer_norm_fwd(x, w, b, 1e-12)),
+        ("residual_ln_fwd", (o, x, w, b, 1e-12), (y, mean, rstd)),
+        ("int8_quantize", (x, None), int8_dense.int8_quantize(x)),
+        ("int8_quantize", (x[:7], a_scale),
+         int8_dense.int8_quantize(x[:7], a_scale)),
+        ("int8_matmul", (xq, a, wq, scale, bias_n, torch.bfloat16),
+         int8_dense.int8_matmul(xq, a, wq, scale, bias_n, torch.bfloat16)),
+        ("int8_matmul", (xq[:, :5].contiguous(), a, wq[:100, :5]
+                         .contiguous(), scale[:100], None, torch.float32),
+         int8_dense.int8_matmul(xq[:, :5].contiguous(), a,
+                                wq[:100, :5].contiguous(), scale[:100],
+                                None, torch.float32))]
+
+
+@pytest.mark.cuda
+def test_registered_ops_equal_their_wrappers(cuda_device):
+    """Each op of ``ops.library`` on the card: its outputs equal its
+    wrapper's to the bit, it launches its kernel, and its fake
+    implementation gives the real outputs' shapes, dtypes and strides
+    (``torch.library.opcheck``)."""
+    from volta_tpu_torch.ops import library
+
+    cases = _registered_op_cases(cuda_device)
+    assert {name for name, _, _ in cases} == set(library.OPS)
+    key = {"residual_ln_fwd": "dropout_residual_ln_fwd"}
+    for name, args, want in cases:
+        op = getattr(torch.ops.volta, name)
+        before = LAUNCHES[key.get(name, name)]
+        got = op(*args)
+        assert LAUNCHES[key.get(name, name)] == before + 1, name
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            assert g.device == w.device and torch.equal(g, w), name
+        res = torch.library.opcheck(op.default, args)
+        assert set(res.values()) == {"SUCCESS"}, (name, res)
+        with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+            fake = op(*[mode.from_tensor(t) if isinstance(t, torch.Tensor)
+                        else t for t in args])
+        fake = fake if isinstance(fake, (tuple, list)) else (fake,)
+        for f, w in zip(fake, want):
+            assert (f.shape, f.dtype, f.device) == (w.shape, w.dtype,
+                                                    w.device), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    {}, {"attn_natural_layout": False},
+    {"use_pallas_layernorm": True, "use_fused_residual_ln": True}],
+    ids=["natural", "head_major", "ln_flags"])
+def test_kernel_artifact_equals_the_live_forward(cuda_device, tmp_path,
+                                                 flags):
+    """A tiny bf16 kernel artifact (batch symbol "b", saved and loaded) on
+    the card: logits bit-equal to the live forward's at b 3 and b 17, with
+    the live forward's launches."""
+    from volta_tpu_torch import VoltaForVLTasks
+    from volta_tpu_torch import export as pexport
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.models.layers import init_weights
+    from volta_tpu_torch.ops import reset_launches
+
+    cfg = VoltaConfig.from_json_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", "ctrl_uniter_base.json"))
+    cfg = VoltaConfig.from_dict(dict(
+        cfg.to_dict(), num_hidden_layers=2, hidden_size=128,
+        num_attention_heads=2, intermediate_size=256, v_hidden_size=128,
+        v_num_attention_heads=2, v_intermediate_size=256, pooler_size=128,
+        v_pooler_size=128, vocab_size=50, max_position_embeddings=64,
+        v_feature_size=64, clf_hidden_size=64, compute_dtype="bfloat16",
+        use_pallas=True, **flags))
+    tc = {"TASK1": {"type": "VL-classifier", "num_labels": 9}}
+    model = VoltaForVLTasks(cfg, tc, ("TASK1",))
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(cuda_device).eval()
+    lt, lv = 12, 9
+    exp = pexport.export_task_forward(cfg, tc, "TASK1", model.state_dict(),
+                                      "b", lt, lv, platforms=("cuda",))
+    path = str(tmp_path / "tiny.pt2")
+    pexport.save_exported(exp, path)
+    back = pexport.load_exported(path)
+    rng = np.random.RandomState(0)
+    for b in (3, 17):
+        batch = [torch.from_numpy(rng.randint(1, 50, (b, lt))).int(),
+                 torch.from_numpy(rng.randn(b, lv, 64)).float(),
+                 torch.from_numpy(rng.rand(b, lv, 5)).float(),
+                 torch.zeros(b, lt, dtype=torch.int32),
+                 torch.ones(b, lt, dtype=torch.int32),
+                 torch.ones(b, lv, dtype=torch.int32)]
+        batch = [t.to(cuda_device) for t in batch]
+        counts = []
+        with torch.no_grad():
+            reset_launches()
+            want = model(batch[0], batch[1], batch[2], "TASK1", *batch[3:])
+            counts.append(dict(LAUNCHES))
+            reset_launches()
+            got = back.call(model.state_dict(), *batch)
+            counts.append(dict(LAUNCHES))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), b
+        assert counts[0] == counts[1] and sum(counts[0].values()) > 0

@@ -228,16 +228,16 @@ def test_full_logits_and_loss_match(flax_params, dtype, use_pallas):
 
 
 def test_unported_configs_raise(tmp_path):
-    """What the port still refuses: ``use_scan``, the JAX package's own
-    Flax msgpack and Orbax saves, and a head type the JAX module does not
-    know. Every family's config builds (tests/test_torch_port_families.py
-    holds each against JAX)."""
+    """What the port still refuses: the JAX package's own Flax msgpack and
+    Orbax saves, and a head type the JAX module does not know. Every
+    family's config builds (tests/test_torch_port_families.py holds each
+    against JAX), and so does ``use_scan`` (tests/test_torch_port_scan.py
+    holds its route against JAX's)."""
     from volta_tpu_torch import checkpoint as ck
     from volta_tpu_torch.config import VoltaConfig
 
     cfg = dataclasses.replace(small_cfg(), use_scan=True)
-    with pytest.raises(NotImplementedError, match="use_scan"):
-        VoltaForVLTasks(cfg, TASK_CFG, ("TASK1",))
+    assert VoltaForVLTasks(cfg, TASK_CFG, ("TASK1",)).bert.encoder.scan
     pcfg = VoltaConfig.from_dict(small_cfg().to_dict())
     model = VoltaForVLTasks(pcfg, TASK_CFG, ("TASK1",))
     for name, leaf in (("flax", "flax_model.msgpack"),

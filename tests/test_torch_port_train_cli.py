@@ -175,20 +175,29 @@ def test_task_heads_train_validate_and_checkpoint(workdir, kind):
 
 @pytest.mark.parametrize("flag", [
     ["--optim", "RAdam"], ["--optimizer_state_dtype", "bfloat16"],
-    ["--skip_disconnected_params"], ["--profile_steps", "3"],
+    ["--skip_disconnected_params"], ["--from_pretrained", "flax"],
     ["--distributed"]], ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(workdir, flag, monkeypatch):
-    """--distributed and --profile_steps raise, naming their ROADMAP.md
-    items (9, 11); the optimizer flags, ported since, run an epoch (four
-    steps) with the optimizer they name: RAdam, bf16 AdamW moments (the
-    saved state's dtype), or skip_disconnected."""
+    """--distributed raises, naming its ROADMAP.md item (9), before the
+    run starts, and so does --from_pretrained of the JAX package's own
+    Flax msgpack save (item 12); the optimizer flags, ported since, run an
+    epoch (four steps) with the optimizer they name: RAdam, bf16 AdamW
+    moments (the saved state's dtype), or skip_disconnected.
+    (--profile_steps, ported since: tests/test_torch_port_profiling.py.)"""
     name = flag[0].lstrip("-")
     out_dir = os.path.join(workdir["tmp"], "refused", name)
-    if name in ("profile_steps", "distributed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    if name == "from_pretrained":
+        flax = os.path.join(workdir["tmp"], "flax_bundle")
+        os.makedirs(flax, exist_ok=True)
+        open(os.path.join(flax, "flax_model.msgpack"), "wb").close()
+        flag = [flag[0], flax]
+    if name in ("from_pretrained", "distributed"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item (9|12)"):
             port_train.main(workdir["base"] + ["--output_dir", out_dir]
                             + flag)
-        assert not os.path.exists(out_dir)
+        if name == "distributed":
+            assert not os.path.exists(out_dir)
         return
     import torch
 

@@ -50,8 +50,25 @@ each attention sublayer also returns its post-dropout probabilities,
 queries and keys (``_attn_data``, encoder.py:329-358) from the plain route,
 as JAX forms them. With ``remat_ff`` each feed-forward sublayer runs under
 ``torch.utils.checkpoint`` with its seeds drawn outside the recomputed call
-(encoder.py:551-560, 602-608); attention sublayers never do. ``use_scan``
-raises at construction.
+(encoder.py:551-560, 602-608); attention sublayers never do.
+
+``use_scan`` takes JAX's gate (``_scannable``, encoder.py:634-648: an even
+depth of alternating attention and feed-forward sublayers with equal heads
+and widths) on the fused route, and runs JAX's scanned block
+(``_fused_attn_block`` / ``_fused_ff_block``, encoder.py:484-545) a layer
+at a time: torch has no scan to gain from, so the recipe is a loop
+(``GatedEncoder._scan``). Its recipe is its own: one merged QKV product;
+the attention through ``fused_attention`` (rows 1-4, or 5-8 head-major),
+or at ``use_pallas: false`` the plain softmax dropped by Bernoulli draws;
+the tails dropped by Bernoulli draws (``scan_keep``) and normed by the
+plain LayerNorm whatever the LayerNorm flags say, so no LayerNorm kernel
+(rows 10-13), no mask kernel (rows 9, 14) and no K10 runs there; and
+``remat_ff`` ignored. Every draw takes a seed from the forward's
+``DropoutSeeds`` (a layer: attention, attention tail, feed-forward tail).
+
+Each sublayer runs inside a profiler range named as the JAX module's
+``jax.named_scope`` (``attn_<i>``, ``ff_<i>``) while a profiler records
+(``utils.profiling.named_range``).
 """
 
 from __future__ import annotations
@@ -59,14 +76,18 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import SublayerSpec, VoltaConfig
-from ..ops.attention import dropout_attention_hidden_masks, \
-    fused_attention, plain_attention
+from ..ops.attention import attention_out, attention_probs, \
+    dropout_attention_hidden_masks, fused_attention, plain_attention, \
+    probs_keep
+from ..ops.hash_dropout import apply_keep_mask
+from ..utils.profiling import named_range
 from .embeddings import compute_dtype
-from .layers import ACT2FN, Dense, LayerNorm, hash_dropout, \
+from .layers import ACT2FN, Dense, LayerNorm, hash_dropout, layer_norm, \
     residual_ln_seg, site_seed
 
 
@@ -83,6 +104,35 @@ def _make_ln(cfg: VoltaConfig, dim: int) -> LayerNorm:
                      pallas_mask=cfg.use_pallas
                      and cfg.use_pallas_dropout_mask and not cfg.remat_ff,
                      hash_mask=cfg.use_hash_dropout)
+
+
+def scan_keep(shape, rate: float, seed: int, device) -> torch.Tensor:
+    """The keep bits of one Bernoulli dropout of the scanned recipe
+    (``_dropout``, encoder.py:490-496): Bernoulli(1 - rate), as uint32
+    draws from the site's seed below the rate's threshold
+    (``ops.attention.probs_keep``). A test feeds JAX's draws here."""
+    return probs_keep(shape, rate, seed, device)
+
+
+def _scan_dropout(x, rate, seed):
+    if seed is None:
+        return x
+    return apply_keep_mask(x, scan_keep(x.shape, rate, seed, x.device), rate)
+
+
+def _scannable(cfg: VoltaConfig, plan) -> bool:
+    """JAX's ``_scannable`` (encoder.py:634-648): ``use_scan`` and an even
+    depth of (attention, feed-forward) pairs whose attentions have equal
+    heads and widths."""
+    if not cfg.use_scan or len(plan) % 2:
+        return False
+    attn, ffs = plan[0::2], plan[1::2]
+    if not all(a.kind == "attn" and f.kind == "ff"
+               for a, f in zip(attn, ffs)):
+        return False
+    return all(a.num_heads == attn[0].num_heads
+               and a.attn_hidden_size == attn[0].attn_hidden_size
+               for a in attn)
 
 
 def _fully_fused(spec: SublayerSpec) -> bool:
@@ -425,13 +475,12 @@ class GatedEncoder(nn.Module):
 
     def __init__(self, cfg: VoltaConfig):
         super().__init__()
-        if cfg.use_scan:
-            raise NotImplementedError(
-                "use_scan is not ported: the port runs the stack as a loop")
         self.remat = cfg.remat_ff
         self.names = []
         plan = cfg.sublayer_plan()
         self.fused = all(_fully_fused(spec) for spec in plan)
+        # the scanned recipe on the fused route (encoder.py:592-593)
+        self.scan = self.fused and _scannable(cfg, plan)
         for spec in plan:
             if spec.kind == "attn":
                 name, layer = f"attn_{spec.index}", \
@@ -453,25 +502,42 @@ class GatedEncoder(nn.Module):
             return out if output_all_layers or output_probs else out[:2]
         x = torch.cat([t, v], dim=1)
         bias = torch.cat([t_bias, v_bias], dim=-1)
+        lt = t.shape[1]
+        if self.scan:
+            x = self._scan(x, bias, seeds)
+            return x[:, :lt], x[:, lt:]
         ffn_mask = None  # row 9's mask for the next feed-forward's tail
         for name in self.names:
             layer = getattr(self, name)
-            if isinstance(layer, GatedAttentionSublayer):
-                x, ffn_mask = layer(x, bias, seeds)
-            elif self.remat and torch.is_grad_enabled():
-                # the seed is drawn here, outside the recomputed call, and
-                # row 9's mask is one of its inputs, so the backward's
-                # recomputation drops what the forward dropped; no global
-                # generator is read inside, so none is saved
-                x = checkpoint(layer.body, x,
-                               layer.draw_seed(seeds, ffn_mask), ffn_mask,
-                               use_reentrant=False, preserve_rng_state=False)
-                ffn_mask = None
-            else:
-                x = layer(x, seeds, keep_mask=ffn_mask)
-                ffn_mask = None
-        lt = t.shape[1]
+            with named_range(name):
+                if isinstance(layer, GatedAttentionSublayer):
+                    x, ffn_mask = layer(x, bias, seeds)
+                elif self.remat and torch.is_grad_enabled():
+                    # the seed is drawn here, outside the recomputed call,
+                    # and row 9's mask is one of its inputs, so the
+                    # backward's recomputation drops what the forward
+                    # dropped; no global generator is read inside, so none
+                    # is saved
+                    x = checkpoint(layer.body, x,
+                                   layer.draw_seed(seeds, ffn_mask),
+                                   ffn_mask, use_reentrant=False,
+                                   preserve_rng_state=False)
+                    ffn_mask = None
+                else:
+                    x = layer(x, seeds, keep_mask=ffn_mask)
+                    ffn_mask = None
         return x[:, :lt], x[:, lt:]
+
+    def _scan(self, x, bias, seeds):
+        """JAX's scanned block (``_scan_fused``'s body, encoder.py:650-688)
+        a layer at a time; see the module's notes."""
+        for a_name, f_name in zip(self.names[0::2], self.names[1::2]):
+            a, f = getattr(self, a_name), getattr(self, f_name)
+            with named_range(a_name):
+                x = _scan_attn_block(a, x, bias, seeds)
+            with named_range(f_name):
+                x = _scan_ff_block(f, x, seeds)
+        return x
 
     def _general(self, t, v, t_bias, v_bias, seeds, output_all_layers,
                  output_probs):
@@ -481,19 +547,58 @@ class GatedEncoder(nn.Module):
         all_t, all_v, all_probs = [], [], []
         for name in self.names:
             layer = getattr(self, name)
-            if isinstance(layer, GatedAttentionSublayer):
-                t, v, probs = layer.streams(t, v, t_bias, v_bias, seeds,
-                                            output_probs)
-                if output_probs:
-                    all_probs.append(probs)
-            elif self.remat and torch.is_grad_enabled():
-                t, v = checkpoint(layer.streams_body, t, v,
-                                  *layer.tail_seeds(seeds, layer.fuse_dual),
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                t, v = layer.streams(t, v, seeds)
+            with named_range(name):
+                if isinstance(layer, GatedAttentionSublayer):
+                    t, v, probs = layer.streams(t, v, t_bias, v_bias,
+                                                seeds, output_probs)
+                    if output_probs:
+                        all_probs.append(probs)
+                elif self.remat and torch.is_grad_enabled():
+                    t, v = checkpoint(
+                        layer.streams_body, t, v,
+                        *layer.tail_seeds(seeds, layer.fuse_dual),
+                        use_reentrant=False, preserve_rng_state=False)
+                else:
+                    t, v = layer.streams(t, v, seeds)
             if output_all_layers:
                 all_t.append(t)
                 all_v.append(v)
         return t, v, (all_t, all_v, all_probs)
+
+
+def _scan_attn_block(a: GatedAttentionSublayer, x, bias, seeds):
+    """``_fused_attn_block`` (encoder.py:499-536): one merged QKV product,
+    the attention (the kernels through ``fused_attention``, dropping the
+    probabilities with the layer's seed in training; the plain softmax and
+    Bernoulli draws at ``use_pallas: false``), out_dense, the Bernoulli
+    tail and the plain LayerNorm of o + x."""
+    dt = a.query.dtype
+    projections = (a.query, a.key, a.value)
+    w = torch.cat([m.weight for m in projections]).to(dt)
+    b = torch.cat([m.bias for m in projections]).to(dt)
+    q, k, v = (_heads(y, a.num_heads) for y in
+               F.linear(x.to(dt), w, b).chunk(3, dim=-1))
+    scale = 1.0 / math.sqrt(a.head_dim)
+    seed = site_seed(a, a.attn_rate, seeds)
+    if seed is None or a.use_pallas:
+        ctx = fused_attention(q, k, v, bias, scale,
+                              a.attn_rate if seed is not None else 0.0,
+                              seed, natural=a.natural,
+                              use_pallas=a.use_pallas)
+    else:
+        probs = _scan_dropout(attention_probs(q, k, bias, scale),
+                              a.attn_rate, seed)
+        ctx = attention_out(probs, v)
+    o = a.out_dense(ctx.reshape(x.shape[0], x.shape[1], -1))
+    o = _scan_dropout(o, a.hidden_rate, site_seed(a, a.hidden_rate, seeds))
+    ln = a.out_ln
+    return layer_norm(o + x.to(dt), ln.weight, ln.bias, ln.eps)
+
+
+def _scan_ff_block(f: GatedFeedForwardSublayer, x, seeds):
+    """``_fused_ff_block`` (encoder.py:539-545): the feed-forward, the
+    Bernoulli tail and the plain LayerNorm of o + x."""
+    o = f._ffn(x, False)
+    o = _scan_dropout(o, f.hidden_rate, site_seed(f, f.hidden_rate, seeds))
+    ln = f.out_ln
+    return layer_norm(o + x.to(o.dtype), ln.weight, ln.bias, ln.eps)

@@ -7,7 +7,14 @@ importing this package builds nothing.
 ``LAUNCHES`` counts the launches of each kernel since its count was last
 set to 0. A wrapper adds one where it launches its kernel and nowhere else,
 so a run can show that its path went through the kernels.
+
+``in_kernel_export`` gates the kernel sites of the eval forward: true only
+while ``torch.export`` traces a model inside ``library.kernel_export``,
+where those sites call the ops that ``library`` registers instead of their
+wrappers.
 """
+
+import torch
 
 LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
             "attention_dropout_fwd": 0, "attention_dropout_bwd": 0,
@@ -26,3 +33,11 @@ LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# set by library.kernel_export
+KERNEL_EXPORT = [False]
+
+
+def in_kernel_export() -> bool:
+    return KERNEL_EXPORT[0] and torch.compiler.is_exporting()

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from . import in_kernel_export
 from .hash import dropout_threshold, seeded_bits
 
 
@@ -107,7 +108,10 @@ def fused_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
     (pallas_attention.py:264-270, 979-981, 1011). All are autograd
     Functions whose forward and backward launch the CUDA kernels for CUDA
     tensors and run their plain twins for CPU tensors; there is no fallback
-    on the card.
+    on the card. While ``torch.export`` traces a kernel artifact
+    (``in_kernel_export``) the no-dropout forwards are the registered ops
+    ``volta::attention_fwd`` and ``volta::attention_head_major_fwd``
+    (``ops.library``) instead.
     """
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("fused_attention: dropout needs a seed")
@@ -125,6 +129,9 @@ def fused_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
         if dropout_rate > 0.0:
             out = attention_head_major_cuda.HeadMajorDropoutAttention.apply(
                 qh, kh, vh, bias, scale, float(dropout_rate), int(seed))
+        elif in_kernel_export():
+            out = torch.ops.volta.attention_head_major_fwd(qh, kh, vh, bias,
+                                                           scale)
         else:
             out = attention_head_major_cuda.HeadMajorAttention.apply(
                 qh, kh, vh, bias, scale)
@@ -134,6 +141,8 @@ def fused_attention(q, k, v, bias, scale, dropout_rate: float = 0.0,
     if dropout_rate > 0.0:
         out = attention_dropout_cuda.DropoutAttention.apply(
             q3, k3, v3, bias, scale, h, float(dropout_rate), int(seed))
+    elif in_kernel_export():
+        out = torch.ops.volta.attention_fwd(q3, k3, v3, bias, scale, h)
     else:
         out = attention_cuda.FusedAttention.apply(q3, k3, v3, bias, scale, h)
     return out.view(b, lq, h, d)

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import LAUNCHES, _build
+from . import LAUNCHES, _build, in_kernel_export
 from .attention_cuda import DTYPE_CODE, launch_error
 from .matmul import _raise as launch_failure
 
@@ -89,11 +89,12 @@ def fma32(x: torch.Tensor, y, z) -> torch.Tensor:
     There r moves one float64 ulp toward the exact sum (its TwoSum
     residual), which then rounds as the exact sum does. Computed
     ``FMA_CHUNK`` elements at a time, which bounds the float64
-    temporaries."""
+    temporaries; in one piece while ``torch.export`` traces it (a portable
+    int8 artifact), whose batch may be a symbol."""
     x, y, z = torch.broadcast_tensors(*(
         torch.as_tensor(v, dtype=torch.float32, device=x.device)
         for v in (x, y, z)))
-    if x.dim() == 0:
+    if x.dim() == 0 or torch.compiler.is_exporting():
         return _fma32(x, y, z)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     rows = max(1, FMA_CHUNK // max(1, x[0].numel()))
@@ -290,14 +291,20 @@ def int8_dense_apply(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                      a_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = dequant(int8(x) . qᵀ) + bias for x ``[..., in]`` and q ``[out,
     in]`` int8 (volta_tpu/ops/int8_dense.py:52-74): K9a (per-token scales,
-    or the static ``a_scale``) then K9b; ``[..., out]`` of ``out_dtype``."""
+    or the static ``a_scale``) then K9b; ``[..., out]`` of ``out_dtype``.
+    While ``torch.export`` traces a kernel artifact both are the registered
+    ops ``volta::int8_quantize`` and ``volta::int8_matmul``."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype not in DTYPE_CODE:
         x2 = x2.float()
-    xq, a = int8_quantize(x2, a_scale)
-    return int8_matmul(xq, a, q, scale, bias, out_dtype).reshape(
-        *lead, q.shape[0])
+    if in_kernel_export():
+        xq, a = torch.ops.volta.int8_quantize(x2, a_scale)
+        y = torch.ops.volta.int8_matmul(xq, a, q, scale, bias, out_dtype)
+    else:
+        xq, a = int8_quantize(x2, a_scale)
+        y = int8_matmul(xq, a, q, scale, bias, out_dtype)
+    return y.reshape(*lead, q.shape[0])
 
 
 # --------------------------------------------------------- the transform

@@ -20,7 +20,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import LAUNCHES, _build
+from . import LAUNCHES, _build, in_kernel_export
 from .attention_cuda import DTYPE_CODE, launch_error
 
 LN_EPS = 1e-12  # TF-style epsilon, inside the square root
@@ -294,7 +294,13 @@ def fused_layer_norm(x, weight, bias, eps):
     (``FusedLayerNorm``); output in x.dtype. Where autograd is off (eval
     runs under ``torch.inference_mode``) the forward is called without the
     Function and its bookkeeping, host time that an eval forward pays once
-    for each of its 29 LayerNorms."""
+    for each of its 29 LayerNorms. While ``torch.export`` traces a kernel
+    artifact it is the registered op ``volta::layer_norm_fwd``."""
+    if in_kernel_export():
+        shape = x.shape
+        return torch.ops.volta.layer_norm_fwd(
+            x.reshape(-1, shape[-1]).contiguous(), weight, bias,
+            float(eps))[0].view(shape)
     if torch.is_grad_enabled():
         return FusedLayerNorm.apply(x, weight, bias, float(eps))
     shape = x.shape

@@ -37,9 +37,11 @@ of that checkpoint loads the trunk and leaves the ``cls`` heads out.
 gradient is all zero, and ``--trunk_lr_scale s`` scales the update of every
 parameter that ``--from_pretrained`` loaded from a reference or HF ``.bin``
 (it exits without ``--from_pretrained``, or with the port's own checkpoint,
-whose report names no reference tensors). ``--distributed`` and
-``--profile_steps`` raise, naming their ROADMAP.md items; the JAX-only
-``--prng_impl`` does not exist here.
+whose report names no reference tensors). ``--profile_steps N`` and
+``--debug_nans`` act as ``train_task``'s (a trace of global steps 20 to
+20 + N into ``<logdir>/<run>/``; ``FloatingPointError`` at the first op
+output that holds a NaN). ``--distributed`` raises, naming its ROADMAP.md
+item; the JAX-only ``--prng_impl`` does not exist here.
 """
 
 from __future__ import annotations
@@ -111,9 +113,12 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--no_pallas", action="store_true")
-    p.add_argument("--profile_steps", default=0, type=int)
+    p.add_argument("--profile_steps", default=0, type=int,
+                   help="capture a torch.profiler trace over N steps "
+                   "from global step 20, into <logdir>/<run>/")
     p.add_argument("--debug_nans", action="store_true",
-                   help="torch.autograd anomaly detection")
+                   help="raise FloatingPointError at the first op output, "
+                   "forward or backward, that holds a NaN (slow)")
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--nce_shared_negatives", action="store_true",
                    help="JAX's opt-in NCE scheme: one shared set of "
@@ -128,12 +133,20 @@ def parse_args(argv=None):
 def main(argv=None):
     """Pretrain; returns {steps, train_losses (masked_t, masked_v, itm a
     step), val_losses (one an epoch), run_dir, log_dir, pretrained (the
-    ``from_pretrained`` report or None)}."""
-    from .train_task import _fetch, log_pretrained, refuse_unported, \
-        state_dtype
+    ``from_pretrained`` report or None), profile_trace (the
+    ``--profile_steps`` trace's path, or None)}."""
+    from .train_task import debug_nans, refuse_unported
 
     args = parse_args(argv)
     refuse_unported(args)
+    with debug_nans(args.debug_nans):
+        return _train(args)
+
+
+def _train(args):
+    from .train_task import _fetch, log_pretrained, state_dtype
+    from .utils.profiling import ProfileSteps
+
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_concap: --device cuda but CUDA is not "
@@ -152,8 +165,6 @@ def main(argv=None):
         make_pretrain_step
     from .train_utils import MetricsLogger, save_command, set_seed
 
-    if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
     set_seed(args.seed)
     cfg = VoltaConfig.from_json_file(args.config_file)
     cfg.compute_dtype = args.compute_dtype
@@ -260,6 +271,7 @@ def main(argv=None):
     losses._NCE_SHARED_NEGATIVES[0] = args.nce_shared_negatives
     keys = ("masked_t", "masked_v", "itm")
     train_losses, val_losses, pending = [], [], []
+    profiler = ProfileSteps(args.profile_steps, log_dir)
 
     def flush(epoch):
         for gs, mt, mv, itm in _fetch(pending, keys):
@@ -279,14 +291,19 @@ def main(argv=None):
             for i, batch in enumerate(train_loader):
                 if args.steps_per_epoch and i >= args.steps_per_epoch:
                     break
-                pending.append((state.step + 1, step_fn(state, batch)))
+                with profiler.step(state.step):
+                    out = step_fn(state, batch)
+                profiler.done(state.step, out["loss"])
+                pending.append((state.step, out))
                 if preempted["flag"]:
                     flush(epoch)
                     save_train_state(ckpt_dir, state, epoch, -1.0)
                     logger.info("preempted: checkpointed at step %d",
                                 state.step)
+                    profiler.close()
                     return _result(state, train_losses, val_losses,
-                                   output_dir, log_dir, report)
+                                   output_dir, log_dir, report,
+                                   profiler.path)
                 if len(pending) >= tb.period:
                     flush(epoch)
             if val_loader is not None:
@@ -299,17 +316,19 @@ def main(argv=None):
         if pending:
             flush(epoch)
     finally:
+        profiler.close()
         losses._NCE_SHARED_NEGATIVES[0] = shared
         signal.signal(signal.SIGTERM, old_handler)
         tb.close()
     return _result(state, train_losses, val_losses, output_dir, log_dir,
-                   report)
+                   report, profiler.path)
 
 
-def _result(state, train_losses, val_losses, run_dir, log_dir, report):
+def _result(state, train_losses, val_losses, run_dir, log_dir, report,
+            trace):
     return {"steps": state.step, "train_losses": train_losses,
             "val_losses": val_losses, "run_dir": run_dir,
-            "log_dir": log_dir, "pretrained": report}
+            "log_dir": log_dir, "pretrained": report, "profile_trace": trace}
 
 
 if __name__ == "__main__":

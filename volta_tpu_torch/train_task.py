@@ -34,14 +34,18 @@ parameters' gradients (``train_utils.apply_freeze``); a task's
 ``embed_clf`` sets its classifier from the answers' word embeddings;
 ``--device_store`` keeps the training set's packed features on the card
 and ships row indices and sparse targets (``train_step
-.materialize_store_batch``). ``--distributed`` and ``--profile_steps``
-raise, naming their ROADMAP.md items; the JAX-only ``--prng_impl`` does
-not exist here.
+.materialize_store_batch``). ``--profile_steps N`` records a
+``torch.profiler`` trace of global steps 20 to 20 + N into
+``<logdir>/<run>/`` (``utils.profiling``), and ``--debug_nans`` raises
+``FloatingPointError`` at the first op output, forward or backward, that
+holds a NaN. ``--distributed`` raises, naming its ROADMAP.md item; the
+JAX-only ``--prng_impl`` does not exist here.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 
@@ -115,9 +119,12 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--no_pallas", action="store_true")
-    p.add_argument("--profile_steps", default=0, type=int)
+    p.add_argument("--profile_steps", default=0, type=int,
+                   help="capture a torch.profiler trace over N steps "
+                   "from global step 20, into <logdir>/<run>/")
     p.add_argument("--debug_nans", action="store_true",
-                   help="torch.autograd anomaly detection")
+                   help="raise FloatingPointError at the first op output, "
+                   "forward or backward, that holds a NaN (slow)")
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--device", default="cuda", type=str)
     return p.parse_args(argv)
@@ -126,9 +133,8 @@ def parse_args(argv=None):
 def refuse_unported(args):
     """Raise NotImplementedError for each flag whose feature the port does
     not have yet, naming the ROADMAP.md item that owns it (this CLI's flags
-    and ``train_concap``'s): ``--profile_steps`` and ``--distributed``."""
+    and ``train_concap``'s): ``--distributed``."""
     unported = [
-        (args.profile_steps, "--profile_steps", "Queue 1 item 11"),
         (args.distributed, "--distributed", "Queue 1 item 9"),
     ]
     for given, flag, item in unported:
@@ -167,11 +173,30 @@ def _fetch(pending, keys):
             for i, (tag, _) in enumerate(pending)]
 
 
+@contextlib.contextmanager
+def debug_nans(on: bool):
+    """``--debug_nans``: ``profiling.enable_nan_debugging`` for the run."""
+    from .utils.profiling import enable_nan_debugging
+
+    mode = enable_nan_debugging() if on else None
+    try:
+        yield
+    finally:
+        if mode is not None:
+            mode.__exit__(None, None, None)
+
+
 def main(argv=None):
     """Train; returns {best_score, steps, train_losses, val_scores,
-    run_dir, log_dir}."""
+    run_dir, log_dir, profile_trace (the ``--profile_steps`` trace's path,
+    or None)}."""
     args = parse_args(argv)
     refuse_unported(args)
+    with debug_nans(args.debug_nans):
+        return _train(args)
+
+
+def _train(args):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_task: --device cuda but CUDA is not available "
@@ -190,8 +215,8 @@ def main(argv=None):
                               init_classifier_from_answers, save_command,
                               set_seed)
 
-    if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
+    from .utils.profiling import ProfileSteps
+
     set_seed(args.seed)
     cfg = VoltaConfig.from_json_file(args.config_file)
     if "roberta" in args.bert_model:
@@ -281,6 +306,7 @@ def main(argv=None):
         logger.info("resumed from %s at step %d (epoch %d)", src,
                     info["global_step"], start_epoch)
     train_losses, val_scores, pending = [], [], []
+    profiler = ProfileSteps(args.profile_steps, log_dir)
 
     def flush(epoch):
         for gs, loss, score in _fetch(pending, ("loss", "score")):
@@ -294,7 +320,10 @@ def main(argv=None):
         train_loader.set_epoch(epoch)
         model.train()
         for batch in train_loader:
-            pending.append((state.step + 1, train_step(state, batch)))
+            with profiler.step(state.step):
+                out = train_step(state, batch)
+            profiler.done(state.step, out["loss"])
+            pending.append((state.step, out))
             # metrics come to the host in windows, one transfer each
             if len(pending) >= tb.period:
                 flush(epoch)
@@ -314,11 +343,13 @@ def main(argv=None):
                                  epoch, best_score)
         save_train_state(ckpt_dir, state, epoch, best_score)
     flush(args.num_train_epochs - 1)
+    profiler.close()
     tb.close()
     logger.info("done; best val score %.4f", best_score)
     return {"best_score": best_score, "steps": state.step,
             "train_losses": train_losses, "val_scores": val_scores,
-            "run_dir": output_dir, "log_dir": log_dir}
+            "run_dir": output_dir, "log_dir": log_dir,
+            "profile_trace": profiler.path}
 
 
 if __name__ == "__main__":
