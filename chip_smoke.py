@@ -14,9 +14,13 @@ other families: ViLBERT and LXMERT (dual-stream), VisualBERT and VL-BERT;
 then the pretraining path on Conceptual Captions, with K8 (the NCE
 negatives' scores); then the retrieval CLI with K9 (the int8 dense layer)
 and the optimizers' options; then the serving exporter (``torch.export``
-through the registered kernel ops), ``--profile_steps`` and ``use_scan``.
+through the registered kernel ops), ``--profile_steps`` and ``use_scan``;
+then data parallelism over ``torch.distributed`` (``--distributed``).
 
     python3 chip_smoke.py [--profile]
+
+(``chip_smoke.py --dp-worker ...`` is one rank of phase 22, which starts
+it.)
 
 From the root of a checkout, on a host with a card, nvcc and PyTorch built
 for CUDA. Phases, each of which raises (and so exits non-zero) on failure,
@@ -212,9 +216,10 @@ and each of which prints its seconds:
 16. task heads: rows 1-4 against their twins at the (B, L) of the task
     paths, bf16 and fp32, as phases 3 and 4 hold them (row 1 at the eval
     forwards' 1024 x 77 and 1024 x 57, rows 1-4 at the train steps' 256 x
-    67, 256 x 57 and 128 x 77), with their bf16 device times beside the
-    twins', SDPA's and the bounds, and at L 64 and 65 (the tensor-core bodies'
-    64-row tile edge); then synthetic
+    67, 256 x 57 and 128 x 77), with their bf16 device times beside
+    SDPA's and the bounds (the twins' and L 64 and 65, the tensor-core
+    bodies' 64-row tile edge, untimed since phase 22: PERF.md, PR 15);
+    then synthetic
     NLVR2 (1024 statements on 128 image pairs), RefCOCO+ (1026 refs on
     342 images) and Flickr30k retrieval (64 images of the VQA store, 5
     captions each) dataroots at full feature width, written here through
@@ -234,8 +239,7 @@ and each of which prints its seconds:
     kernels and the twins as phase 9 holds VQA's (fp32 within 1e-4; bf16
     within twice, at least 5e-2, the twins' distance from float64
     attention sums), answers flipped reported; eval items/s at that batch
-    and train ms/step with its peak memory in bf16, and the train step's
-    device time by kernel;
+    and train ms/step with its peak memory in bf16, one timed run each;
 17. capture, the plain attention route and the rest of the train CLI at
     ctrl_uniter_base's full width: (a) the eval CLI on VQA at b64 with
     ``--dump_attn 2``: the npz keys and shapes, every probability row
@@ -279,8 +283,8 @@ and each of which prints its seconds:
     batch, no other kernel), the train CLI one epoch at b256 with the
     config's dropout and its val loop (rows 3 and 4 as often, K10 a tail,
     an embedding site and the pooled output each), one eval
-    batch held to the twins, eval items/s, train ms/step, peak memory and
-    the step's device time by kernel family; (b)-(d) vilbert_base (8 heads
+    batch held to the twins, eval items/s, train ms/step and peak memory,
+    one timed run each; (b)-(d) vilbert_base (8 heads
     of 128 in its 1024-wide vision stream and co-attention), ctrl_lxmert,
     lxmert (36 regions, ``fusion_method: text``, b32), ctrl_visualbert_base,
     ctrl_vl-bert_base and vl-bert_base (``vl-bert_vqa``, the global feature
@@ -288,11 +292,11 @@ and each of which prints its seconds:
     the twins and through the kernels with exact launches, two train steps
     with exact launches and finite losses; after vilbert_base, rows 1-4
     alone at its shapes ((1024 and 256) x (23 x 37, 37 x 23, 37 x 37), D =
-    128) against their twins as phase 16 holds the task shapes, with their
-    bf16 times beside SDPA's and the bound; (e) ctrl_vilbert_base's flags,
-    two b256 steps each with exact launches: the LayerNorm kernels (rows
-    10-13 at every per-stream tail), head-major (rows 5-6, its eval logits
-    equal to the natural layout's to the bit), the keep-mask kernel (row
+    128) against their twins as phase 16 holds the task shapes (their
+    times untimed since phase 22: PERF.md, PR 17); (e) ctrl_vilbert_base's
+    flags, two b256 steps each with exact launches: the LayerNorm kernels
+    (rows 10-13 at every per-stream tail), head-major (rows 5-6, its eval
+    logits equal to the natural layout's to the bit), the keep-mask kernel (row
     14), ``remat_ff`` (bit-equal to the plain step, as phase 15 holds it)
     and ``fuse_dual_stream`` (one K10 a joined tail); (f) ctrl_vilbert_base
     exported as a reference ``.bin`` and read back through the eval CLI's
@@ -305,13 +309,13 @@ and each of which prints its seconds:
     with train.sh's flags and ``--in_memory True`` for two epochs (8 b256
     steps, objective 1, KL, and the validation) with exact launches (rows
     3-4 12 a step, K10 27 + 27, row 1 12 a val batch) and its CC lines;
-    the same step timed alone (3 x 10 steps, median), its peak, idle share
-    and device ms by kernel family, the MLM decoder and its log-softmax
-    timed alone; ``train_task --from_pretrained`` of its checkpoint for
-    one VQA epoch (the trunk loaded, the ``cls`` heads unused, the VQA head
-    at init); (b) the b256 step held to the twins: fp32 losses and
-    parameters after one update as phase 13 holds the fine-tuning step,
-    bf16 gradients within NOISE_FACTOR times the twins' distance from
+    the same step timed alone (10 steps), its peak (with ``--profile``
+    its idle share and device ms by family, and the MLM decoder and its
+    log-softmax timed alone); ``train_task --from_pretrained`` of its
+    checkpoint for one VQA epoch (the trunk loaded, the ``cls`` heads
+    unused, the VQA head at init); (b) the b256 step held to the twins: fp32
+    losses and parameters after one update as phase 13 holds the fine-tuning
+    step, bf16 gradients within NOISE_FACTOR times the twins' distance from
     float64 attention sums (at least GRAD_TOL), exact launches; (c) K8
     against its twins forward and backward in bf16 and fp32 at b256 and
     b512 x 36 regions (the dense twin) and b256 against the blockwise twin,
@@ -328,12 +332,13 @@ and each of which prints its seconds:
     JAX's composition backward, ``embedding_bag`` and the bound; a b256
     bf16 NCE step (``visual_target_weights {"2": 1}``) held as (b) with
     K8's plan, forward and backward once each, its ms/step against the
-    same step with K8's twins and with JAX's composition, in turns, and
-    the device ms of each; (d) one bf16 step's gradients each of lxmert.json
-    (criteria 3-5, ``fusion_method: text``) and vl-bert_base.json
-    (criterion 6, no ITM head, the global row last) at 4 layers a stream
-    (``cut_config``), held as (b) with the launches of their plans
-    (``pretrain_counts``); (e) the CLI's model exported as a reference
+    same step with K8's twins and with JAX's composition, one turn each
+    (with ``--profile`` K8's step's device ms by family); (d) one bf16
+    step's gradients
+    each of lxmert.json (criteria 3-5, ``fusion_method: text``) and
+    vl-bert_base.json (criterion 6, no ITM head, the global row last) at 4
+    layers a stream (``cut_config``), held as (b) with the launches of their
+    plans (``pretrain_counts``); (e) the CLI's model exported as a reference
     ``.bin`` and read back into other weights bit for bit;
 20. the retrieval CLI, K9 and the other optimizers: (a) a synthetic
     Flickr30k test split of 1000 images (36 x 2048 regions, two gallery
@@ -357,7 +362,7 @@ and each of which prints its seconds:
     --skip_disconnected_params`` and with ``--optimizer_state_dtype
     bfloat16`` (finite losses, exact launches, the saved moments'
     dtypes), the b256 step's ms and peak with float32 AdamW, RAdam and bf16
-    moments in turns, and lxmert.json at 4 layers a stream: with
+    moments, one turn each, and lxmert.json at 4 layers a stream: with
     ``skip_disconnected`` its parameters that no gradient reaches stay at
     their initial values for 2 steps, without it the decayed ones move;
     (d) ``train_concap`` at 4 layers from phase 19's .bin (its trunk),
@@ -386,7 +391,29 @@ and each of which prints its seconds:
     route's as phase 9 holds the twins, and a b256 training step, finite,
     with rows 3 and 4 12 times each and K10 only at the embeddings and
     the pooled output (3 + 3);
-22. the kernels' JSON line (the attention rows also with ``body``, the
+22. data parallelism (``check_data_parallel``): (a) ctrl_uniter_base's
+    default b256 bf16 step with dropout at 12 layers, 3 steps in a process
+    group of one rank over NCCL (a file store) against the plain one-GPU
+    step: losses and every parameter equal to the bit, the plan's
+    launches, and both steps' ms in turns and device ms by family;
+    (b) two ranks sharing the one card over gloo, two processes, at 4
+    layers (``uniter_cut``), each on its half of the b256 VQA batch: 3
+    steps of the default route in bf16 and in fp32 and of the LayerNorm
+    and both mask flags in bf16 (rows 12-13 at the tails, rows 9 and 14
+    not launched: their gates close across ranks), and one NCE
+    pretraining step of a b64 Conceptual Captions batch whose halves
+    differ in masked tokens and regions (K8's plan, forward and backward
+    once): each rank's launches the plan's, the ranks' parameters equal
+    to the bit after the steps, the losses within DP_LOSS_TOL of the same
+    steps in one process on the concatenated batch (fp32 1e-4, bf16
+    GRAD_TOL, relative); (c) the default bf16 case over NCCL with one card
+    a rank where the host has two or more, else a line saying so; (d)
+    ``torchrun --standalone --nproc_per_node 1 -m
+    volta_tpu_torch.train_task --distributed`` at 4 layers for one epoch
+    over NCCL (started beside (b)): rank 0's checkpoint and VAL line, then
+    a one-GPU run of the train CLI that resumes it for its second epoch
+    with the plan's launches;
+23. the kernels' JSON line (the attention rows also with ``body``, the
     body their wrapper runs in bf16; ``pallas`` false for K10, K8 and K9,
     which replace no Pallas kernel; ``bound_by`` "operations" also where the
     hash's integer operations bound a kernel, which phases 6 and 7 name;
@@ -568,6 +595,7 @@ PROBE_ITERS = 3
 # step's other int64 kernels (the embeddings' backward sorts its indices and
 # sums by segment, the loss gathers and scatters) are a family of their own
 KERNEL_FAMILIES = (
+    ("NCCL collectives", ("nccl",)),
     ("attention kernels", ("attention_",)),
     ("LayerNorm kernels (rows 10-11)", ("layer_norm_fwd_kernel",
                                         "layer_norm_bwd_kernel")),
@@ -2666,8 +2694,10 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli,
     record an item; the train CLI, one epoch at the yml's batch with the
     config's dropout and its val loop, with exact launches and finite
     losses; one eval batch held to the twins (``hold_task_logits``); eval
-    items/s at that batch and train ms/step with peak memory, bf16.
-    Returns the launches of the runs and the rates."""
+    items/s at that batch and train ms/step with peak memory, bf16, one
+    timed run each (three, and a profile of the step, before phase 22;
+    PERF.md keeps their numbers). Returns the launches of the runs and the
+    rates."""
     import torch
 
     from volta_tpu_torch import eval_task, train_task
@@ -2752,7 +2782,7 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli,
     batch = to_device(eval_np, "cuda")
     items = int(eval_np["question"].shape[0])
     rows = int(process_batch(tc, batch)[0]["input_ids"].shape[0])
-    runs = [throughput(step, batch, iters=10) for _ in range(3)]
+    runs = [throughput(step, batch, iters=10)]
     rate = float(np.median([r for r, _ in runs]))
     print(f"{tag} eval forward b{items} ({rows} rows): median {rate:.1f} "
           f"items/s, {rate * rows / items:.1f} rows/s (runs "
@@ -2765,18 +2795,12 @@ def run_task(root, data_dir, yml, power, task, tag, eval_cli,
     train_np = next(iter(data["train_loader"]))
     tbatch = to_device({k: v for k, v in train_np.items()
                         if isinstance(v, np.ndarray)}, "cuda")
-    mss, peaks = [], []
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        mss.append(cuda_ms(lambda: tstep(state, tbatch), iters=10, warmup=2))
-        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
-    ms = float(np.median(mss))
-    print(f"{tag} train step b{tc['batch_size']} bf16: median {ms:.2f} "
-          f"ms/step, {tc['batch_size'] / ms * 1e3:.1f} items/s (runs "
-          f"{', '.join(f'{m:.2f}' for m in mss)}), peak {max(peaks):.2f} "
-          f"GiB [{power}]", flush=True)
-    profile_device(lambda: tstep(state, tbatch), ms, f"{tag} train step",
-                   top=12)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: tstep(state, tbatch), iters=10, warmup=2)
+    print(f"{tag} train step b{tc['batch_size']} bf16: {ms:.2f} ms/step, "
+          f"{tc['batch_size'] / ms * 1e3:.1f} items/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{power}]",
+          flush=True)
     out["rates"] = {"eval_items_per_s": rate, "train_ms": ms}
     return out
 
@@ -2788,8 +2812,8 @@ def check_task_kernels():
     and 3 within TOL, rows 2 and 4 within two bf16 ulps of the largest
     value (fp32 1e-5 relative), row 3's mask bit-equal to the twin's hash
     with its keep fraction 0.9 +- 0.005. In bf16, each row's device time
-    there (``kernel_ms``) beside its twin's and its bound, and at L = 64
-    and 65 for the tile edge."""
+    there (``kernel_ms``) beside its bound (its twin's untimed, and L 64
+    and 65, the tile edge, untimed since phase 22: PERF.md, PR 15)."""
     import torch
 
     from volta_tpu_torch.ops import attention_cuda as ac
@@ -2849,14 +2873,10 @@ def check_task_kernels():
             print(f"B={b} L={l} H={h} D={d} {dt} max abs diff vs twins: "
                   f"{line}", flush=True)
             if dt == "bfloat16":
-                time_task_rows(q, k, v, bias, g, scale, h, seed, train)
+                # the twins' times here: PERF.md, PR 15
+                time_task_rows(q, k, v, bias, g, scale, h, seed, train,
+                               twins=False)
             del q, k, v, bias, g, out1
-    # the tensor-core bodies' 64-row tile edge, at the train rows' batch
-    for l in (64, 65):
-        q, k, v, bias = attention_inputs(256, l, l, h, d, torch.bfloat16,
-                                         1700 + l)
-        time_task_rows(q, k, v, bias, torch.randn_like(q), scale, h,
-                       1700 + l, True, twins=False)
 
 
 def time_task_rows(q, k, v, bias, g, scale, h, seed, train, twins=True):
@@ -4640,8 +4660,8 @@ def family_steps(task_cfg, eval_np, train_np, tag, config, steps=2):
 def check_family_rows():
     """Phase 18 (b): rows 1-4 alone at vilbert_base's shapes (WIDE_ROWS,
     H = 8, D = 128) against their twins, bf16 and fp32, as phase 16 holds
-    the task shapes; in bf16 their device times beside the twins', SDPA's
-    and the bound (``time_task_rows``)."""
+    the task shapes (their times, untimed since phase 22: PERF.md, PR
+    17)."""
     import torch
 
     from volta_tpu_torch.ops import attention_cuda as ac
@@ -4698,8 +4718,6 @@ def check_family_rows():
                 del got2, out3, mask, got4, keep, ref3
             print(f"B={b} Lq={lq} Lk={lk} H={h} D={d} {dt} max abs diff vs "
                   f"twins: {line}", flush=True)
-            if dt == "bfloat16":
-                time_task_rows(q, k, v, bias, g, scale, h, seed, train)
             del q, k, v, bias, g, out1, ref1
 
 
@@ -5478,13 +5496,14 @@ def time_k8(b, r, pred, flat, idx, g, err, dgot, dref):
                            "embedding_bag_ms": t["bag"], **common}}
 
 
-def nce_step(cc_dir, power):
+def nce_step(cc_dir, power, profile):
     """Phase 19 (c): one b256 bf16 NCE step (ctrl_uniter_base with
     visual_target_weights {"2": 1}) held to the twins as (b), with K8 once
     forward and once backward; its ms against the same step with K8's twins
     (the float32 all-pairs matmul + gather) and with JAX's bf16 composition
-    in K8's place (``k8_only_library``) in turns, and the device time of
-    each by kernel family. Returns K8's launches of one step."""
+    in K8's place (``k8_only_library``), one turn each, and with
+    ``profile`` K8's step's device time by kernel family. Returns K8's
+    launches of one step."""
     import torch
 
     from volta_tpu_torch.config import VoltaConfig
@@ -5513,9 +5532,10 @@ def nce_step(cc_dir, power):
     routes = (("K8", contextlib.nullcontext), ("twin", k8_only_twin),
               ("library", k8_only_library))
     runs = {name: [] for name, _ in routes}
-    # turns K8, twin, library, library, twin, K8 (twice), so that drift in
-    # the card's or the host's speed falls on every route alike
-    for name, route in (routes + routes[::-1]) * 2:
+    # one turn each (before phase 22 two rounds of K8, twin, library,
+    # library, twin, K8 and each route's device time by family; PERF.md
+    # keeps those numbers)
+    for name, route in routes:
         with route():
             runs[name].append(cuda_ms(lambda: step(state, batch), iters=3,
                                       warmup=1))
@@ -5525,20 +5545,11 @@ def nce_step(cc_dir, power):
           f"gather) {ms['twin']:.2f}, JAX's composition (bf16 all-pairs "
           f"matmul + gather, scatter + bf16 matmul) {ms['library']:.2f} "
           f"(turns {runs})", flush=True)
-    # device time by family on every route: the wall times above are
-    # paced by the host where it is slower than the card
-    dev = {"K8": profile_device(lambda: step(state, batch), ms["K8"],
-                                "NCE pretrain step", top=10)}
-    for name, route, what in (("twin", k8_only_twin, "K8's twins"),
-                              ("library", k8_only_library,
-                               "JAX's composition in K8's place")):
-        with route():
-            dev[name] = profile_device(lambda: step(state, batch), ms[name],
-                                       f"NCE pretrain step, {what}", top=10)
-    print(f"NCE pretrain step device ms [{power}]: K8 {dev['K8']:.3f}, "
-          f"twins {dev['twin']:.3f} (K8 - twins {dev['K8'] - dev['twin']:+.3f}"
-          f"), JAX's composition {dev['library']:.3f} (K8 - composition "
-          f"{dev['K8'] - dev['library']:+.3f})", flush=True)
+    if profile:
+        # device time by family: the wall times above are paced by the
+        # host where it is slower than the card
+        profile_device(lambda: step(state, batch), ms["K8"],
+                       "NCE pretrain step", top=10)
     del model, opt, state
     torch.cuda.empty_cache()
     return launches
@@ -5573,9 +5584,10 @@ def mlm_head_ms(batch_rows, power):
 def pretrain_cli(root, cc_dir, power, profile):
     """Phase 19 (a): the train CLI (train.sh's flags, --in_memory, two
     epochs of 4 steps and their validation) with exact launches, its CC
-    lines and val losses; then ms/step of the same step (3 x 10 steps,
-    median), peak, idle share and device ms by family. Returns the CLI's
-    launches and its checkpoint."""
+    lines and val losses; then ms/step of the same step (10 steps) and
+    peak, and with ``profile`` its idle share and device ms by family and
+    the MLM head timed alone. Returns the CLI's launches and its
+    checkpoint."""
     import torch
 
     from volta_tpu_torch import train_concap
@@ -5622,20 +5634,17 @@ def pretrain_cli(root, cc_dir, power, profile):
                           model, clip_norm=5.0, betas=(0.9, 0.999))
     state = create_train_state(model, opt, seed=11)
     step = make_pretrain_step(model, opt, cfg, objective=1)
-    mss, peaks = [], []
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        mss.append(cuda_ms(lambda: step(state, batch), iters=10, warmup=2))
-        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
-    ms = float(np.median(mss))
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), iters=10, warmup=2)
     print(f"pretrain step b{CC_BATCH} L {CC_SEQ}+{CC_REGIONS + 1} bf16 "
-          f"(KL, objective 1): median {ms:.2f} ms/step, "
-          f"{CC_BATCH / ms * 1e3:.1f} pairs/s (runs "
-          f"{', '.join(f'{m:.2f}' for m in mss)}), peak {max(peaks):.2f} GiB "
-          f"[{power}]", flush=True)
-    profile_device(lambda: step(state, batch), ms, "pretrain step",
-                   top=25 if profile else 12)
-    mlm_head_ms(CC_BATCH * CC_SEQ, power)
+          f"(KL, objective 1): {ms:.2f} ms/step, "
+          f"{CC_BATCH / ms * 1e3:.1f} pairs/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{power}]",
+          flush=True)
+    if profile:
+        profile_device(lambda: step(state, batch), ms, "pretrain step",
+                       top=25)
+        mlm_head_ms(CC_BATCH * CC_SEQ, power)
     del model, opt, state
     torch.cuda.empty_cache()
     return launches, ckpt, batch
@@ -5741,7 +5750,7 @@ def check_pretraining(root, data_dir, yml, power, profile):
                         pretrain_launches(counts, 1))
     # (c) K8 and the NCE step, (d) two other families, (e) the export
     results = check_k8()
-    nce_launches = nce_step(cc_dir, power)
+    nce_launches = nce_step(cc_dir, power, profile)
     family_pretrain_steps(root, cc_dir)
     pretrain_export(root, ckpt)
     return results, {"cli": cli_launches, "nce": nce_launches}
@@ -6138,9 +6147,10 @@ def optimizer_cli(root, data_dir, yml, config):
 
 def optimizer_rates(task_cfg, batch_np, power):
     """Phase 20 (c): ms/step and peak GiB of the b256 bf16 step with
-    float32 AdamW, RAdam and AdamW's bf16 moments, in turns (a, b, c, c,
-    b, a), each optimizer built fresh on its turn so that only its state
-    is allocated; the moments' GiB. Five warm-up updates: RAdam's updates
+    float32 AdamW, RAdam and AdamW's bf16 moments, one turn each (a, b,
+    c; a, b, c, c, b, a before phase 22, whose numbers PERF.md keeps),
+    each optimizer built fresh on its turn so that only its state is
+    allocated; the moments' GiB. Five warm-up updates: RAdam's updates
     1-5 take its SGD-style fallback, so that every timed one is adaptive."""
     import torch
 
@@ -6158,7 +6168,7 @@ def optimizer_rates(task_cfg, batch_np, power):
     runs = {n: [] for n in names}
     state_gib = {}
     warm = 5
-    for name in names + names[::-1]:
+    for name in names:
         kind, dtype = routes[name]
         opt = build_optimizer(kind, 1e-5, model, clip_norm=1.0,
                               state_dtype=dtype)
@@ -6340,6 +6350,9 @@ def spacing(t):
             - t.abs()).double()
 
 
+RANGE_NAME = re.compile(r"(step|attn|ff)_\d+")
+
+
 def profile_device(fn, call_ms, what, calls=3, top=40):
     """Device time of ``fn()`` (a train step or an eval forward) by kernel
     (torch.profiler) over ``calls`` calls after the timing runs, and the
@@ -6361,6 +6374,11 @@ def profile_device(fn, call_ms, what, calls=3, top=40):
         dev = getattr(evt, "device_time_total", None)
         if dev is None:
             dev = getattr(evt, "cuda_time_total", 0)
+        # the port's ranges (step_<n>, attn_<i>, ff_<i>) carry the device
+        # time of the kernels inside them: not kernels, and counted once
+        if getattr(evt, "is_user_annotation", False) \
+                or RANGE_NAME.fullmatch(evt.key):
+            continue
         if dev and evt.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((dev / calls / 1e3, evt.count // calls, evt.key))
     rows.sort(reverse=True)
@@ -6752,9 +6770,490 @@ def check_scan(task_cfg, batch, power):
     return {"scan_step_ms": ms, "scan_noise": noise}
 
 
+# phase 22: data parallelism over torch.distributed
+DP_STEPS = 3
+# the losses of W ranks against the one-process step over their
+# concatenated batch on the same card: the masks are equal (the folded
+# seeds), so only the rounding of products at another M differs. fp32:
+# float32 sums in another order, 1e-4 relative. bf16: phase 13 holds the
+# b256 bf16 gradients of two summation orders within GRAD_TOL (5e-2,
+# relative L2) of each other; the losses after DP_STEPS updates from such
+# gradients are held to the same bound
+DP_LOSS_TOL = {"float32": 1e-4, "bfloat16": GRAD_TOL}
+DP_NCE_BATCH = 64
+
+
+def dp_launches(case, counts, steps):
+    """A data-parallel rank's launches of ``steps`` steps of ``case``: the
+    default route's, the LayerNorm flags' (rows 9 and 14 at 0 though their
+    flags are on: their gates close across ranks) or an NCE step's."""
+    attn, tails = counts["attn"], counts["tails"]
+    if case == "nce":
+        return pretrain_launches(counts, steps, nce=1)
+    common = dict(attention_dropout_fwd=attn * steps,
+                  attention_dropout_bwd=attn * steps)
+    if case == "flags":
+        return expect(layer_norm_fwd=5 * steps, layer_norm_bwd=5 * steps,
+                      dropout_residual_ln_fwd=tails * steps,
+                      dropout_residual_ln_bwd=tails * steps,
+                      **k10(K10_FLAGGED * steps), **common)
+    return expect(**k10(counts["k10"] * steps), **common)
+
+
+def dp_run(case, config, dtype, yml, batch_np, steps):
+    """``steps`` steps of one phase 22 case on this process's card (a rank
+    of the installed process group, or one process): a fresh model from
+    seed 0 (every rank's, and rank 0's broadcast), clip + AdamW, the step
+    seed from seed 11. Returns (the losses, the launches, the model, the
+    wall ms a step)."""
+    import torch
+
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.optimization import build_optimizer
+    from volta_tpu_torch.parallel import broadcast_state
+    from volta_tpu_torch.task_utils import load_task_config
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_pretrain_step, make_task_train_step
+
+    task_cfg = load_task_config(yml)
+    if case == "nce":
+        cfg = VoltaConfig.from_json_file(config)
+        model = pretrain_model(cfg, dtype).train()
+        opt = build_optimizer("adamw", 1e-4, model, clip_norm=5.0)
+        step = make_pretrain_step(model, opt, cfg, objective=1)
+    else:
+        model = build_model(task_cfg, dtype, config=config).train()
+        opt = build_optimizer("adamw", 1e-4, model, clip_norm=1.0)
+        step = make_task_train_step(model, opt, task_cfg, "TASK1")
+    state = create_train_state(model, opt, seed=11)
+    broadcast_state(state)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    losses = [float(step(state, batch_np)["loss"]) for _ in range(steps)]
+    torch.cuda.synchronize()
+    return losses, dict(LAUNCHES), model, (time.time() - t0) / steps * 1e3
+
+
+def params_equal_across_ranks(model, backend):
+    """Whether every rank holds ``model``'s parameters to the bit: the
+    elementwise max and min of their 32-bit patterns over the ranks
+    agree."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1).view(torch.int32)
+                      for p in model.parameters()])
+    if backend == "gloo":
+        flat = flat.cpu()
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def dp_worker(argv):
+    """``chip_smoke.py --dp-worker <spec.json> <rank> <world> <store>
+    <out.json>``: one rank of phase 22 (b) or (c), on the card the spec
+    names for it, in a group of the spec's backend joined through the
+    file store; each case's losses, launches and whether the ranks end
+    equal to the bit, into <out.json>."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    spec_path, rank, world, store, out_path = argv
+    rank, world = int(rank), int(world)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(spec["devices"][rank])
+    dist.init_process_group(spec["backend"], init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        for case in spec["cases"]:
+            half = dict(np.load(f"{case['batch']}_{rank}.npz"))
+            losses, launches, model, ms = dp_run(
+                case["case"], case["config"], case["dtype"], spec["yml"],
+                half, case["steps"])
+            out[case["name"]] = {"losses": losses, "launches": launches,
+                                 "ms": ms, "equal": params_equal_across_ranks(
+                                     model, spec["backend"])}
+            del model
+            torch.cuda.empty_cache()
+        out["modules"] = sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("volta_tpu", "jax", "jaxlib", "flax"))
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def spawn_ranks(root, tag, spec, world):
+    """``world`` ``--dp-worker`` processes of ``spec``; the Popen objects
+    and their output paths."""
+    d = os.path.join(root, tag)
+    os.makedirs(d, exist_ok=True)
+    spec_path = os.path.join(d, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    outs = [os.path.join(d, f"rank{r}.json") for r in range(world)]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", spec_path,
+         str(r), str(world), os.path.join(d, "store"), outs[r]], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    return procs, outs
+
+
+def wait_all(procs, what, timeout=600):
+    """Wait for every process; raise with the output of one that failed.
+    Every process is ended on the way out."""
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{what} exited {p.returncode}:\n"
+                               f"{log[-4000:]}")
+    return logs
+
+
+def dp_cases(root, yml, batch_np, cc_dir):
+    """Phase 22 (b)'s cases at 4 layers (``uniter_cut``): the default
+    route in bf16 and in fp32, the LayerNorm and both mask flags in bf16
+    (rows 9 and 14 gated off across ranks), each DP_STEPS steps of the b256
+    VQA batch, and one NCE pretraining step (``visual_target_weights
+    {"2": 1}``) of a b64 Conceptual Captions batch whose halves differ in
+    masked tokens and regions. Writes each case's halves (``<batch>_<r>
+    .npz``); returns (cases, {name: the global batch}, {name: counts})."""
+    from volta_tpu_torch.config import VoltaConfig
+
+    base, counts = uniter_cut(root)
+    flags, _ = uniter_cut(root, write_config(
+        root, "ctrl_uniter_base_dp_flags.json", use_pallas_layernorm=True,
+        use_fused_residual_ln=True, fuse_hidden_dropout=True,
+        use_pallas_dropout_mask=True))
+    nce_cfg, nce_counts = uniter_cut(root, write_config(
+        root, "ctrl_uniter_base_dp_nce.json",
+        visual_target_weights={"2": 1.0}))
+    task_np = {k: v for k, v in batch_np.items()
+               if isinstance(v, np.ndarray) and v.dtype.kind in "biuf"}
+    ds = cc_dataset(cc_dir, "bfloat16",
+                    VoltaConfig.from_json_file(nce_cfg).num_locs)
+    ds.add_global_imgfeat = VoltaConfig.from_json_file(
+        nce_cfg).add_global_imgfeat
+    nce_np = {k: v for k, v in ds.get_batch(np.arange(DP_NCE_BATCH)).items()
+              if isinstance(v, np.ndarray) and v.dtype.kind in "biuf"}
+    halves = [{k: v[r * DP_NCE_BATCH // 2:(r + 1) * DP_NCE_BATCH // 2]
+               for k, v in nce_np.items()} for r in range(2)]
+    masked = [(int(((h["lm_label_ids"] != -1)
+                    & (h["is_match"] == 0)[:, None]).sum()),
+               int(((h["image_label"] == 1)
+                    & (h["is_match"] == 0)[:, None]).sum())) for h in halves]
+    print(f"NCE b{DP_NCE_BATCH} halves' masked (tokens, regions) under "
+          f"objective 1: {masked}", flush=True)
+    if masked[0][0] == masked[1][0] or masked[0][1] == masked[1][1]:
+        raise RuntimeError(f"the NCE halves' masked counts agree: {masked}")
+    batches = {"task": task_np, "nce": nce_np}
+    for name, full in batches.items():
+        n = len(next(iter(full.values())))
+        for r in range(2):
+            np.savez(os.path.join(root, f"dp_{name}_{r}.npz"),
+                     **{k: v[r * n // 2:(r + 1) * n // 2]
+                        for k, v in full.items()})
+    cases = [
+        {"name": "default bf16", "case": "default", "config": base,
+         "dtype": "bfloat16", "steps": DP_STEPS, "data": "task"},
+        {"name": "default fp32", "case": "default", "config": base,
+         "dtype": "float32", "steps": DP_STEPS, "data": "task"},
+        {"name": "LN and mask flags bf16", "case": "flags", "config": flags,
+         "dtype": "bfloat16", "steps": DP_STEPS, "data": "task"},
+        {"name": "NCE bf16", "case": "nce", "config": nce_cfg,
+         "dtype": "bfloat16", "steps": 1, "data": "nce"}]
+    for c in cases:
+        c["batch"] = os.path.join(root, f"dp_{c['data']}")
+    return cases, batches, {"task": counts, "nce": pretrain_counts(
+        VoltaConfig.from_json_file(nce_cfg))}
+
+
+def nccl_world1(store):
+    """Join a process group of one rank over NCCL through a new file
+    store."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method="file://" + store, rank=0,
+                            world_size=1)
+
+
+def dp_nccl_world1(root, yml, batch_np):
+    """Phase 22 (a): the default b256 bf16 step with dropout, at 12
+    layers, DP_STEPS steps in a process group of one rank over NCCL
+    against the plain one-GPU step: losses and parameters equal to the
+    bit, the plan's launches. Returns the two models (plain, group); the
+    group is left."""
+    import torch
+    import torch.distributed as dist
+
+    from volta_tpu_torch.config import VoltaConfig
+
+    counts = plan_counts(VoltaConfig.from_json_file(CONFIG))
+    plain_losses, _, plain, _ = dp_run("default", CONFIG, "bfloat16", yml,
+                                       batch_np, DP_STEPS)
+    nccl_world1(os.path.join(root, "dp_world1_check"))
+    try:
+        losses, launches, model, _ = dp_run("default", CONFIG, "bfloat16",
+                                            yml, batch_np, DP_STEPS)
+    finally:
+        dist.destroy_process_group()
+    want = dp_launches("default", counts, DP_STEPS)
+    if launches != want:
+        raise RuntimeError(f"NCCL world 1 launches {launches}, expected "
+                           f"{want}")
+    if losses != plain_losses:
+        raise RuntimeError(f"NCCL world 1 losses {losses} vs the plain "
+                           f"step's {plain_losses}")
+    if not all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 plain.parameters())):
+        raise RuntimeError("NCCL world 1 parameters differ from the plain "
+                           "step's")
+    print(f"NCCL world 1, b256 bf16 at 12 layers: {DP_STEPS} steps' losses "
+          f"{losses} and every parameter equal to the plain step's to the "
+          f"bit; launches the plan's", flush=True)
+    return plain, model
+
+
+def dp_world1_rates(root, yml, batch_np, plain, model, power):
+    """Phase 22 (a), timed on an idle card in a new NCCL group of one: the
+    plain step and the step in the group, ms in turns (plain, group,
+    group, plain), and each step's device ms by family (the all-reduce's
+    kernels in "NCCL collectives")."""
+    import torch.distributed as dist
+
+    from volta_tpu_torch.eval_step import to_device
+    from volta_tpu_torch.optimization import build_optimizer
+    from volta_tpu_torch.task_utils import load_task_config
+    from volta_tpu_torch.train_step import create_train_state, \
+        make_task_train_step
+
+    task_cfg = load_task_config(yml)
+    batch = to_device(batch_np, "cuda")
+    steps = {}
+    for name, m in (("plain", plain), ("group of one", model)):
+        opt = build_optimizer("adamw", 1e-4, m, clip_norm=1.0)
+        steps[name] = (create_train_state(m, opt, seed=11),
+                       make_task_train_step(m, opt, task_cfg, "TASK1"))
+    runs, dev = {"plain": [], "group of one": []}, {}
+
+    def route(name):
+        return dp_group_off() if name == "plain" else \
+            contextlib.nullcontext()
+
+    nccl_world1(os.path.join(root, "dp_world1_rates"))
+    try:
+        for name in ("plain", "group of one", "group of one", "plain"):
+            state, step = steps[name]
+            with route(name):
+                runs[name].append(cuda_ms(lambda: step(state, batch),
+                                          iters=5, warmup=1))
+        for name in ("plain", "group of one"):
+            state, step = steps[name]
+            with route(name):
+                dev[name] = profile_device(lambda: step(state, batch),
+                                           float(np.median(runs[name])),
+                                           f"b256 step, {name}", calls=2,
+                                           top=6)
+    finally:
+        dist.destroy_process_group()
+    out = {"plain_ms": float(np.median(runs["plain"])),
+           "group_ms": float(np.median(runs["group of one"])),
+           "plain_device_ms": dev["plain"],
+           "group_device_ms": dev["group of one"]}
+    print(f"b256 bf16 step at 12 layers [{power}]: plain "
+          f"{out['plain_ms']:.2f} ms/step, device {out['plain_device_ms']:.3f}"
+          f" ms; NCCL group of one {out['group_ms']:.2f} ms/step, device "
+          f"{out['group_device_ms']:.3f} ms (turns {runs})", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def dp_group_off():
+    """The port's steps as without a process group while one is up: its
+    ``active()`` false for the block."""
+    from volta_tpu_torch.parallel import mesh
+
+    real = mesh.active
+    mesh.active = lambda: False
+    try:
+        yield
+    finally:
+        mesh.active = real
+
+
+def dp_check_ranks(what, cases, outs, refs, counts, world, power):
+    """Each rank's losses, launches and equality to the bit across ranks
+    against the one-process references."""
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    if any(r["modules"] for r in ranks):
+        raise RuntimeError(f"{what}: a rank imported {ranks[0]['modules']}")
+    for c in cases:
+        name = c["name"]
+        want = dp_launches(c["case"], counts[c["data"]], c["steps"])
+        ref = refs[name]
+        for r, got in enumerate(ranks):
+            got = got[name]
+            if got["launches"] != want:
+                raise RuntimeError(f"{what} {name} rank {r} launches "
+                                   f"{got['launches']}, expected {want}")
+            if not got["equal"]:
+                raise RuntimeError(f"{what} {name}: the ranks' parameters "
+                                   "differ")
+            if got["losses"] != ranks[0][name]["losses"]:
+                raise RuntimeError(f"{what} {name}: rank {r}'s losses "
+                                   f"{got['losses']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            ranks[0][name]["losses"], ref))
+        tol = DP_LOSS_TOL[c["dtype"]]
+        print(f"{what} {name}: {c['steps']} steps, losses "
+              f"{ranks[0][name]['losses']} vs one process {ref}, largest "
+              f"relative difference {rel:.3e} (limit {tol:g}); parameters "
+              f"equal to the bit across the {world} ranks; launches the "
+              f"plan's a rank; {ranks[0][name]['ms']:.1f} ms a step on "
+              f"rank 0's host clock [{power}]", flush=True)
+        if not np.all(np.isfinite(ref)) or rel > tol:
+            raise RuntimeError(f"{what} {name}: relative difference {rel}")
+
+
+def dp_torchrun(root, data_dir, yml):
+    """Phase 22 (d), started: ``torchrun --standalone --nproc_per_node 1
+    -m volta_tpu_torch.train_task --distributed`` at 4 layers for one
+    epoch on NCCL. Returns (the process, its argv's tail)."""
+    cut, _ = uniter_cut(root)
+    argv = train_argv(root, data_dir, yml, cut, 1, "dp")
+    env = dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "volta_tpu_torch.train_task",
+         "--distributed"] + argv, cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, cut
+
+
+def dp_resume(root, data_dir, yml, cut, log):
+    """Phase 22 (d), checked: the torchrun run's checkpoint (rank 0's) and
+    VAL line, then a one-GPU run of two epochs that resumes it and takes
+    the second with the plan's launches."""
+    import shutil
+
+    import torch
+
+    from volta_tpu_torch import train_task
+    from volta_tpu_torch.config import VoltaConfig
+    from volta_tpu_torch.ops import LAUNCHES, reset_launches
+    from volta_tpu_torch.task_utils import load_dataset, load_task_config
+
+    argv = train_argv(root, data_dir, yml, cut, 2, "dp")
+    save = os.path.join(root, "save_dp")
+    (run,) = os.listdir(save)
+    saved = torch.load(os.path.join(save, run, "ckpt", "train_state.pt"),
+                       map_location="cpu", weights_only=True)
+    data = load_dataset(train_task.parse_args(argv),
+                        VoltaConfig.from_json_file(cut),
+                        load_task_config(yml), "1")
+    n_train, n_val = len(data["train_loader"]), len(data["val_loader"])
+    vals = [l for l in log.splitlines() if " VAL epoch 0 TASK1 " in l]
+    if saved["step"] != n_train or len(vals) != 1:
+        raise RuntimeError(f"torchrun run: step {saved['step']}, VAL lines "
+                           f"{vals}\n{log[-3000:]}")
+    counts = plan_counts(VoltaConfig.from_json_file(cut))
+    reset_launches()
+    summary = train_task.main(argv)
+    torch.cuda.synchronize()
+    want = expect(attention_dropout_fwd=counts["attn"] * n_train,
+                  attention_dropout_bwd=counts["attn"] * n_train,
+                  attention_fwd=counts["attn"] * n_val,
+                  **k10(counts["k10"] * n_train))
+    if summary["steps"] != 2 * n_train or dict(LAUNCHES) != want \
+            or len(summary["val_scores"]) != 1:
+        raise RuntimeError(f"the resumed run: {summary['steps']} steps, "
+                           f"launches {dict(LAUNCHES)}, expected {want}")
+    print(f"torchrun --nproc_per_node 1 train_task --distributed (NCCL, 4 "
+          f"layers): one epoch, {n_train} steps, rank 0's checkpoint at step "
+          f"{saved['step']}, {vals[0].strip()}; a one-GPU run resumed it "
+          f"and took epoch 1 ({n_train} steps) with the plan's launches, "
+          f"val score {summary['val_scores'][0]:.4f}", flush=True)
+    shutil.rmtree(save)
+
+
+def check_data_parallel(root, data_dir, yml, batch_np, power):
+    """Phase 22: (b) two ranks on the one card over gloo (``dp_cases``,
+    two ``--dp-worker`` processes) and (d) ``dp_torchrun`` start first;
+    beside them this process runs (b)'s cases on the concatenated batches,
+    (a) ``dp_nccl_world1`` and, once the torchrun run has ended and no
+    group is up here, (d) ``dp_resume``; then (b)'s ranks are held to
+    those runs, (a) is timed on the idle card (``dp_world1_rates``) and
+    (c) the default bf16 case runs over NCCL, one card a rank, where the
+    host has two cards."""
+    import torch
+
+    cases, batches, counts = dp_cases(root, yml, batch_np,
+                                      os.path.join(root, "cc"))
+    spec = {"backend": "gloo", "devices": ["cuda:0", "cuda:0"], "yml": yml,
+            "cases": cases}
+    procs, outs = spawn_ranks(root, "dp_gloo", spec, 2)
+    run_proc, cut = dp_torchrun(root, data_dir, yml)
+    try:
+        refs = {}
+        for c in cases:
+            refs[c["name"]] = dp_run(c["case"], c["config"], c["dtype"], yml,
+                                     batches[c["data"]], c["steps"])[0]
+            torch.cuda.empty_cache()
+        plain, model = dp_nccl_world1(root, yml, batch_np)
+        log = wait_all([run_proc], "torchrun train_task --distributed")[0]
+        dp_resume(root, data_dir, yml, cut, log)
+        wait_all(procs, "two ranks over gloo")
+    finally:
+        for p in procs + [run_proc]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dp_check_ranks("two ranks on one card over gloo", cases, outs, refs,
+                   counts, 2, power)
+    stats = dp_world1_rates(root, yml, batch_np, plain, model, power)
+    del plain, model
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    if n >= 2:
+        spec = {"backend": "nccl", "devices": ["cuda:0", "cuda:1"],
+                "yml": yml, "cases": cases[:1]}
+        procs, outs = spawn_ranks(root, "dp_nccl", spec, 2)
+        wait_all(procs, "two ranks over NCCL")
+        dp_check_ranks("two ranks, one card each, over NCCL", cases[:1],
+                       outs, refs, counts, 2, power)
+    else:
+        print(f"NCCL across cards not run: this host has {n} card",
+              flush=True)
+    return stats
+
+
 def main(argv):
     import torch
 
+    if argv[:1] == ["--dp-worker"]:
+        return dp_worker(argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -6892,6 +7391,8 @@ def main(argv):
             export_stats["profile_runs"] = check_profile_steps(
                 root, data_dir, yml, power)
             export_stats.update(check_scan(task_cfg, batch, power))
+        with phase("22 data parallel"):
+            dp_stats = check_data_parallel(root, data_dir, yml, batch, power)
     print(f"eval forward, kernels vs twins [{power}]: b256 "
           f"{base_rates[(256, 'kernels')]:.1f} vs "
           f"{base_rates[(256, 'twins')]:.1f}, b1024 "
@@ -6951,6 +7452,11 @@ def main(argv):
           f"{export_stats['wrapper_us']:.1f}; --profile_steps trace "
           f"held in run {export_stats['profile_runs']}; use_scan train b256 "
           f"{export_stats['scan_step_ms']:.2f} ms/step", flush=True)
+    print(f"b256 bf16 step at 12 layers, plain vs an NCCL group of one "
+          f"[{power}]: {dp_stats['plain_ms']:.2f} vs "
+          f"{dp_stats['group_ms']:.2f} ms/step, device "
+          f"{dp_stats['plain_device_ms']:.3f} vs "
+          f"{dp_stats['group_device_ms']:.3f} ms", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s after the card check",
           flush=True)
 

@@ -556,12 +556,12 @@ def again_state(ckpt):
     (["--optimizer_state_dtype", "bfloat16"], "item 8"),
     (["--skip_disconnected_params"], "item 8"),
     (["--trunk_lr_scale", "0.1"], "item 8"),
-    (["--distributed"], "item 9"),
     (["--from_pretrained", "flax"], "item 12")])
 def test_cli_refuses_unported_flags(cli, flag, item, tmp_path):
-    """--distributed raises, naming its item, and so does
-    --from_pretrained of the JAX package's own Flax msgpack save (item 12;
-    --profile_steps, ported since: tests/test_torch_port_profiling.py); the
+    """--from_pretrained of the JAX package's own Flax msgpack save raises,
+    naming its item (12; --profile_steps, ported since:
+    tests/test_torch_port_profiling.py; --distributed:
+    tests/test_torch_port_distributed_cli.py); the
     optimizer flags (item 8), ported since, run two steps: bf16 moments in
     the saved state; skip_disconnected; and --trunk_lr_scale 0.1 from a
     reference ``.bin``, whose loaded parameters move 0.1x as far as

@@ -175,15 +175,15 @@ def test_task_heads_train_validate_and_checkpoint(workdir, kind):
 
 @pytest.mark.parametrize("flag", [
     ["--optim", "RAdam"], ["--optimizer_state_dtype", "bfloat16"],
-    ["--skip_disconnected_params"], ["--from_pretrained", "flax"],
-    ["--distributed"]], ids=lambda f: f[0].lstrip("-"))
+    ["--skip_disconnected_params"], ["--from_pretrained", "flax"]],
+    ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(workdir, flag, monkeypatch):
-    """--distributed raises, naming its ROADMAP.md item (9), before the
-    run starts, and so does --from_pretrained of the JAX package's own
-    Flax msgpack save (item 12); the optimizer flags, ported since, run an
-    epoch (four steps) with the optimizer they name: RAdam, bf16 AdamW
+    """--from_pretrained of the JAX package's own Flax msgpack save raises,
+    naming its ROADMAP.md item (12); the optimizer flags, ported since, run
+    an epoch (four steps) with the optimizer they name: RAdam, bf16 AdamW
     moments (the saved state's dtype), or skip_disconnected.
-    (--profile_steps, ported since: tests/test_torch_port_profiling.py.)"""
+    (--profile_steps, ported since: tests/test_torch_port_profiling.py;
+    --distributed: tests/test_torch_port_distributed_cli.py.)"""
     name = flag[0].lstrip("-")
     out_dir = os.path.join(workdir["tmp"], "refused", name)
     if name == "from_pretrained":
@@ -191,13 +191,11 @@ def test_unported_flags_raise(workdir, flag, monkeypatch):
         os.makedirs(flax, exist_ok=True)
         open(os.path.join(flax, "flax_model.msgpack"), "wb").close()
         flag = [flag[0], flax]
-    if name in ("from_pretrained", "distributed"):
+    if name == "from_pretrained":
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item (9|12)"):
+                           match="ROADMAP.md Queue 1 item 12"):
             port_train.main(workdir["base"] + ["--output_dir", out_dir]
                             + flag)
-        if name == "distributed":
-            assert not os.path.exists(out_dir)
         return
     import torch
 

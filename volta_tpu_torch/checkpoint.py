@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from .config import VoltaConfig
+from .parallel import is_rank0
 
 logger = logging.getLogger(__name__)
 
@@ -457,7 +458,10 @@ def export_reference_state_dict(cfg: VoltaConfig, model: nn.Module
 def save_reference_checkpoint(path: str, cfg: VoltaConfig,
                               model: nn.Module) -> str:
     """``torch.save`` ``export_reference_state_dict`` as a ``.bin`` the
-    reference loads (its save format: volta/train_utils.py:295-303)."""
+    reference loads (its save format: volta/train_utils.py:295-303). In a
+    process group only rank 0 writes; every rank returns the path."""
+    if not is_rank0():
+        return path
     sd, report = export_reference_state_dict(cfg, model)
     if report["unexported"]:
         logger.warning("paths without a reference name: %s",
@@ -592,7 +596,10 @@ def save_reference_tar(path: str, cfg: VoltaConfig, state, epoch_id: int,
     (volta/train_utils.py:305-317): the exported weights, the AdamW or RAdam
     moments (float32) under torch's optimizer-state indices with one
     parameter a group (as its train_task.py:208-218 groups them),
-    ``global_step`` and ``epoch_id``."""
+    ``global_step`` and ``epoch_id``. In a process group only rank 0
+    writes; every rank returns the path."""
+    if not is_rank0():
+        return path
     opt = state.optimizer
     entries = flax_paths(state.model)
     msd, _ = _export(cfg, [(n, p) for n, _, p in entries])
@@ -625,9 +632,13 @@ def save_reference_tar(path: str, cfg: VoltaConfig, state, epoch_id: int,
 # ---------------------------------------------- the port's own train state
 def save_train_state(path: str, state, epoch: int, best_score: float) -> str:
     """``torch.save`` the model, the optimizer, the dropout-seed generator
-    and the step to ``<path>/train_state.pt``."""
-    os.makedirs(path, exist_ok=True)
+    and the step to ``<path>/train_state.pt``. In a process group only
+    rank 0 writes (the ranks hold the same state); every rank returns the
+    path."""
     out = os.path.join(path, TRAIN_STATE)
+    if not is_rank0():
+        return out
+    os.makedirs(path, exist_ok=True)
     torch.save({"step": state.step, "epoch": epoch, "best_score": best_score,
                 "model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),

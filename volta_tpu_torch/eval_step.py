@@ -9,6 +9,7 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from .parallel import current_group, step_context, sum_across
 from .task_utils import process_batch, task_loss_and_score
 
 
@@ -37,13 +38,16 @@ def make_task_eval_step(model, task_cfg: Dict, task_id: str) -> Callable:
     """``step(batch) -> {loss, score, batch_size, prediction, info}``: the
     batch goes to the model's device and through the model under
     ``torch.inference_mode()``; loss and score stay on the device; ``info``
-    is ``process_batch``'s (the sizes ``collect_results`` reads)."""
+    is ``process_batch``'s (the sizes ``collect_results`` reads). Inside a
+    data-parallel group loss, score and batch size are the global batch's
+    (the ranks' loss shares and scores summed; the ranks' batches are of
+    one size), the prediction the rank's."""
     tc = task_cfg[task_id]
     ttype, loss_name = tc["type"], tc.get("loss", "BCEWithLogitLoss")
     device = next(model.parameters()).device
 
     def step(batch):
-        with torch.inference_mode():
+        with torch.inference_mode(), step_context():
             batch = to_device(batch, device)
             inputs, info = process_batch(tc, batch)
             pred = model(inputs["input_ids"], inputs["image_feat"],
@@ -52,9 +56,13 @@ def make_task_eval_step(model, task_cfg: Dict, task_id: str) -> Callable:
                          inputs["image_attention_mask"])
             loss, score = task_loss_and_score(ttype, pred, batch, info,
                                               loss_name)
-        return {"loss": loss, "score": score,
-                "batch_size": info["batch_size"], "prediction": pred,
-                "info": info}
+            bsz, g = info["batch_size"], current_group()
+            if g is not None:
+                loss, score = sum_across(torch.stack([loss.float(),
+                                                      score.float()]))
+                bsz *= g.world
+        return {"loss": loss, "score": score, "batch_size": bsz,
+                "prediction": pred, "info": info}
 
     return step
 

@@ -15,6 +15,14 @@ them with ``jax.random`` from a key) with JAX's ranges and remaps
 (``sample_negatives``); ``neg_idx`` overrides the draw. Its negative scores
 run K8 on the card (``ops.nce``), the dense or blockwise composition on the
 CPU, switched at JAX's ``_NCE_DENSE_SCORE_BYTES``.
+
+Under data parallelism (``parallel.data_parallel``, rank r of W with rows
+r·B to (r+1)·B of the global batch) each rank's loss is its share of the
+global loss: its own sum over the global count (``parallel.sum_across``
+of the counts), so that the gradients summed over the ranks are the
+global batch's, as JAX's ``jnp.sum(valid)`` is the global sum under its
+mesh (volta_tpu/losses.py:26-36, 51-62). NCE scores the rank's queries
+against every rank's regions, with the global batch's draws.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch.nn.functional as F
 
 from .models.heads import PRE_VIS_TARGETS  # noqa: F401
 from .ops.nce import _chunked_neg_scores, neg_scores  # noqa: F401
+from .parallel import all_gather_rows, current_group, sum_across
 
 
 def binary_cross_entropy_with_logits(logits, targets, reduction="mean"):
@@ -44,27 +53,28 @@ def binary_cross_entropy_with_logits(logits, targets, reduction="mean"):
 
 def cross_entropy_ignore(logits, labels, ignore_index: int = -1):
     """Mean cross entropy over the positions whose label is not
-    ``ignore_index``, divided by max(#valid, 1), in float32
-    (volta_tpu/losses.py:26-36)."""
+    ``ignore_index``, divided by max(#valid, 1) (#valid over the global
+    batch), in float32 (volta_tpu/losses.py:26-36)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, nll.new_zeros(()))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / sum_across(valid.sum()).clamp(min=1)
 
 
 def _masked_mean_positions(loss_per_region, label):
-    """sum(loss * [label==1]) / max(#masked, 1) (KL, xent, NCE)."""
+    """sum(loss * [label==1]) / max(#masked, 1) (KL, xent, NCE; #masked
+    over the global batch)."""
     m = (label == 1).float()
-    return (loss_per_region * m).sum() / m.sum().clamp(min=1.0)
+    return (loss_per_region * m).sum() / sum_across(m.sum()).clamp(min=1.0)
 
 
 def _masked_mean_elements(loss_elem, label):
     """The masked mean over masked *elements* (MSE, Huber): the mask
     broadcast to the loss's shape (reference: volta/losses.py:30-31)."""
     m = (label == 1).float()[..., None].expand(loss_elem.shape)
-    return (loss_elem * m).sum() / m.sum().clamp(min=1.0)
+    return (loss_elem * m).sum() / sum_across(m.sum()).clamp(min=1.0)
 
 
 def kl_1601(pred, weight, label, image_cls=None, image_feat=None,
@@ -114,7 +124,7 @@ def _xent_conf(pred, weight, label, targets, confs, num_classes):
     if confs is not None:
         nll = nll * confs.reshape(-1).float()
     m = (label.reshape(-1) == 1).float()
-    return weight * (nll * m).sum() / m.sum().clamp(min=1.0)
+    return weight * (nll * m).sum() / sum_across(m.sum()).clamp(min=1.0)
 
 
 def xent_1600(pred, weight, label, image_cls=None, image_feat=None,
@@ -188,22 +198,35 @@ def _score_dtype(pred, image_feat):
     return torch.promote_types(pred.dtype, image_feat.dtype)
 
 
+def _global_regions(image_feat):
+    """(every rank's regions [W·b, r, d] in rank order, the first global
+    row of this rank's queries): ``image_feat`` and 0 outside a group."""
+    g = current_group()
+    if g is None:
+        return image_feat, 0
+    return all_gather_rows(image_feat), g.rank * image_feat.shape[0]
+
+
 def _nce_shared(pred, weight, label, image_feat, generator, num_negative,
                 idx_shared=None, col_inside=None):
     """Shared cross-batch negatives (volta_tpu/losses.py:208-237): one set
     of 89 candidate rows for every query of the step, drawn from [0, b·r)
-    (``idx_shared`` overrides it), plus 38 per-query in-image columns from
-    [0, r-1) with the own column remapped to r-1 (``col_inside``)."""
+    of the global batch (``idx_shared`` overrides it), plus 38 per-query
+    in-image columns from [0, r-1) with the own column remapped to r-1
+    (``col_inside``, the rank's rows of the global draw)."""
     b, r, d = image_feat.shape
     n_across, n_inside = int(num_negative * 0.7), int(num_negative * 0.3)
     dt = _score_dtype(pred, image_feat)
     predf, feat = pred.to(dt), image_feat.to(dt)
-    flat = feat.reshape(b * r, d)
+    regions, lo = _global_regions(image_feat)
+    bg = regions.shape[0]
+    flat = regions.to(dt).reshape(bg * r, d)
     device = pred.device
     if idx_shared is None:
-        idx_shared = _randint(0, b * r, (n_across,), generator, device)
+        idx_shared = _randint(0, bg * r, (n_across,), generator, device)
     if col_inside is None:
-        col_inside = _randint(0, r - 1, (b, r, n_inside), generator, device)
+        col_inside = _randint(0, r - 1, (bg, r, n_inside), generator,
+                              device)[lo:lo + b]
         own_col = torch.arange(r, device=device)[None, :, None]
         col_inside = torch.where(col_inside == own_col, r - 1, col_inside)
     cross = torch.matmul(predf.float(), flat[idx_shared.long()].float().t())
@@ -228,7 +251,11 @@ def nce_2048(pred, weight, label, image_cls=None, image_feat=None,
     ``neg_idx`` [b, r, N] overrides the draw from ``generator`` (a fresh
     generator seeded 0 where none is given, as JAX takes ``PRNGKey(0)``);
     ``score_chunk`` picks the CPU twin's blockwise path, which scores
-    beyond ``_NCE_DENSE_SCORE_BYTES`` take by themselves."""
+    beyond ``_NCE_DENSE_SCORE_BYTES`` take by themselves. Inside a group
+    the candidates are every rank's regions (``parallel.all_gather_rows``,
+    b the global batch) and each rank keeps its own queries' rows of the
+    global draw, which every rank draws alike from its generator; a given
+    ``neg_idx`` is the rank's rows, indexing the global regions."""
     if image_feat is None:
         return 0.0
     b, r, d = image_feat.shape
@@ -237,13 +264,15 @@ def nce_2048(pred, weight, label, image_cls=None, image_feat=None,
     if neg_idx is None and _NCE_SHARED_NEGATIVES[0]:
         return _nce_shared(pred, weight, label, image_feat, generator,
                            num_negative)
+    regions, lo = _global_regions(image_feat)
+    bg = regions.shape[0]
     if neg_idx is None:
-        neg_idx = sample_negatives(b, r, num_negative, generator,
-                                   pred.device)
+        neg_idx = sample_negatives(bg, r, num_negative, generator,
+                                   pred.device)[lo:lo + b]
     dt = _score_dtype(pred, image_feat)
-    flat = image_feat.reshape(b * r, d).to(dt)
+    flat = regions.reshape(bg * r, d).to(dt)
     predf = pred.to(dt)
-    if score_chunk is None and b * r * b * r * 4 > _NCE_DENSE_SCORE_BYTES:
+    if score_chunk is None and b * r * bg * r * 4 > _NCE_DENSE_SCORE_BYTES:
         score_chunk = _NCE_CHUNK
     negs = neg_scores(predf, flat, neg_idx, score_chunk)
     pos = (predf.float() * image_feat.float()).sum(-1)

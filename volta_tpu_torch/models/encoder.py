@@ -26,10 +26,12 @@ hidden-dropout masks follow the JAX gates too: with ``fuse_hidden_dropout``
 the fused loop's training attention runs row 9, which draws the keep masks
 of its own tail and of the next feed-forward's (encoder.py:161-187,
 595-612); with ``use_pallas_dropout_mask`` the tails draw theirs with row
-14 (encoder.py:37-38). Every mask is ``hash_dropout``'s for the seed its
-tail would draw, so the flags change no mask. With ``use_hash_dropout:
-false`` the tails draw ``int_threshold_dropout`` where no kernel flag takes
-them.
+14 (encoder.py:37-38); neither runs across ranks of a data-parallel group
+(``parallel.split_world``), as JAX's gates close under a mesh
+(encoder.py:168, layers.py:133). Every mask is ``hash_dropout``'s for the
+seed its tail would draw, so the flags and the gates change no mask.
+With ``use_hash_dropout: false`` the tails draw ``int_threshold_dropout``
+where no kernel flag takes them.
 
 Any other plan (ViLBERT, LXMERT), and ``output_all_layers`` or
 ``output_probs``, take the general loop (encoder.py:615-631): each sublayer
@@ -85,6 +87,7 @@ from ..ops.attention import attention_out, attention_probs, \
     dropout_attention_hidden_masks, fused_attention, plain_attention, \
     probs_keep
 from ..ops.hash_dropout import apply_keep_mask
+from ..parallel.tp import split_world
 from ..utils.profiling import named_range
 from .embeddings import compute_dtype
 from .layers import ACT2FN, Dense, LayerNorm, hash_dropout, layer_norm, \
@@ -305,7 +308,8 @@ class GatedAttentionSublayer(_Tails, nn.Module):
         q, k, v = (_heads(m(x), h) for m in (self.query, self.key,
                                               self.value))
         if (self.fuse_hidden and self.training and self.attn_rate > 0.0
-                and self.hidden_rate > 0.0 and bias is not None and l >= 8):
+                and self.hidden_rate > 0.0 and bias is not None and l >= 8
+                and not split_world()):
             # row 9: the seeds of the attention, of this tail and of the
             # next feed-forward's tail, in the order the unfused path
             # draws them, so each mask is the one that path draws

@@ -37,6 +37,7 @@ from ..ops.hash import _M32, GOLDEN, dropout_threshold, fmix32, \
     seeded_bits  # noqa: F401
 from ..ops.hash_dropout import HashDropout, apply_keep_mask
 from ..ops.layernorm import LN_EPS, fused_layer_norm
+from ..parallel.tp import split_world
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -119,8 +120,10 @@ class LayerNorm(nn.Module):
         if residual is not None:
             dropping = drop_rate > 0.0 and (seed is not None
                                             or keep_mask is not None)
+            # row 14 stays off across ranks, as JAX's under a mesh
             if (dropping and keep_mask is None and self.pallas_mask
-                    and dropout_mask.supported(x.shape)):
+                    and dropout_mask.supported(x.shape)
+                    and not split_world()):
                 keep_mask = dropout_mask.keep_mask(x.shape, drop_rate, seed,
                                                    x.device)
             if dropping and keep_mask is not None:

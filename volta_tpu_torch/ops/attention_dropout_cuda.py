@@ -28,7 +28,7 @@ from . import LAUNCHES, _build
 from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, _heads4, attention_bwd_math,
                              bwd_body, check, fwd_body, launch_error)
-from .hash import dropout_threshold, hash_keep
+from .hash import dropout_threshold, fold_seed, hash_keep
 
 
 def keep_scale(rate: float) -> float:
@@ -164,10 +164,12 @@ class DropoutAttention(torch.autograd.Function):
     uint32 ``seed``: forward ``attention_dropout_fwd``, backward
     ``attention_dropout_bwd`` (the kernels on the card, the twins on the
     CPU). Saves q, k, v and bias, no mask. The bias gets no gradient, as in
-    the TPU rule (``_nat_bwd_rule`` returns zeros for it)."""
+    the TPU rule (``_nat_bwd_rule`` returns zeros for it). The seed is
+    folded for the rank's [B, H, Lq, Lk] (``hash.fold_seed``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, heads, rate, seed):
+        seed = fold_seed(seed, q.shape[0] * heads * q.shape[1] * k.shape[1])
         ctx.save_for_backward(q, k, v, bias)
         ctx.args = (scale, heads, rate, seed)
         return attention_dropout_fwd(q, k, v, bias, scale, heads, rate, seed)

@@ -39,7 +39,7 @@ from .attention import attention_out, attention_probs
 from .attention_cuda import (DTYPE_CODE, attention_bwd_math, bwd_body,
                              check, fwd_body, launch_error)
 from .attention_dropout_cuda import _check_rate, keep_mask, keep_scale
-from .hash import dropout_threshold
+from .hash import dropout_threshold, fold_seed
 
 
 def _natural(x):
@@ -268,10 +268,13 @@ class HeadMajorDropoutAttention(torch.autograd.Function):
     operands, mask from the uint32 ``seed``: forward row 5, whose keep mask
     is saved with q, k, v and bias; backward row 6, which reads it. The bias
     gets no gradient, as in the TPU rule (``_dropout_bwd_rule`` returns
-    zeros for it)."""
+    zeros for it). The seed is folded for the rank's natural [B, H, Lq,
+    Lk], the index the mask hashes (``hash.fold_seed``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, rate, seed):
+        seed = fold_seed(seed, q.shape[1] * q.shape[0] * q.shape[2]
+                         * k.shape[2])
         out, mask = attention_dropout_head_major_fwd(q, k, v, bias, scale,
                                                      rate, seed)
         ctx.save_for_backward(q, k, v, bias, mask)

@@ -34,7 +34,7 @@ from . import attention_head_major_cuda as ahm
 from . import dropout_mask as dm
 from .attention_cuda import DTYPE_CODE, check, fwd_body, launch_error
 from .attention_dropout_cuda import _check_rate, keep_scale
-from .hash import dropout_threshold
+from .hash import dropout_threshold, fold_seed
 
 
 def attention_dropout_hidden_masks_fwd_ref(q, k, v, bias, scale, rate, seed,
@@ -108,11 +108,15 @@ class HiddenMaskDropoutAttention(torch.autograd.Function):
     """Row 9 forward, row 6 backward, on [H, B, L, D] operands: returns
     (out, hm0, hm1). The probability mask is saved for row 6; the hidden
     masks are outputs without a gradient, and the bias gets none, as in the
-    TPU rule."""
+    TPU rule. The seeds are folded for the rank's [B, H, Lq, Lk] and [B,
+    Lq, H·D] (``hash.fold_seed``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, rate, seed, hidden_rate, hseed0,
                 hseed1):
+        h, b, lq, _ = q.shape
+        seed = fold_seed(seed, b * h * lq * k.shape[2])
+        hseed0, hseed1 = (fold_seed(s, q.numel()) for s in (hseed0, hseed1))
         out, mask, hm0, hm1 = attention_dropout_hidden_masks_fwd(
             q, k, v, bias, scale, rate, seed, hidden_rate, hseed0, hseed1)
         ctx.save_for_backward(q, k, v, bias, mask)

@@ -24,7 +24,7 @@ import torch
 from . import LAUNCHES, _build
 from . import attention_dropout_cuda as adc
 from .attention_cuda import launch_error
-from .hash import dropout_threshold
+from .hash import dropout_threshold, fold_seed
 
 
 def _row_tile(n: int, cap: int = 1024) -> int:
@@ -70,8 +70,10 @@ def _kernel():
 def keep_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
     """The uint8 0/1 keep mask of ``shape`` for the dropout ``rate`` and the
     uint32 ``seed`` on ``device``: the kernel on a CUDA device, the plain
-    twin on the CPU."""
+    twin on the CPU. The seed is folded for the rank's elements
+    (``hash.fold_seed``)."""
     _check(rate, seed)
+    seed = fold_seed(seed, math.prod(shape))
     device = torch.device(device)
     if device.type == "cpu":
         return keep_mask_ref(shape, rate, seed, device)

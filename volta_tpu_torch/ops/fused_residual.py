@@ -36,7 +36,7 @@ from torch.autograd.function import once_differentiable
 from . import LAUNCHES, _build
 from .attention_cuda import DTYPE_CODE, launch_error
 from .attention_dropout_cuda import keep_mask, keep_scale
-from .hash import dropout_threshold
+from .hash import dropout_threshold, fold_seed
 from .layernorm import (BAND_WARPS, LN_EPS, band_blocks, band_capacity,
                         bwd_workspace, check_rows, ln_rows, ln_rows_vjp)
 
@@ -185,10 +185,12 @@ class DropoutResidualLN(torch.autograd.Function):
     """LN(dropout(o) + x) over the last axis (any leading shape), mask from
     the uint32 ``seed``: forward ``dropout_residual_ln_fwd``, backward
     ``dropout_residual_ln_bwd`` (the kernels on the card, the twins on the
-    CPU). Saves od, x, weight, mean and rstd, no mask."""
+    CPU). Saves od, x, weight, mean and rstd, no mask. The seed is folded
+    for the rank's rows · d (``hash.fold_seed``)."""
 
     @staticmethod
     def forward(ctx, o, x, weight, bias, seed, rate, eps):
+        seed = fold_seed(seed, o.numel())
         shape = o.shape
         o2 = o.reshape(-1, shape[-1]).contiguous()
         x2 = x.reshape(o2.shape).contiguous()

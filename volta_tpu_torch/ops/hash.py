@@ -7,11 +7,20 @@ threshold uint32((1 - rate) * (2^32 - 1)): the JAX package's
 ``models.layers``, the dropout-attention twins and the fused residual twins
 take their masks from here; the CUDA kernels hold the same hash in
 ``csrc/common.cuh``.
+
+Under data parallelism (``parallel.data_parallel``) rank r of W holds rows
+r·B to (r+1)·B of the global batch, and every hashed index space has the
+batch as its slowest axis, so rank r's element n is the global element
+n + r·(its local element count). ``fold_seed`` moves that shift into the
+seed, which the kernels take as it is; ``seeded_bits`` draws the global
+shape and keeps the rank's rows.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.tp import current_group
 
 _M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
@@ -46,15 +55,38 @@ def hash_bits(index: torch.Tensor, seed: int) -> torch.Tensor:
     return fmix32((_mul32(index & _M32, GOLDEN) + (int(seed) & _M32)) & _M32)
 
 
+def fold_seed(seed: int, local_numel: int) -> int:
+    """The seed that gives this rank's hashed elements the global batch's
+    bits: with rank r of the installed group and base = r · ``local_numel``
+    (the hashed tensor's elements on this rank), (n + base)·G + seed =
+    n·G + (base·G + seed), all modulo 2^32 as JAX's uint32 iota wraps. The
+    seed itself outside a group and on rank 0."""
+    g = current_group()
+    if g is None or g.rank == 0:
+        return int(seed)
+    base = (g.rank * int(local_numel)) & _M32
+    return (int(seed) + _mul32(base, GOLDEN)) & _M32
+
+
 def seeded_bits(shape, seed: int, device) -> torch.Tensor:
     """Raw uint32 draws (held in int64) of ``shape`` from a
     ``torch.Generator`` on ``device`` seeded with the uint32 ``seed``: the
     draws of ``int_threshold_dropout`` and of the plain attention route's
     dropout. The generator is made here, so a seed always gives the same
-    draws and the global generator is neither read nor moved."""
+    draws and the global generator is neither read nor moved. Inside a
+    group of W ranks it draws the global shape [W·B, ...] (``shape`` [B,
+    ...], the batch leading) and returns the rank's rows, W times the
+    draws, as JAX draws the global shape under a mesh."""
     gen = torch.Generator(device=device).manual_seed(int(seed) & _M32)
-    return torch.randint(0, 2**32, tuple(shape), generator=gen,
-                         dtype=torch.int64, device=device)
+    shape = tuple(shape)
+    g = current_group()
+    if g is None or g.world == 1:
+        return torch.randint(0, 2**32, shape, generator=gen,
+                             dtype=torch.int64, device=device)
+    b = shape[0]
+    bits = torch.randint(0, 2**32, (g.world * b,) + shape[1:],
+                         generator=gen, dtype=torch.int64, device=device)
+    return bits[g.rank * b:(g.rank + 1) * b]
 
 
 def hash_keep(index: torch.Tensor, seed: int, rate: float) -> torch.Tensor:

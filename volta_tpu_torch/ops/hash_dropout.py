@@ -22,7 +22,7 @@ from torch.autograd.function import once_differentiable
 
 from . import LAUNCHES, _build
 from .attention_cuda import DTYPE_CODE, launch_error
-from .hash import dropout_threshold, hash_keep
+from .hash import dropout_threshold, fold_seed, hash_keep
 
 THREADS = 256  # kThreads in csrc/hash_dropout.cu
 VEC_BYTES = 16  # each thread's load and store a step
@@ -174,10 +174,12 @@ def hash_dropout_bwd(g: torch.Tensor, seed: int, rate: float):
 class HashDropout(torch.autograd.Function):
     """Counter-hash dropout of x with the uint32 ``seed``: forward
     ``hash_dropout_fwd``, backward ``hash_dropout_bwd`` (the kernel on the
-    card, the twin on the CPU), looked up at call time. Saves no tensor."""
+    card, the twin on the CPU), looked up at call time. Saves no tensor.
+    The seed is folded for the rank's elements (``hash.fold_seed``)."""
 
     @staticmethod
     def forward(ctx, x, seed, rate):
+        seed = fold_seed(seed, x.numel())
         ctx.seed, ctx.rate = seed, rate
         return hash_dropout_fwd(x, seed, rate)
 

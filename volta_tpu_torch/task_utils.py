@@ -17,6 +17,7 @@ import torch
 import yaml
 
 from .losses import binary_cross_entropy_with_logits
+from .parallel import current_group
 
 
 def load_task_config(path: str) -> Dict[str, Any]:
@@ -85,19 +86,22 @@ def _make_readers(cfg, tc, in_memory=False):
 
 def load_dataset(args, cfg, task_cfg: Dict[str, Any], task_id: str,
                  split: str = "trainval"):
-    """Train/val datasets + loaders for one task, one host
+    """Train/val datasets + loaders for one task
     (volta_tpu/task_utils.py:96-141; reference: volta/task_utils.py:290-371).
     The train loader shuffles from ``args.seed`` and drops the last partial
-    batch; so does the val loader, as in the JAX CLI."""
+    batch; so does the val loader, as in the JAX CLI. In a process group
+    both read the rank's shard at the task batch / K / W
+    (``parallel.per_rank_batch``, ``parallel.shard_args``)."""
     from .data.datasets import DatasetMapTrain
     from .data.loader import DataLoader
+    from .parallel import per_rank_batch, shard_args
 
     tokenizer = make_tokenizer(args.bert_model, args.do_lower_case,
                                getattr(args, "vocab_file", None))
     task = task_key(task_id)
     tc = task_cfg[task]
     readers = _make_readers(cfg, tc, getattr(args, "in_memory", False))
-    batch_size = tc["batch_size"] // args.grad_acc_steps
+    batch_size = per_rank_batch(tc["batch_size"], args.grad_acc_steps)
     packed = getattr(args, "in_memory", False)
     feat_dtype = "bfloat16" if getattr(cfg, "compute_dtype", "") == \
         "bfloat16" else "float32"
@@ -115,7 +119,8 @@ def load_dataset(args, cfg, task_cfg: Dict[str, Any], task_id: str,
         out[f"{name}_loader"] = DataLoader(
             ds, batch_size, shuffle=shuffle, seed=args.seed, drop_last=True,
             num_workers=workers,
-            num_procs=getattr(args, "num_worker_procs", 0) if shuffle else 0)
+            num_procs=getattr(args, "num_worker_procs", 0) if shuffle else 0,
+            **shard_args())
     return out
 
 
@@ -257,7 +262,12 @@ def task_loss_and_score(task_type: str, prediction, batch, info,
                         loss_name: str = "BCEWithLogitLoss"):
     """Training loss and batch score per task type
     (volta_tpu/task_utils.py:279-329; reference:
-    volta/task_utils.py:238-279). An unknown type raises ``ValueError``."""
+    volta/task_utils.py:238-279). An unknown type raises ``ValueError``.
+    Inside a data-parallel group of W ranks the loss is the rank's share
+    of the global batch's, its batch mean over W: the ranks' batches are
+    of one size (``parallel.per_rank_batch``, the loaders drop a partial
+    batch), so the mean of their means is the global batch's mean.
+    ``score`` stays the rank's sum."""
     target = batch["target"]
     bsz = info["batch_size"]
     if task_type in ("VL-classifier", "VL-classifier-GQA"):
@@ -299,4 +309,7 @@ def task_loss_and_score(task_type: str, prediction, batch, info,
             score = torch.sum(soft_score_with_logits(prediction, target))
     else:
         raise ValueError(f"Undefined task type: {task_type}")
+    g = current_group()
+    if g is not None and g.world > 1:
+        loss = loss / g.world
     return loss, score

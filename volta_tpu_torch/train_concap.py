@@ -40,13 +40,18 @@ parameter that ``--from_pretrained`` loaded from a reference or HF ``.bin``
 whose report names no reference tensors). ``--profile_steps N`` and
 ``--debug_nans`` act as ``train_task``'s (a trace of global steps 20 to
 20 + N into ``<logdir>/<run>/``; ``FloatingPointError`` at the first op
-output that holds a NaN). ``--distributed`` raises, naming its ROADMAP.md
-item; the JAX-only ``--prng_impl`` does not exist here.
+output that holds a NaN). ``--distributed`` runs under ``torchrun`` as
+``train_task``'s does: rank r of W reads ``training_feat_part_<r>.lmdb``
+where it exists (else shard r of ``training_feat_all.lmdb``) and shard r
+of the validation set, at ``--train_batch_size`` / K / W; the NCE
+negatives come from the global batch. The JAX-only ``--prng_impl`` does
+not exist here.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 import os
 import signal
@@ -135,22 +140,18 @@ def main(argv=None):
     step), val_losses (one an epoch), run_dir, log_dir, pretrained (the
     ``from_pretrained`` report or None), profile_trace (the
     ``--profile_steps`` trace's path, or None)}."""
-    from .train_task import debug_nans, refuse_unported
+    from .train_task import debug_nans, run_device
 
     args = parse_args(argv)
-    refuse_unported(args)
-    with debug_nans(args.debug_nans):
-        return _train(args)
+    with debug_nans(args.debug_nans), run_device("train_concap",
+                                                 args) as device:
+        return _train(args, device)
 
 
-def _train(args):
+def _train(args, device):
     from .train_task import _fetch, log_pretrained, state_dtype
     from .utils.profiling import ProfileSteps
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("train_concap: --device cuda but CUDA is not "
-                         "available (pass --device cpu to run on the CPU)")
     from . import losses
     from .checkpoint import TRAIN_STATE, from_pretrained, resume, \
         save_train_state
@@ -160,6 +161,8 @@ def _train(args):
     from .models.layers import init_weights
     from .optimization import build_optimizer, flax_paths, \
         lr_scales_from_loaded, warmup_linear_schedule
+    from .parallel import broadcast_state, min_across, per_rank_batch, \
+        shard_args
     from .task_utils import make_tokenizer
     from .train_step import create_train_state, make_pretrain_eval_step, \
         make_pretrain_step
@@ -183,11 +186,12 @@ def _train(args):
     tokenizer = make_tokenizer(args.bert_model, args.do_lower_case,
                                args.vocab_file)
     bf16 = args.compute_dtype == "bfloat16"
-    batch_size = args.train_batch_size // args.grad_acc_steps
+    batch_size = per_rank_batch(args.train_batch_size, args.grad_acc_steps)
     common = dict(seq_len=args.max_seq_length,
                   region_len=args.max_region_num, batch_size=batch_size,
                   objective=args.objective, num_locs=cfg.num_locs,
-                  add_global_imgfeat=cfg.add_global_imgfeat, seed=args.seed)
+                  add_global_imgfeat=cfg.add_global_imgfeat, seed=args.seed,
+                  **shard_args())
     train_ds, train_loader = make_concap_loader(
         args.features_path, args.annotations_path, tokenizer,
         split="train", num_workers=args.num_workers,
@@ -228,7 +232,9 @@ def _train(args):
     logger.info("parameters: %d",
                 sum(p.numel() for p in model.parameters()))
 
-    steps_per_epoch = len(train_loader)
+    # the batches every rank has, so that the ranks' steps pair up
+    steps_per_epoch = min_across(len(train_loader))
+    n_val = min_across(len(val_loader)) if val_loader is not None else 0
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
     total = max(1, steps_per_epoch * args.num_train_epochs)
@@ -255,6 +261,7 @@ def _train(args):
                         "match): %s", info["hyperparams"])
         logger.info("resumed from %s at step %d (epoch %d)", src,
                     info["global_step"], start_epoch)
+    broadcast_state(state)
 
     step_fn = make_pretrain_step(model, optimizer, cfg,
                                  objective=args.objective)
@@ -288,9 +295,7 @@ def _train(args):
             train_ds.set_epoch(epoch)
             train_loader.set_epoch(epoch)
             model.train()
-            for i, batch in enumerate(train_loader):
-                if args.steps_per_epoch and i >= args.steps_per_epoch:
-                    break
+            for batch in itertools.islice(train_loader, steps_per_epoch):
                 with profiler.step(state.step):
                     out = step_fn(state, batch)
                 profiler.done(state.step, out["loss"])
@@ -307,7 +312,8 @@ def _train(args):
                 if len(pending) >= tb.period:
                     flush(epoch)
             if val_loader is not None:
-                outs = [(0, eval_fn(batch)) for batch in val_loader]
+                outs = [(0, eval_fn(batch))
+                        for batch in itertools.islice(val_loader, n_val)]
                 vals = [v for _, v in _fetch(outs, ("loss",))]
                 val_losses.append(float(np.mean(vals)) if vals
                                   else float("nan"))
@@ -332,6 +338,8 @@ def _result(state, train_losses, val_losses, run_dir, log_dir, report,
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO,
+    from .train_task import log_level
+
+    logging.basicConfig(level=log_level(),
                         format="%(asctime)s %(message)s")
     main()

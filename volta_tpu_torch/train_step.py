@@ -1,7 +1,7 @@
 """The fine-tuning and pretraining steps: counterparts of
 ``make_task_train_step`` and ``make_pretrain_step`` /
 ``make_pretrain_eval_step`` (volta_tpu/parallel/train_step.py:24-138,
-182-329) on one device, no mesh.
+182-329) on one device, or on one of W ranks of a data-parallel group.
 
 A step moves the batch to the model's device, runs the forward in the
 model's mode (training mode: every dropout site, seeded from one step seed
@@ -12,6 +12,14 @@ metrics stay on the device: nothing in the step waits for the card. With a
 carries row indices and sparse targets, and ``materialize_store_batch``
 expands it on the device into the dense batch's layout
 (``materialize_cc_store_batch`` for Conceptual Captions).
+
+In a process group (``parallel.init_distributed``) each rank runs the same
+step on its 1/W of the global batch inside ``parallel.step_context``: the
+losses are the rank's shares of the global batch's, the gradients that
+exist are summed over the ranks after the backward (on every micro-step
+of accumulation, as JAX sums them over its mesh inside ``MultiSteps``),
+and the clip and the optimizer then run alike on every rank. The metrics
+are the global batch's. Without a group every collective is the identity.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from .losses import pretraining_losses
 # the regression targets without the global image row
 # (volta_tpu/parallel/train_step.py:322-329)
 from .losses import strip_global_rows as _strip_global
+from .parallel import all_reduce_grads, current_group, step_context, \
+    sum_across
 from .task_utils import process_batch, task_loss_and_score
 
 
@@ -129,25 +139,39 @@ def make_task_train_step(model, optimizer, task_cfg: Dict, task_id: str,
     device = next(model.parameters()).device
 
     def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
-        batch = to_device(_widen_wire(batch), device)
-        if store is not None:
-            batch = materialize_store_batch(store, batch, num_labels)
-        inputs, info = process_batch(tc, batch)
-        pred = model(inputs["input_ids"], inputs["image_feat"],
-                     inputs["image_loc"], task_id, inputs["token_type_ids"],
-                     inputs["attention_mask"],
-                     inputs["image_attention_mask"],
-                     dropout_seed=state.next_dropout_seed())
-        loss, score = task_loss_and_score(ttype, pred, batch, info,
-                                          loss_name)
-        loss.backward()
-        optimizer.step()
-        optimizer.zero_grad()
-        state.step += 1
-        return {"loss": loss.detach(),
-                "score": score.detach() / info["batch_size"]}
+        with step_context():
+            batch = to_device(_widen_wire(batch), device)
+            if store is not None:
+                batch = materialize_store_batch(store, batch, num_labels)
+            inputs, info = process_batch(tc, batch)
+            pred = model(inputs["input_ids"], inputs["image_feat"],
+                         inputs["image_loc"], task_id,
+                         inputs["token_type_ids"], inputs["attention_mask"],
+                         inputs["image_attention_mask"],
+                         dropout_seed=state.next_dropout_seed())
+            loss, score = task_loss_and_score(ttype, pred, batch, info,
+                                              loss_name)
+            loss.backward()
+            all_reduce_grads(model.parameters())
+            optimizer.step()
+            optimizer.zero_grad()
+            state.step += 1
+            return _task_metrics(loss, score, info["batch_size"])
 
     return step
+
+
+def _task_metrics(loss, score, batch_size: int) -> Dict[str, torch.Tensor]:
+    """{loss, score (the mean score a row)} of the global batch: inside a
+    group the ranks' loss shares, summed scores and rows summed over the
+    ranks (one all-reduce of three scalars)."""
+    loss, score = loss.detach(), score.detach()
+    if current_group() is None:
+        return {"loss": loss, "score": score / batch_size}
+    total = sum_across(torch.stack([
+        loss.float(), score.float(),
+        torch.full((), float(batch_size), device=loss.device)]))
+    return {"loss": total[0], "score": total[1] / total[2]}
 
 
 # -------------------------------------------------------------- pretraining
@@ -234,10 +258,14 @@ def _nce_generator(cfg, device, seed: int):
 
 def _metrics(device, **terms) -> Dict[str, torch.Tensor]:
     """Each term as a detached float32 tensor on ``device`` (a term that is
-    absent is the float 0.0)."""
-    return {k: v.detach().float() if isinstance(v, torch.Tensor)
-            else torch.tensor(float(v), device=device)
-            for k, v in terms.items()}
+    absent is the float 0.0), summed over the ranks of a group (one
+    all-reduce): the global batch's."""
+    out = {k: v.detach().float() if isinstance(v, torch.Tensor)
+           else torch.tensor(float(v), device=device)
+           for k, v in terms.items()}
+    if current_group() is None:
+        return out
+    return dict(zip(out, sum_across(torch.stack(list(out.values())))))
 
 
 def make_pretrain_step(model, optimizer, cfg, objective: int = 0,
@@ -255,26 +283,30 @@ def make_pretrain_step(model, optimizer, cfg, objective: int = 0,
     device = next(model.parameters()).device
 
     def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
-        batch = _pretrain_batch(batch, device, store, cfg)
-        dropout_seed = state.next_dropout_seed()
-        generator = _nce_generator(cfg, device, state.next_dropout_seed())
-        lm_labels, image_label = batch["lm_label_ids"], batch["image_label"]
-        if objective == 1:
-            keep = (batch["is_match"] == 0)[:, None]
-            lm_labels = torch.where(keep, lm_labels, -1)
-            image_label = torch.where(keep, image_label, -1)
-        mlm, mrm, itm = _pretrain_losses(model, cfg, batch, lm_labels,
-                                         image_label, generator,
-                                         dropout_seed)
-        if objective == 2:
-            itm = itm * 0.0
-        loss = mlm + mrm + itm
-        loss.backward()
-        optimizer.step()
-        optimizer.zero_grad()
-        state.step += 1
-        return _metrics(device, loss=loss, masked_t=mlm, masked_v=mrm,
-                        itm=itm)
+        with step_context():
+            batch = _pretrain_batch(batch, device, store, cfg)
+            dropout_seed = state.next_dropout_seed()
+            generator = _nce_generator(cfg, device,
+                                       state.next_dropout_seed())
+            lm_labels, image_label = batch["lm_label_ids"], \
+                batch["image_label"]
+            if objective == 1:
+                keep = (batch["is_match"] == 0)[:, None]
+                lm_labels = torch.where(keep, lm_labels, -1)
+                image_label = torch.where(keep, image_label, -1)
+            mlm, mrm, itm = _pretrain_losses(model, cfg, batch, lm_labels,
+                                             image_label, generator,
+                                             dropout_seed)
+            if objective == 2:
+                itm = itm * 0.0
+            loss = mlm + mrm + itm
+            loss.backward()
+            all_reduce_grads(model.parameters())
+            optimizer.step()
+            optimizer.zero_grad()
+            state.step += 1
+            return _metrics(device, loss=loss, masked_t=mlm, masked_v=mrm,
+                            itm=itm)
 
     return step
 
@@ -284,21 +316,22 @@ def make_pretrain_eval_step(model, cfg) -> Callable:
     (volta_tpu/parallel/train_step.py:293-319): the model in eval mode
     under ``torch.inference_mode()`` (its mode is restored after), every
     label as the batch gives it, the NCE negatives drawn from a generator
-    seeded 0, as JAX's from ``PRNGKey(0)``."""
+    seeded 0, as JAX's from ``PRNGKey(0)``. Inside a group, the global
+    batch's losses."""
     device = next(model.parameters()).device
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         was_training = model.training
         model.eval()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), step_context():
                 batch = to_device(_widen_wire(batch), device)
                 mlm, mrm, itm = _pretrain_losses(
                     model, cfg, batch, batch["lm_label_ids"],
                     batch["image_label"], _nce_generator(cfg, device, 0))
+                return _metrics(device, loss=mlm + mrm + itm, masked_t=mlm,
+                                masked_v=mrm, itm=itm)
         finally:
             model.train(was_training)
-        return _metrics(device, loss=mlm + mrm + itm, masked_t=mlm,
-                        masked_v=mrm, itm=itm)
 
     return step

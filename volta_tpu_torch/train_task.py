@@ -38,14 +38,30 @@ and ships row indices and sparse targets (``train_step
 ``torch.profiler`` trace of global steps 20 to 20 + N into
 ``<logdir>/<run>/`` (``utils.profiling``), and ``--debug_nans`` raises
 ``FloatingPointError`` at the first op output, forward or backward, that
-holds a NaN. ``--distributed`` raises, naming its ROADMAP.md item; the
-JAX-only ``--prng_impl`` does not exist here.
+holds a NaN. The JAX-only ``--prng_impl`` does not exist here.
+
+``--distributed`` trains one model on W processes, one a GPU, each on its
+1/W of the global batch (``parallel``), as the JAX CLI's mesh does over
+its ``data`` axis:
+
+    torchrun --standalone --nproc_per_node 4 -m volta_tpu_torch.train_task \
+        --distributed --config_file ... --tasks_config_file ... --task 1
+
+Rank r runs on ``cuda:<LOCAL_RANK>`` (NCCL; gloo with ``--device cpu``)
+and reads loader shard r of W at the task batch / K / W; each step equals
+the one-GPU step over the ranks' concatenated batches, up to the order of
+summation. Rank 0's weights and optimizer state go to every rank after
+they are loaded or resumed; each epoch every rank takes the batches that
+all of them have, and the validation sums over the ranks, so every rank
+sees the same score. Rank 0 alone logs, writes ``command.txt``, the
+checkpoints and the profile.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import logging
 import os
 
@@ -130,19 +146,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args):
-    """Raise NotImplementedError for each flag whose feature the port does
-    not have yet, naming the ROADMAP.md item that owns it (this CLI's flags
-    and ``train_concap``'s): ``--distributed``."""
-    unported = [
-        (args.distributed, "--distributed", "Queue 1 item 9"),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md {item})")
-
-
 def state_dtype(args):
     """The moments' stored dtype of ``--optimizer_state_dtype``: None
     (the parameters' float32) or ``torch.bfloat16``."""
@@ -186,21 +189,45 @@ def debug_nans(on: bool):
             mode.__exit__(None, None, None)
 
 
+@contextlib.contextmanager
+def run_device(name: str, args):
+    """The run's device: ``--device``, which never falls back to the CPU;
+    with ``--distributed`` the rank's, in the process group that
+    ``torchrun`` describes, left when the run ends."""
+    import torch.distributed as dist
+
+    from .parallel import init_distributed
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{name}: --device cuda but CUDA is not available "
+                         "(pass --device cpu to run on the CPU)")
+    if not args.distributed:
+        yield device
+        return
+    device = init_distributed(device)
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
+
+
+def log_level() -> int:
+    """INFO on rank 0 (or without ``torchrun``), WARNING on the others."""
+    return logging.INFO if os.environ.get("RANK", "0") == "0" \
+        else logging.WARNING
+
+
 def main(argv=None):
     """Train; returns {best_score, steps, train_losses, val_scores,
     run_dir, log_dir, profile_trace (the ``--profile_steps`` trace's path,
     or None)}."""
     args = parse_args(argv)
-    refuse_unported(args)
-    with debug_nans(args.debug_nans):
-        return _train(args)
+    with debug_nans(args.debug_nans), run_device("train_task", args) as dev:
+        return _train(args, dev)
 
 
-def _train(args):
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("train_task: --device cuda but CUDA is not available "
-                         "(pass --device cpu to run on the CPU)")
+def _train(args, device):
     from .checkpoint import TRAIN_STATE, from_pretrained, resume, \
         save_train_state
     from .config import VoltaConfig
@@ -208,6 +235,7 @@ def _train(args):
     from .models import VoltaForVLTasks
     from .models.layers import init_weights
     from .optimization import SCHEDULES, build_optimizer
+    from .parallel import broadcast_state, min_across
     from .task_utils import load_dataset, load_task_config, task_key
     from .train_step import create_train_state, make_task_train_step, \
         store_to_device
@@ -259,7 +287,10 @@ def _train(args):
     logger.info("parameters: %d",
                 sum(p.numel() for p in model.parameters()))
 
-    steps_per_epoch = len(train_loader) // args.grad_acc_steps
+    # the batches every rank has, so that the ranks' steps pair up
+    n_train = min_across(len(train_loader))
+    n_val = min_across(len(val_loader)) if val_loader is not None else 0
+    steps_per_epoch = n_train // args.grad_acc_steps
     total_steps = max(1, steps_per_epoch * args.num_train_epochs)
     warmup = int(args.warmup_steps) if args.warmup_steps is not None else \
         int(total_steps * args.warmup_proportion)
@@ -298,13 +329,14 @@ def _train(args):
     src = args.resume_file or (ckpt_dir if os.path.exists(
         os.path.join(ckpt_dir, TRAIN_STATE)) else "")
     if src:
-        info = resume(cfg, state, src, steps_per_epoch, len(train_loader))
+        info = resume(cfg, state, src, steps_per_epoch, n_train)
         start_epoch, best_score = info["start_epoch"], info["best_score"]
         if info["hyperparams"]:
             logger.info("tar optimizer hyperparams (verify CLI flags "
                         "match): %s", info["hyperparams"])
         logger.info("resumed from %s at step %d (epoch %d)", src,
                     info["global_step"], start_epoch)
+    broadcast_state(state)
     train_losses, val_scores, pending = [], [], []
     profiler = ProfileSteps(args.profile_steps, log_dir)
 
@@ -319,7 +351,7 @@ def _train(args):
     for epoch in range(start_epoch, args.num_train_epochs):
         train_loader.set_epoch(epoch)
         model.train()
-        for batch in train_loader:
+        for batch in itertools.islice(train_loader, n_train):
             with profiler.step(state.step):
                 out = train_step(state, batch)
             profiler.done(state.step, out["loss"])
@@ -332,7 +364,8 @@ def _train(args):
             model.eval()
             # keep only the scalars of each batch, fetched in one transfer
             outs = [(out["batch_size"], {k: out[k] for k in ("loss", "score")})
-                    for out in map(eval_step, val_loader)]
+                    for out in map(eval_step,
+                                   itertools.islice(val_loader, n_val))]
             for bsz, loss, score in _fetch(outs, ("loss", "score")):
                 tb.step_val(loss, score, bsz, task)
             score = tb.show_val(epoch, state.step, task)
@@ -353,6 +386,6 @@ def _train(args):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO,
+    logging.basicConfig(level=log_level(),
                         format="%(asctime)s %(message)s")
     main()

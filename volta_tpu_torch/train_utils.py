@@ -21,19 +21,23 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from .parallel import is_rank0
+
 logger = logging.getLogger(__name__)
 
 
 class MetricsLogger:
     """Per-task running loss/score accumulators with plain-text output
-    (reference: volta/train_utils.py:18-247)."""
+    (reference: volta/train_utils.py:18-247). In a process group only
+    rank 0 prints and writes ``out.txt``; every rank keeps the sums, so
+    ``show_val`` returns the same score on each."""
 
     def __init__(self, log_dir: Optional[str] = None,
                  txt_name: str = "out.txt", period: int = 20):
         self.period = period
         self.log_dir = log_dir
         self._txt = None
-        if log_dir:
+        if log_dir and is_rank0():
             os.makedirs(log_dir, exist_ok=True)
             self._txt = open(os.path.join(log_dir, txt_name), "a")
         self._acc = defaultdict(lambda: defaultdict(float))
@@ -100,6 +104,8 @@ class MetricsLogger:
         return score
 
     def _emit(self, msg: str):
+        if not is_rank0():
+            return
         print(msg, flush=True)
         if self._txt is not None:
             self._txt.write(msg + "\n")
@@ -112,7 +118,9 @@ class MetricsLogger:
 
 def save_command(output_dir: str, args, config=None):
     """Dump CLI args + model config next to the run
-    (reference: train_task.py:158-162)."""
+    (reference: train_task.py:158-162); rank 0 alone in a process group."""
+    if not is_rank0():
+        return
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "command.txt"), "w") as f:
         f.write(json.dumps(vars(args), indent=2, default=str) + "\n")

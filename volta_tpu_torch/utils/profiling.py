@@ -24,6 +24,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from ..parallel import is_rank0
+
 logger = logging.getLogger(__name__)
 
 
@@ -40,12 +42,6 @@ def named_range(name: str):
     return contextlib.nullcontext()
 
 
-def _rank0() -> bool:
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()) \
-        or dist.get_rank() == 0
-
-
 class Trace:
     """A ``torch.profiler`` session into ``logdir``: ``start()``, then
     ``stop()`` writes ``<logdir>/trace_<time>.json`` (Chrome trace format)
@@ -60,7 +56,7 @@ class Trace:
     def start(self, warmup: int = 0, active: int = 0):
         """Record from now on or, after ``warmup`` steps (``step()`` after
         each), for ``active`` steps."""
-        if not _rank0():
+        if not is_rank0():
             return self
         os.makedirs(self.logdir, exist_ok=True)
         acts = [torch.profiler.ProfilerActivity.CPU]
